@@ -1,0 +1,148 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
+a plain C interface, loaded with ``ctypes``.  The build happens at first
+use, never at import, into ``<repo>/build/kernels/<hash>/`` (listed in
+``.gitignore``), keyed by a hash of the sources and flags, so a fresh
+checkout builds from its own sources alone.  No ``--use_fast_math``: the
+mixdec oscillator needs the accurate ``sincosf``.
+
+Every C entry point enqueues its kernels on the caller's stream and
+returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libcutesdr_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+U32 = ctypes.c_uint32
+F32 = ctypes.c_float
+
+# C signatures: name -> argument types (every entry returns a cudaError_t)
+SIGNATURES = {
+    # re, im, re_stride, im_stride, tail, tail_len, taps, ntaps, dc, phase,
+    # inc, scale, dec, n_out, y, stream
+    "cutesdr_mixdec": [P, P, I64, I64, P, I32, P, I32, P, P,
+                       U32, F32, I32, I32, P, P],
+    # z, h, twiddles, y, nfft, ntaps, n_frames, stream
+    "cutesdr_fastfir": [P, P, P, P, I32, I32, I32, P],
+    # a, b, x0, n, x, totals_a, totals_b, starts, stream
+    "cutesdr_scan_plain": [P, P, P, I32, P, P, P, P, P],
+    # peak, pattern, rise, fall, x0, n, x, newpat, count, totals_a,
+    # totals_b, starts, stream
+    "cutesdr_scan_round": [P, P, F32, F32, P, I32, P, P, P, P, P, P, P],
+    # mag, attack, decay, a0, d0, n, out, totals_a, totals_b, starts,
+    # maps_c, maps_u, maps_v, stream
+    "cutesdr_smeter": [P, F32, F32, P, P, I32, P, P, P, P, P, P, P, P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def build() -> Path:
+    """Compile the library if this source hash has not been built yet."""
+    global build_seconds
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            numel: int | None = None, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a 1-D CUDA tensor of ``dtype`` (and length)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() > 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name}: expected {numel} elements, got {t.numel()}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """Device rule of every wrapper: CPU tensors take the plain version,
+    CUDA tensors the kernel, anything else (or a mix) raises."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"kernel inputs on unsupported devices {sorted(kinds)}")

@@ -1,0 +1,367 @@
+"""The receiver chain as one streaming step (port of
+``cutesdr_tpu/pipeline/receiver.py``, SSB/CW slice).
+
+DC cal + NCO mix + polyphase decimation (mixdec kernel) -> overlap-save
+channel filter (fastfir kernel) -> S-meter (smeter kernel) -> AGC (scan
+kernels) -> SSB real part -> exact-rational or banded resample -> gain.
+
+Numeric knobs (tune frequency, filter H, AGC constants, resample ratio,
+volume, DC cal) are plain values in ``ReceiverParams``, swapped between
+blocks; the stream state is one ``ReceiverState`` handed across blocks.
+The path choices are the JAX package's: the rational resampler from
+131,072 demodulated samples up, the scan kernels from 65,536, the S-meter
+kernel for whole 32,768-sample blocks.  Tensors on the CPU run every
+kernel's plain version; CUDA tensors launch the kernels.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from cutesdr_tpu.demod import MODE_IDS
+from cutesdr_tpu.design.decimation_plan import DecimationPlan, plan_decimation
+from cutesdr_tpu_torch.demod import ssb as ssb_demod
+from cutesdr_tpu_torch.kernels import fastfir as fastfir_k
+from cutesdr_tpu_torch.kernels import mixdec
+from cutesdr_tpu_torch.ops import agc, fastfir, nco, resampler, smeter
+from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
+
+SOUNDCARD_RATE = 48000.0
+
+# Per-mode filter-edge limits (gui/mainwindow.cpp:1000-1054):
+# (hi_min, hi_max, low_min, low_max, symmetric)
+MODE_LIMITS = {
+    "am":  (500, 10000, -10000, -500, True),
+    "sam": (100, 10000, -10000, -100, False),
+    "fm":  (5000, 15000, -15000, -5000, True),
+    "usb": (500, 20000, 0, 200, False),
+    "lsb": (-200, 0, -20000, -500, False),
+    "cwu": (50, 1000, -1000, -50, False),
+    "cwl": (50, 1000, -1000, -50, False),
+}
+
+MODE_DEFAULT_CUTS = {
+    "am": (-5000, 5000), "sam": (-5000, 5000), "fm": (-7500, 7500),
+    "usb": (100, 2800), "lsb": (-2800, -100),
+    "cwu": (-250, 250), "cwl": (-250, 250),
+}
+
+PORTED_MODES = ("usb", "lsb", "cwu", "cwl")
+RATIONAL_MIN_SAMPLES = 131072   # receiver.py:543 (set by TPU timing)
+
+
+@dataclass(frozen=True)
+class ReceiverConfig:
+    input_rate: float = 2_000_000.0
+    mode: str = "usb"
+    low_cut: float | None = None       # Hz relative to tune freq
+    hi_cut: float | None = None
+    tune_freq: float = 0.0             # NCO offset within the passband
+    cw_offset: float = 0.0             # CW tone offset (cwu/cwl)
+    frames_per_block: int = 1          # fastfir frames per step
+    agc_on: bool = True
+    agc_hang: bool = False
+    agc_thresh_db: float = -100.0
+    agc_manual_gain_db: float = 30.0
+    agc_slope: float = 0.0
+    agc_decay_ms: float = 200.0
+    squelch_ui: int = 0
+    fm_deemphasis_us: float = 0.0
+    nb_on: bool = False
+    nb_threshold: float = 50.0
+    nb_width_us: float = 2.0
+    stereo: bool = False
+    audio_rate: float | None = SOUNDCARD_RATE   # None: raw demod-rate audio
+    resampler_interp: bool = True
+    resampler_periods: int = resampler.SINC_PERIODS
+    fastfir_nfft: int = fastfir.NFFT
+    fastfir_ntaps: int = fastfir.NFIR
+    probes: bool = False
+
+    def __post_init__(self):
+        if self.mode not in MODE_LIMITS:
+            raise ValueError(f"unknown mode {self.mode!r}")
+        lo, hi = MODE_DEFAULT_CUTS[self.mode]
+        if self.low_cut is None:
+            object.__setattr__(self, "low_cut", float(lo))
+        if self.hi_cut is None:
+            object.__setattr__(self, "hi_cut", float(hi))
+
+    @cached_property
+    def max_output_bw(self) -> float:
+        """LSB-ish modes key off the low-edge limit, others off the high
+        edge (dsp/demodulator.cpp:116-119)."""
+        hi_min, hi_max, low_min, low_max, _ = MODE_LIMITS[self.mode]
+        if self.mode in ("lsb", "cwl"):
+            return float(-low_min)
+        return float(hi_max)
+
+    @cached_property
+    def plan(self) -> DecimationPlan:
+        return plan_decimation(self.input_rate, self.max_output_bw)
+
+    @property
+    def output_rate(self) -> float:
+        return self.plan.out_rate
+
+    @property
+    def fastfir_valid(self) -> int:
+        return fastfir.valid_per_frame(self.fastfir_nfft, self.fastfir_ntaps)
+
+    @property
+    def block_size(self) -> int:
+        """Input samples per step: frames_per_block overlap-save frames."""
+        return self.plan.decimation * self.fastfir_valid * self.frames_per_block
+
+    @property
+    def latency_sec(self) -> float:
+        return self.block_size / self.input_rate
+
+    @property
+    def audio_block_cap(self) -> int:
+        n_demod = self.fastfir_valid * self.frames_per_block
+        if self.audio_rate is None:
+            return n_demod
+        return resampler.max_out_for(n_demod, self.output_rate / self.audio_rate)
+
+    @property
+    def mode_id(self) -> int:
+        return MODE_IDS[self.mode]
+
+
+def check_supported(cfg: ReceiverConfig) -> None:
+    """Raise NotImplementedError for what this slice of the port lacks,
+    naming the ROADMAP item that brings it."""
+    missing = []
+    if cfg.mode not in PORTED_MODES:
+        missing.append(f"mode {cfg.mode!r} (ROADMAP Queue 1: other demods)")
+    if cfg.nb_on:
+        missing.append("nb_on (ROADMAP Queue 1: noise blanker)")
+    if cfg.agc_hang:
+        missing.append("agc_hang (ROADMAP Queue 1: hang-mode AGC)")
+    if cfg.stereo:
+        missing.append("stereo (ROADMAP Queue 1: other demods)")
+    if cfg.probes:
+        missing.append("probes (ROADMAP Queue 1: probe taps)")
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+class ReceiverParams(NamedTuple):
+    dec: mixdec.MixDecParams         # composed taps + NCO phase increment
+    chan_filter: fastfir.FastFirParams
+    agc: agc.AgcParams
+    smeter: smeter.SMeterParams
+    demod: Any                       # None: SSB/CW is stateless
+    resamp: Any                      # ResamplerParams or None
+    dc_offset: torch.Tensor          # NCO-spur I/Q cal, complex64 0-dim
+    audio_gain: float                # volume (linear)
+
+
+class ReceiverState(NamedTuple):
+    dec: mixdec.MixDecCarry          # raw input tail + DDS phase
+    chan_filter: fastfir.FastFirCarry
+    agc: agc.AgcCarry
+    smeter: smeter.SMeterCarry
+    demod: Any
+    resamp: Any                      # ResamplerCarry or None
+
+
+class StepOutput(NamedTuple):
+    audio: torch.Tensor              # [audio_block_cap] float32
+    n_audio: torch.Tensor            # valid audio samples (int32 0-dim)
+    smeter_ave_db: torch.Tensor
+    smeter_peak_db: torch.Tensor
+    probes: Any                      # always None in this slice
+
+
+def _agc_cfg(cfg: ReceiverConfig) -> agc.AgcConfig:
+    return agc.AgcConfig(cfg.agc_on, cfg.agc_hang, cfg.plan.out_rate)
+
+
+def init(cfg: ReceiverConfig, device) -> tuple[ReceiverParams, ReceiverState]:
+    """Build (params, state) for a configuration on ``device``."""
+    check_supported(cfg)
+    device = torch.device(device)
+    fs_out = cfg.plan.out_rate
+    # the mixer shifts the tuned station to +cw_offset inside the channel
+    # filter: f_nco = tune - offset
+    dec_p, dec_c = mixdec.init(cfg.plan, cfg.tune_freq - cfg.cw_offset,
+                               device)
+    ff_p, ff_c = fastfir.init(cfg.low_cut, cfg.hi_cut, cfg.cw_offset, fs_out,
+                              device, nfft=cfg.fastfir_nfft,
+                              ntaps=cfg.fastfir_ntaps)
+    acfg = _agc_cfg(cfg)
+    agc_p = agc.make_params(acfg, cfg.agc_thresh_db, cfg.agc_manual_gain_db,
+                            cfg.agc_slope, cfg.agc_decay_ms)
+    agc_c = agc.init_carry(acfg, device)
+    sm_p, sm_c = smeter.init(fs_out, device)
+    if cfg.audio_rate is not None:
+        rs_p, rs_c = resampler.init(fs_out / cfg.audio_rate, device,
+                                    periods=cfg.resampler_periods)
+    else:
+        rs_p, rs_c = None, None
+    params = ReceiverParams(
+        dec=dec_p, chan_filter=ff_p, agc=agc_p, smeter=sm_p, demod=None,
+        resamp=rs_p, dc_offset=torch.zeros((), dtype=CDTYPE, device=device),
+        audio_gain=1.0)
+    state = ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c,
+                          smeter=sm_c, demod=None, resamp=rs_c)
+    return params, state
+
+
+def _front(cfg: ReceiverConfig, params: ReceiverParams,
+           state: ReceiverState, re: torch.Tensor, im: torch.Tensor):
+    """DC cal -> mix + decimate -> channel filter."""
+    dec_c, base = mixdec.process_planes(cfg.plan, params.dec, state.dec, re,
+                                        im, params.dc_offset)
+    ff_c, filt = fastfir_k.process(params.chan_filter, state.chan_filter,
+                                   base)
+    return dec_c, ff_c, filt
+
+
+def _levels(cfg: ReceiverConfig, params: ReceiverParams,
+            state: ReceiverState, filt: torch.Tensor):
+    """S-meter + AGC on the channel-filtered samples."""
+    sm_c, _ = smeter.process(params.smeter, state.smeter, filt, fast=True)
+    agc_c, leveled = agc.process(_agc_cfg(cfg), params.agc, state.agc, filt)
+    return sm_c, agc_c, leveled
+
+
+def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
+          audio: torch.Tensor, sm_c: smeter.SMeterCarry):
+    """Resample -> gain -> output assembly."""
+    if cfg.audio_rate is not None:
+        cap = resampler.max_out_for(audio.shape[-1],
+                                    cfg.output_rate / cfg.audio_rate)
+        use_rat = audio.shape[-1] >= RATIONAL_MIN_SAMPLES
+        rs_c, audio_out, n_audio = resampler.process(
+            params.resamp, state.resamp, audio, cap,
+            interp=cfg.resampler_interp,
+            rational=(resampler.rational_for(cfg.output_rate, cfg.audio_rate)
+                      if use_rat else None))
+        audio_out = audio_out * params.audio_gain
+    else:
+        rs_c, audio_out = state.resamp, audio * params.audio_gain
+        n_audio = torch.tensor(audio.shape[-1], dtype=torch.int32,
+                               device=audio.device)
+    sm_c, peak = smeter.get_peak(sm_c)
+    out = StepOutput(audio=audio_out, n_audio=n_audio,
+                     smeter_ave_db=smeter.get_ave(sm_c),
+                     smeter_peak_db=peak, probes=None)
+    return sm_c, rs_c, out
+
+
+def receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
+                         state: ReceiverState, re: torch.Tensor,
+                         im: torch.Tensor
+                         ) -> tuple[ReceiverState, StepOutput]:
+    """One block of cfg.block_size samples given as float32 re/im planes."""
+    dec_c, ff_c, filt = _front(cfg, params, state, re, im)
+    sm_c, agc_c, leveled = _levels(cfg, params, state, filt)
+    dm_c, audio = ssb_demod.process(state.demod, leveled)
+    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c)
+    return ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c, smeter=sm_c,
+                         demod=dm_c, resamp=rs_c), out
+
+
+def receiver_step(cfg: ReceiverConfig, params: ReceiverParams,
+                  state: ReceiverState,
+                  iq: torch.Tensor) -> tuple[ReceiverState, StepOutput]:
+    """One block of cfg.block_size complex64 samples.  The planes go to the
+    mixdec kernel as strided views, without a copy."""
+    if iq.dtype != CDTYPE:
+        raise ValueError(f"expected complex64 input, got {iq.dtype}")
+    return receiver_step_planes(cfg, params, state, iq.real, iq.imag)
+
+
+# --- live param updates as pure (cfg, params) -> params functions ---
+
+def tune_params(cfg: ReceiverConfig, params: ReceiverParams,
+                freq_hz: float) -> ReceiverParams:
+    inc = nco.phase_increment(freq_hz - cfg.cw_offset, cfg.input_rate)
+    return params._replace(dec=params.dec._replace(phase_inc=inc))
+
+
+def filter_params(cfg: ReceiverConfig, params: ReceiverParams,
+                  low_cut: float, hi_cut: float) -> ReceiverParams:
+    return params._replace(
+        chan_filter=fastfir.retune(params.chan_filter, low_cut, hi_cut,
+                                   cfg.cw_offset, cfg.output_rate,
+                                   ntaps=cfg.fastfir_ntaps))
+
+
+def ratio_params(params: ReceiverParams, ratio: float) -> ReceiverParams:
+    if params.resamp is None:
+        return params
+    return params._replace(resamp=resampler.set_rate(params.resamp, ratio))
+
+
+def volume_params(params: ReceiverParams, vol_0_99: int) -> ReceiverParams:
+    # 0..99 -> -50..0 dB, 0 = mute (interface/soundout.cpp:181-190)
+    g = 0.0 if vol_0_99 <= 0 else 10.0 ** ((min(vol_0_99, 99) - 99) / 39.2)
+    return params._replace(audio_gain=float(np.float32(g)))
+
+
+class Receiver:
+    """Stateful wrapper: owns params and state on one device.
+
+    ``process(iq)`` takes a complex64 block, ``process_planes(re, im)`` the
+    block as float32 or int16 planes (the radio's 16-bit wire format, cast
+    on the device).  Host numpy input is moved to the receiver's device."""
+
+    def __init__(self, cfg: ReceiverConfig, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.params, self.state = init(cfg, self.device)
+
+    def _to_device(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+
+    def process(self, iq) -> StepOutput:
+        iq = self._to_device(iq, CDTYPE)
+        self.state, out = receiver_step(self.cfg, self.params, self.state, iq)
+        return out
+
+    def process_planes(self, re, im) -> StepOutput:
+        re, im = self._to_device(re), self._to_device(im)
+        if re.dtype != RDTYPE:
+            # int16 wire values are already in the +-32767 full-scale
+            # convention, so the cast is exact
+            re, im = re.to(RDTYPE), im.to(RDTYPE)
+        self.state, out = receiver_step_planes(self.cfg, self.params,
+                                               self.state, re, im)
+        return out
+
+    # --- live reconfiguration between blocks ---
+    def set_tune_freq(self, freq_hz: float) -> None:
+        self.params = tune_params(self.cfg, self.params, freq_hz)
+
+    def set_filter(self, low_cut: float, hi_cut: float) -> None:
+        self.params = filter_params(self.cfg, self.params, low_cut, hi_cut)
+
+    def set_agc(self, thresh_db=None, manual_gain_db=None, slope=None,
+                decay_ms=None) -> None:
+        c = self.cfg
+        self.params = self.params._replace(agc=agc.make_params(
+            _agc_cfg(c),
+            c.agc_thresh_db if thresh_db is None else thresh_db,
+            c.agc_manual_gain_db if manual_gain_db is None else manual_gain_db,
+            c.agc_slope if slope is None else slope,
+            c.agc_decay_ms if decay_ms is None else decay_ms))
+
+    def set_resample_ratio(self, ratio: float) -> None:
+        self.params = ratio_params(self.params, ratio)
+
+    def set_volume(self, vol_0_99: int) -> None:
+        self.params = volume_params(self.params, vol_0_99)
+
+    def set_dc_offset(self, i_off: float, q_off: float) -> None:
+        self.params = self.params._replace(dc_offset=torch.tensor(
+            complex(np.float32(i_off), np.float32(q_off)), dtype=CDTYPE,
+            device=self.device))

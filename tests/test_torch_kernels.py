@@ -1,0 +1,129 @@
+"""The plain versions behind the port's CUDA kernels against the JAX
+package's Pallas kernels, run in interpret mode on the CPU as
+tests/test_kernels.py runs them.  On CPU tensors each kernel wrapper takes
+its plain version; the CUDA kernels themselves are held against these
+plain versions on the card by chip_smoke.py.
+
+Tolerances are the JAX kernel tests': 5e-5 x scale for mixdec and
+fastfir, 1e-5 for the scans, 1e-3 dB for the S-meter."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cutesdr_tpu.design.decimation_plan import plan_decimation
+from cutesdr_tpu.kernels import scan1
+from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
+from cutesdr_tpu.kernels.mixdec import MixDecimate
+from cutesdr_tpu_torch import convert, kernels
+from cutesdr_tpu_torch.kernels import fastfir, mixdec, scan
+from cutesdr_tpu_torch.ops import decimator
+from cutesdr_tpu_torch.ops import fastfir as ff_ops
+
+torch.set_num_threads(1)
+
+
+def _cplx(rng, n, scale):
+    return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            * scale).astype(np.complex64)
+
+
+@pytest.mark.parametrize("in_rate,tile_out", [(2_000_000.0, 256),
+                                              (16_000_000.0, 64)])
+def test_mixdec_plain_matches_pallas(in_rate, tile_out):
+    """D = 32 (flagship plan) and D = 256 (CIC front stage, offset d = 1):
+    the port's plain mix + decimate on the raw-tail carry equals the
+    Pallas plane-native kernel across a carry boundary and a phase wrap,
+    with an in-kernel DC cal."""
+    rng = np.random.default_rng(10)
+    plan = plan_decimation(in_rate, 20_000.0)
+    tune = in_rate / 17.0
+    md = MixDecimate(plan, tune, tile_out=tile_out, interpret=True)
+    n = md.TO4 * md.G * md.lane * 2                 # two tiles per block
+    dc = np.complex64(0.37 - 0.21j)
+    jc = md.init_carry()._replace(phase_base=jnp.uint32(2**32 - 12345))
+    tp, tc = mixdec.init(plan, tune, "cpu")
+    tc = tc._replace(phase=torch.tensor(2**32 - 12345))
+    t_len = decimator.tail_length(plan)
+    assert tp.phase_inc == int(md.params.phase_inc)
+    for _ in range(2):
+        x = _cplx(rng, n, 100.0)
+        xj = jnp.asarray(x)
+        jc, jy = md.process_planes(md.params, jc, xj.real, xj.imag,
+                                   jnp.asarray(dc))
+        xt = torch.from_numpy(x)
+        tc, ty = mixdec.process_planes(plan, tp, tc, xt.real, xt.imag,
+                                       torch.tensor(dc))
+        want = np.asarray(jy)
+        np.testing.assert_allclose(ty.numpy(), want,
+                                   atol=5e-5 * np.abs(want).max())
+        np.testing.assert_array_equal(tc.raw_tail.numpy(),
+                                      np.asarray(jc.raw_tail)[-t_len:])
+        assert int(tc.phase) == int(jc.phase_base)
+    assert kernels.LAUNCHES["mixdec"] == 0          # CPU: plain version
+
+
+def test_fastfir_plain_matches_pallas():
+    rng = np.random.default_rng(11)
+    fs = 62_500.0
+    k = FastFirFourStep(100.0, 2800.0, 0.0, fs, interpret=True)
+    tp, tc = ff_ops.init(100.0, 2800.0, 0.0, fs, "cpu")
+    # natural-order H recovered from the kernel's pre-permuted planes
+    np.testing.assert_array_equal(
+        convert.h_from_permuted(k.params.h2).astype(np.complex64),
+        tp.h_freq.numpy())
+    kc = k.init_carry()
+    for _ in range(2):
+        x = _cplx(rng, 2048, 100.0)
+        kc, jy = k(k.params, kc, jnp.asarray(x))
+        tc, ty = fastfir.process(tp, tc, torch.from_numpy(x))
+        want = np.asarray(jy)
+        np.testing.assert_allclose(ty.numpy(), want,
+                                   atol=5e-5 * np.abs(want).max())
+        np.testing.assert_array_equal(tc.tail.numpy(), np.asarray(kc.tail))
+
+
+@pytest.mark.parametrize("n", [65536, 65536 + 1000])
+def test_first_order_scan_plain_matches_pallas(n):
+    rng = np.random.default_rng(12)
+    a = (0.99 + 0.005 * rng.random(n)).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.01).astype(np.float32)
+    want = scan1.first_order_scan(jnp.asarray(a), jnp.asarray(b), -3.0,
+                                  interpret=True)
+    got = scan.first_order_scan(torch.from_numpy(a), torch.from_numpy(b),
+                                np.float32(-3.0))
+    assert float(np.abs(got.numpy() - np.asarray(want)).max()) < 1e-5
+
+
+def test_guess_round_plain_matches_pallas():
+    rng = np.random.default_rng(13)
+    n = 65536
+    ra, fa = np.float32(1 / 125.0), np.float32(1 / 312.0)
+    pk = (rng.standard_normal(n) * 0.3 - 3).astype(np.float32)
+    pat = rng.random(n) > 0.5
+    jx, jpat, jcount = scan1.guess_round(
+        jnp.asarray(pk), jnp.asarray(pat.astype(np.float32)), np.float32(-3.0),
+        ra, fa, interpret=True)
+    tx, tpat, tcount = scan.guess_round(torch.from_numpy(pk),
+                                        torch.from_numpy(pat),
+                                        np.float32(-3.0), ra, fa)
+    assert float(np.abs(tx.numpy() - np.asarray(jx)).max()) < 1e-5
+    np.testing.assert_array_equal(tpat.numpy(), np.asarray(jpat) > 0.5)
+    # the forgiveness predicates are bit-sensitive to x[n-1]; the two
+    # prefixes associate differently (as in tests/test_kernels.py)
+    assert abs(int(tcount) - int(jcount)) <= 4
+
+
+def test_smeter_last_plain_matches_pallas():
+    rng = np.random.default_rng(14)
+    n = 65536
+    mag = (rng.standard_normal(n) * 10 - 60).astype(np.float32)
+    aa, ad = np.float32(1 / 625.0), np.float32(1 / 31250.0)
+    ja, jd = scan1.smeter_last(jnp.asarray(mag), aa, ad, np.float32(-120.0),
+                               np.float32(-120.0), interpret=True)
+    ta, td = scan.smeter_last(torch.from_numpy(mag), aa, ad,
+                              np.float32(-120.0), np.float32(-120.0))
+    assert abs(float(ta) - float(ja)) < 1e-3
+    assert abs(float(td) - float(jd)) < 1e-3
+    assert scan.smeter_supported(n) and not scan.smeter_supported(n + 128)

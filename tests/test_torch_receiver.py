@@ -1,0 +1,168 @@
+"""The PyTorch port's receiver slice (SSB/CW) on the CPU: the golden and
+reference-binary fixtures at their pinned bounds, parity with the JAX
+Receiver, the live setters, and carrying a JAX stream into the port."""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cutesdr_tpu.pipeline import receiver as jrx
+from cutesdr_tpu.testbench.generators import GenConfig, SignalGenerator
+from cutesdr_tpu_torch import convert, kernels
+from cutesdr_tpu_torch.ops import agc
+from cutesdr_tpu_torch.pipeline import receiver as trx
+
+torch.set_num_threads(1)
+
+FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+SLICE = ("usb", "lsb", "cwu", "usb2m")
+
+
+def _snr_db(want, got, skip):
+    n = min(len(want), len(got))
+    err = got[skip:n] - want[skip:n]
+    return 10 * np.log10(np.mean(want[skip:n] ** 2)
+                         / max(np.mean(err ** 2), 1e-30))
+
+
+@pytest.mark.parametrize("kind", ["golden", "refgold"])
+@pytest.mark.parametrize("name", SLICE)
+def test_fixture_through_port(name, kind):
+    """Driven as tests/test_golden_fixtures.py and
+    tests/test_refgold_fixtures.py drive the JAX receiver."""
+    gold = np.load(os.path.join(FIXDIR, f"golden_{name}.npz"))
+    meta = json.loads(str(gold["meta"]))
+    cfg = trx.ReceiverConfig(input_rate=meta["input_rate"], mode=meta["mode"],
+                             tune_freq=meta["tune_freq"],
+                             cw_offset=meta["cw_offset"], audio_rate=None,
+                             agc_on=True, agc_thresh_db=-90.0)
+    rx = trx.Receiver(cfg, "cpu")
+    got = []
+    for b in range(meta["n_blocks"]):
+        sl = slice(b * cfg.block_size, (b + 1) * cfg.block_size)
+        out = rx.process(gold["iq_re"][sl] + 1j * gold["iq_im"][sl])
+        got.append(out.audio.double().numpy())
+    got = np.concatenate(got)
+    if kind == "golden":
+        assert got.shape == gold["audio"].shape
+        snr = _snr_db(gold["audio"], got, int(meta["skip"]))
+        assert snr > meta["min_snr_db"], snr
+    else:
+        ref = np.load(os.path.join(FIXDIR, f"refgold_{name}.npz"))
+        rmeta = json.loads(str(ref["meta"]))
+        snr = _snr_db(ref["audio"], got, rmeta["skip"])
+        assert snr > rmeta["min_snr_prod_db"], snr
+
+
+def _blocks(cfg, n_blocks, seed=7, power_db=-30.0, offset_hz=1000.0):
+    """An in-band tone at tune + offset plus -90 dBFS noise."""
+    gen = SignalGenerator(GenConfig(
+        sample_rate=cfg.input_rate, sweep_start_hz=cfg.tune_freq + offset_hz,
+        signal_power_db=power_db, noise_power_db=-90.0, seed=seed))
+    return [gen.next_block(cfg.block_size).astype(np.complex64)
+            for _ in range(n_blocks)]
+
+
+def _match(jout, tout, min_snr=90.0):
+    n = int(jout.n_audio)
+    assert int(tout.n_audio) == n
+    want = np.asarray(jout.audio)[:n].astype(np.float64)
+    got = tout.audio[:n].double().numpy()
+    assert _snr_db(want, got, 0) >= min_snr
+    assert abs(float(tout.smeter_ave_db) - float(jout.smeter_ave_db)) < 0.01
+    assert abs(float(tout.smeter_peak_db)
+               - float(jout.smeter_peak_db)) < 0.01
+
+
+def test_port_matches_jax_receiver_rational_path():
+    """frames_per_block=128: 131,072 demodulated samples per block, so the
+    exact-rational resampler and the scan kernels' paths (n >= 65536) are
+    taken — on the CPU through their plain versions."""
+    kw = dict(input_rate=2_000_000.0, mode="usb", tune_freq=100_000.0,
+              frames_per_block=128)
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw))
+    tr = trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
+    kernels.reset_launches()
+    for x in _blocks(tr.cfg, 2):
+        _match(jr.process(jnp.asarray(x)), tr.process(x))
+    assert not any(kernels.LAUNCHES.values())     # CPU: plain versions only
+
+
+def test_live_setters_match_jax_receiver():
+    """Tune, filter, AGC, volume, DC cal and resample-ratio updates between
+    blocks (banded resampler path), and int16 wire planes.  The JAX side
+    runs its Pallas mixdec (interpreted): like the port it carries the raw
+    input tail, so a retune or a new DC cal re-mixes the history the same
+    way (the fused XLA path keeps the already-mixed history)."""
+    kw = dict(input_rate=250_000.0, mode="cwu", tune_freq=60_000.0,
+              cw_offset=600.0, frames_per_block=2)
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw, decimator_impl="pallas",
+                                         pallas_interpret=True))
+    tr = trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
+    blocks = _blocks(tr.cfg, 3, seed=9, power_db=-50.0, offset_hz=100.0)
+    setters = [
+        lambda r: None,
+        lambda r: (r.set_tune_freq(60_150.0), r.set_filter(-300.0, 200.0),
+                   r.set_agc(thresh_db=-80.0, decay_ms=300.0),
+                   r.set_volume(80), r.set_dc_offset(3.0, -2.0),
+                   r.set_resample_ratio(15_625.0 / 48_000.0 * 1.001)),
+        lambda r: r.set_agc(),
+    ]
+    for x, setter in zip(blocks, setters):
+        setter(jr)
+        setter(tr)
+        qr, qi = (np.round(p).astype(np.int16) for p in (x.real, x.imag))
+        jout = jr.process_planes(jnp.asarray(qr), jnp.asarray(qi))
+        tout = tr.process_planes(qr, qi)
+        _match(jout, tout)
+
+
+@pytest.mark.parametrize("layout", ["fused", "pallas"])
+def test_from_jax_mid_stream(layout):
+    """Convert the JAX receiver's state after block 2, then run both for
+    two more blocks: the port continues the JAX stream.  'fused' is the
+    JAX CPU layout (NCO carry + mixed tail), 'pallas' the TPU kernels'
+    (raw tail + phase base, pre-permuted H)."""
+    kw = dict(input_rate=500_000.0, mode="usb", tune_freq=20_000.0,
+              frames_per_block=2)
+    extra = {} if layout == "fused" else dict(
+        decimator_impl="pallas", fastfir_impl="pallas", pallas_interpret=True)
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw, **extra))
+    jr.set_dc_offset(1.5, -0.5)
+    jr.set_tune_freq(20_050.0)
+    tcfg = trx.ReceiverConfig(**kw)
+    blocks = _blocks(tcfg, 4, seed=11, power_db=-40.0)
+    for x in blocks[:2]:
+        jr.process(jnp.asarray(x))
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    params, state = convert.from_jax(tcfg, to_np(jr.params), to_np(jr.state),
+                                     "cpu")
+    for x in blocks[2:]:
+        jout = jr.process(jnp.asarray(x))
+        state, tout = trx.receiver_step(tcfg, params, state, torch.from_numpy(x))
+        _match(jout, tout)
+
+
+@pytest.mark.parametrize("kw", [dict(mode="am"), dict(mode="fm"),
+                                dict(mode="sam"), dict(nb_on=True),
+                                dict(agc_hang=True), dict(stereo=True)])
+def test_unported_configs_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
+
+
+def test_config_geometry_matches_jax():
+    for kw in (dict(), dict(mode="lsb", input_rate=250_000.0),
+               dict(mode="cwl", input_rate=20_000_000.0, frames_per_block=4),
+               dict(audio_rate=None, frames_per_block=256)):
+        j, t = jrx.ReceiverConfig(**kw), trx.ReceiverConfig(**kw)
+        assert (t.plan, t.block_size, t.output_rate, t.audio_block_cap,
+                t.low_cut, t.hi_cut, t.mode_id) == \
+            (j.plan, j.block_size, j.output_rate, j.audio_block_cap,
+             j.low_cut, j.hi_cut, j.mode_id)
+    assert agc.STATS["scan_fallbacks"] >= 0
