@@ -3,15 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``cutesdr_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the flagship shapes, replays
-the golden / reference-binary fixtures through the port on the card, then
-drives the flagship receiver (2 MSPS USB, tune 100 kHz, 48 kHz audio,
-frames_per_block=256: 8,388,608 input samples per step) for chained steps
-and checks that the audio carries the injected 1 kHz tone.  Prints one line
-per phase, a JSON line of per-kernel results, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
-phase raises, so the script exits non-zero.  It needs a CUDA device; it
-never imports jax.
+kernel against its plain PyTorch version at the main paths' shapes,
+replays the golden / reference-binary fixtures (usb2m, usb, lsb, cwu, am,
+sam, fm, and stereo sam) through the port on the card, then drives the
+receiver paths with the input resident on the card, each for chained
+steps at 2 MSPS, tune 100 kHz, 48 kHz audio:
+
+* the flagship, USB at frames_per_block=256 (8,388,608 input samples);
+* FM, SAM and AM at frames_per_block=256 (262,144 demodulated samples,
+  8,388,608 or 16,777,216 input samples), each recovering its modulating
+  tone; SAM's first block acquires through the seqloop_sam kernel;
+* an FM monitor on an idle channel at the low-latency configuration
+  (512/257 filter, one frame: 256 demodulated samples), whose noise
+  blocks take the seqloop_fm kernel.
+
+Before each path every launch count is set to 0; after it, every kernel
+that the path's configuration routes to must have launched, and no other.
+Prints one line per phase, a JSON line of per-kernel results, the card's
+name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``.  Any failed phase raises, so the script exits non-zero.  It
+needs a CUDA device; it never imports jax.
 """
 
 from __future__ import annotations
@@ -32,7 +43,9 @@ sys.path.insert(0, ROOT)
 from cutesdr_tpu.design.decimation_plan import plan_decimation  # noqa: E402
 from cutesdr_tpu.design.fastfir_design import design_fastfir  # noqa: E402
 from cutesdr_tpu_torch import kernels  # noqa: E402
-from cutesdr_tpu_torch.kernels import _build, fastfir, mixdec, scan  # noqa: E402
+from cutesdr_tpu_torch.demod import fm, sam  # noqa: E402
+from cutesdr_tpu_torch.kernels import (  # noqa: E402
+    _build, fastfir, mixdec, scan, seqloop)
 from cutesdr_tpu_torch.ops import agc  # noqa: E402
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
 
@@ -52,7 +65,16 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                    "cutesdr_tpu/kernels/scan1.py:243"),
     "smeter": ("cutesdr_tpu_torch/csrc/smeter.cu",
                "cutesdr_tpu/kernels/scan1.py:398"),
+    "seqloop_fm": ("cutesdr_tpu_torch/csrc/seqloop.cu",
+                   "cutesdr_tpu/kernels/seqloop.py:164"),
+    "seqloop_sam": ("cutesdr_tpu_torch/csrc/seqloop.cu",
+                    "cutesdr_tpu/kernels/seqloop.py:235"),
 }
+SEQ_TOL = 1e-6            # rad: kernel and plain loop round alike
+# which outputs of the seqloop wrappers are angles (compared wrapped):
+# FM (phase, freq, freqs, err), SAM (phase, freq, pre-update phases)
+ANGLES = {"seqloop_fm": (True, False, False, True),
+          "seqloop_sam": (True, False, True)}
 
 
 def phase(msg: str) -> None:
@@ -172,6 +194,91 @@ def check_scans(gen, results):
             run_p)
 
 
+def time_once(fn) -> float:
+    """ms of a single call of fn(), for the plain per-sample loops."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def angle_err(got, want) -> float:
+    """Largest wrapped angle difference."""
+    d = got.double() - want.double()
+    return float(torch.remainder(d + np.pi, 2 * np.pi).sub(np.pi).abs().max())
+
+
+def pll_theta(kind: str, n: int, fs: float, offset_hz: float, gen):
+    """Input phases in [-pi, pi): seeded uniform noise (the worst case,
+    wraps everywhere) or a tone ``offset_hz`` off the NCO (locked)."""
+    if kind == "noise":
+        return (torch.rand(n, generator=gen, device="cuda") * 2 - 1) * np.pi
+    k = torch.arange(n, dtype=torch.float64, device="cuda")
+    w = 2 * np.pi * offset_hz / fs
+    return (torch.remainder(k * w + 0.3 + np.pi, 2 * np.pi) - np.pi).float()
+
+
+def check_seqloops(gen, results):
+    """K7 and K8 against their plain per-sample loops at the FM (62.5 kHz)
+    and SAM (31.25 kHz) paths' rates: 32,768 samples of noise and of a
+    locked tone, and the full-width 262,144 samples of noise.  The kernel
+    is timed as the others are; the plain loop (one launch per torch op
+    per sample) once.  Then FM's chunked tier (torch) at 262,144 on the
+    same noise: it must equal K7 where it validates."""
+    fm_p, fm_c = fm.init(62_500.0, "cuda")
+    sam_p, _ = sam.init(31_250.0, "cuda")
+    phase0 = torch.tensor(0.5, device="cuda")
+    freq0 = torch.tensor(0.0, device="cuda")
+    loops = {"seqloop_fm": (fm_p, 62_500.0, 1000.0, seqloop.fm_pll_scan,
+                            seqloop.fm_pll_scan_plain),
+             "seqloop_sam": (sam_p, 31_250.0, 100.0, seqloop.sam_pll_scan,
+                             seqloop.sam_pll_scan_plain)}
+    for n, kind in ((32_768, "noise"), (32_768, "tone"), (N_DEMOD, "noise")):
+        for name, (p, fs, off, kernel, plain) in loops.items():
+            th = pll_theta(kind, n, fs, off, gen)
+            args = (p.pll_alpha, p.pll_beta, p.nco_limit, phase0, freq0, th)
+            run_k = lambda: kernel(*args)
+            got = run_k()
+            out = []
+            plain_ms = time_once(lambda: out.append(plain(*args)))
+            want = out[0]
+            err = max(angle_err(g, w) if is_angle
+                      else float((g - w).abs().max())
+                      for g, w, is_angle in zip(got, want, ANGLES[name]))
+            unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+            if not err <= SEQ_TOL:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"loop: {err:.3e} > {SEQ_TOL:.1e}")
+            ms = time_ms(run_k)
+            phase(f"kernel {name} n={n} {kind}: max_abs_err {err:.3e} (tol "
+                  f"{SEQ_TOL:.0e}), {unequal} values not bitwise equal, "
+                  f"kernel {ms:.4f} ms (median of 5x20 calls), plain "
+                  f"{plain_ms:.1f} ms (1 call)")
+            if n == N_DEMOD:
+                results[name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms}
+                if name == "seqloop_fm":
+                    check_fm_chunked(fm_p, fm_c, phase0, freq0, th, got, ms)
+
+
+def check_fm_chunked(p, c, phase0, freq0, th, k_out, k_ms):
+    c = c._replace(nco_phase=phase0, nco_freq=freq0)
+    run = lambda: fm._pll_chunked(p, c, th)
+    valid, (ph, fr, _dc, _audio, errs) = run()
+    valid = bool(valid)
+    if valid and not (torch.equal(errs, k_out[3])
+                      and float(fr) == float(k_out[1])):
+        raise AssertionError("FM chunked tier validated but differs from K7")
+    ms = time_ms(run, reps=3, calls=2)
+    phase(f"FM chunked tier (torch) n={th.numel()} noise: valid {valid}, "
+          f"{'bitwise equal to K7, ' if valid else ''}{ms:.2f} ms "
+          f"(median of 3x2 calls) against K7 {k_ms:.4f} ms")
+
+
 def check_other_shapes(gen):
     """Correctness only, at shapes other configurations give the kernels:
     a x128 plan with output offset d=3 on a short block, 4096- and
@@ -215,8 +322,21 @@ def snr_db(want, got, skip):
                          / max(np.mean(err ** 2), 1e-30))
 
 
+def fixture_audio(cfg, iq_re, iq_im, n_blocks) -> np.ndarray:
+    """The fixture's blocks through the port; stereo as [n, 2]."""
+    r = rx.Receiver(cfg, "cuda")
+    got = []
+    for blk in range(n_blocks):
+        sl = slice(blk * cfg.block_size, (blk + 1) * cfg.block_size)
+        a = r.process(iq_re[sl] + 1j * iq_im[sl]).audio
+        if a.is_complex():
+            a = torch.stack([a.real, a.imag], -1)
+        got.append(a.double().cpu().numpy())
+    return np.concatenate(got)
+
+
 def check_fixtures():
-    for name in ("usb2m", "usb", "lsb", "cwu"):
+    for name in ("usb2m", "usb", "lsb", "cwu", "am", "sam", "fm"):
         gold = np.load(os.path.join(FIXDIR, f"golden_{name}.npz"))
         meta = json.loads(str(gold["meta"]))
         ref = np.load(os.path.join(FIXDIR, f"refgold_{name}.npz"))
@@ -226,13 +346,8 @@ def check_fixtures():
                                 tune_freq=meta["tune_freq"],
                                 cw_offset=meta["cw_offset"], audio_rate=None,
                                 agc_on=True, agc_thresh_db=-90.0)
-        r = rx.Receiver(cfg, "cuda")
-        got = []
-        for blk in range(meta["n_blocks"]):
-            sl = slice(blk * cfg.block_size, (blk + 1) * cfg.block_size)
-            iq = gold["iq_re"][sl] + 1j * gold["iq_im"][sl]
-            got.append(r.process(iq).audio.double().cpu().numpy())
-        got = np.concatenate(got)
+        got = fixture_audio(cfg, gold["iq_re"], gold["iq_im"],
+                            meta["n_blocks"])
         s_gold = snr_db(gold["audio"], got, int(meta["skip"]))
         s_ref = snr_db(ref["audio"], got, rmeta["skip"])
         phase(f"fixture {name} (D={cfg.plan.decimation}): golden "
@@ -241,76 +356,169 @@ def check_fixtures():
         if not (s_gold > meta["min_snr_db"]
                 and s_ref > rmeta["min_snr_prod_db"]):
             raise AssertionError(f"fixture {name} below its pinned bound")
+    # stereo SAM, as tests/test_refgold_fixtures.py drives it
+    d = np.load(os.path.join(FIXDIR, "refgold_sam_stereo.npz"))
+    meta = json.loads(str(d["meta"]))
+    cfg = rx.ReceiverConfig(input_rate=meta["input_rate"], mode="sam",
+                            tune_freq=meta["tune_freq"], audio_rate=None,
+                            stereo=True, agc_on=True, agc_thresh_db=-90.0)
+    got = fixture_audio(cfg, d["iq_re"], d["iq_im"], meta["n_blocks"])
+    s_ref = snr_db(d["audio"], got, meta["skip"])
+    phase(f"fixture sam_stereo: refgold {s_ref:.2f} dB (bound "
+          f"{meta['min_snr_prod_db']})")
+    if not s_ref > meta["min_snr_prod_db"]:
+        raise AssertionError("fixture sam_stereo below its pinned bound")
 
 
-def flagship_blocks(cfg, n_blocks: int, gen) -> list[torch.Tensor]:
-    """Tone at tune + 1 kHz (-30 dBFS) plus seeded noise (-90 dBFS), made
-    on the card, phase-continuous across blocks."""
-    amp = 32767.0 * 10 ** (-30 / 20)
-    noise = 32767.0 * 10 ** (-90 / 20)
-    w = 2 * np.pi * (cfg.tune_freq + 1000.0) / cfg.input_rate
-    k = torch.arange(cfg.block_size, dtype=torch.float64, device="cuda")
+def stimulus(cfg, n_blocks: int, gen, offset_hz: float = 0.0,
+             fm_dev_hz: float = 0.0, mod_hz: float = 0.0,
+             am_depth: float = 0.0, signal_db: float | None = -30.0,
+             noise_db: float = -90.0) -> list[torch.Tensor]:
+    """A carrier at tune + ``offset_hz`` (-30 dBFS), frequency-modulated
+    by ``fm_dev_hz`` or amplitude-modulated to ``am_depth`` at ``mod_hz``,
+    plus seeded noise (-90 dBFS); ``signal_db=None`` gives noise alone.
+    Made on the card in float64, phase-continuous across blocks."""
+    n = cfg.block_size
+    k = torch.arange(n, dtype=torch.float64, device="cuda")
+    noise = 32767.0 * 10 ** (noise_db / 20)
     out = []
     for b in range(n_blocks):
-        ph = torch.remainder((k + b * cfg.block_size) * w, 2 * np.pi)
-        sig = torch.polar(torch.full_like(ph, amp), ph)
-        sig = sig + noise * torch.complex(
-            torch.randn(cfg.block_size, generator=gen, device="cuda",
-                        dtype=torch.float64),
-            torch.randn(cfg.block_size, generator=gen, device="cuda",
-                        dtype=torch.float64))
+        t = (k + b * n) / cfg.input_rate
+        sig = noise * torch.complex(
+            torch.randn(n, generator=gen, device="cuda", dtype=torch.float64),
+            torch.randn(n, generator=gen, device="cuda", dtype=torch.float64))
+        if signal_db is not None:
+            ph = torch.remainder(2 * np.pi * (cfg.tune_freq + offset_hz) * t,
+                                 2 * np.pi)
+            if fm_dev_hz:
+                ph = ph + (fm_dev_hz / mod_hz) * torch.sin(2 * np.pi * mod_hz
+                                                           * t)
+            env = 32767.0 * 10 ** (signal_db / 20) * (
+                1.0 + am_depth * torch.cos(2 * np.pi * mod_hz * t))
+            sig = sig + torch.polar(env, ph)
         out.append(sig.to(torch.complex64))
+        del t, sig
     return out
 
 
-def check_flagship(gen, gpu_label):
-    cfg = rx.ReceiverConfig(2e6, "usb", tune_freq=100e3, frames_per_block=256)
-    assert cfg.block_size == N_IN
-    r = rx.Receiver(cfg, "cuda")
-    blocks = flagship_blocks(cfg, 4, gen)
-    torch.cuda.synchronize()
+def routed_kernels(cfg) -> set[str]:
+    """The kernels a configuration's path routes to, by the port's gates
+    (the seqloops by the tiers the demods report as taken)."""
+    n = cfg.fastfir_valid * cfg.frames_per_block
+    want = {"mixdec", "fastfir"}
+    if cfg.agc_on and scan.supported(n):
+        want |= {"scan_plain", "scan_round"}
+    if scan.smeter_supported(n):
+        want.add("smeter")
+    if fm.STATS["scan"]:
+        want.add("seqloop_fm")
+    if sam.STATS["scan"]:
+        want.add("seqloop_sam")
+    return want
 
+
+def tone_ratio(audio: np.ndarray, rate: float, tone_hz: float,
+               label: str) -> float:
+    """Peak/floor of the audio spectrum; raises unless the peak is the
+    modulating tone at > 60 dB."""
+    if not np.all(np.isfinite(audio)):
+        raise AssertionError(f"{label}: non-finite audio")
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
+    f = np.fft.rfftfreq(len(audio), 1 / rate)
+    k = int(np.argmax(spec))
+    floor = np.median(np.delete(spec, np.s_[max(0, k - 20):k + 21]))
+    ratio = 10 * np.log10(spec[k] / floor)
+    phase(f"{label} audio: {len(audio)} samples, peak at {f[k]:.2f} Hz, "
+          f"peak/floor {ratio:.1f} dB")
+    if abs(f[k] - tone_hz) > 2.0 or ratio < 60.0:
+        raise AssertionError(f"{label}: the {tone_hz:g} Hz tone was not "
+                             "recovered")
+    return ratio
+
+
+def drive_path(label, cfg, blocks, gpu_label, tone_hz=None, steps=8,
+               need=(), may_fall_back=True):
+    """Drive one receiver path over ``blocks`` with the counts zeroed just
+    before and read just after; check the routed kernels (and ``need``)
+    launched and no other; check the tone on the audio after the first
+    block; then time ``steps`` chained steps.  The AGC may take its
+    sequential fallback while it settles, except where ``may_fall_back``
+    is False."""
+    r = rx.Receiver(cfg, "cuda")
+    torch.cuda.synchronize()
     kernels.reset_launches()
     agc.STATS["scan_fallbacks"] = 0
+    for stats in (fm.STATS, sam.STATS):
+        stats.update(dict.fromkeys(stats, 0))
     audio = []
     for b in blocks:
         out = r.process(b)
         audio.append(out.audio[:int(out.n_audio)].double().cpu().numpy())
     launches = dict(kernels.LAUNCHES)
+    tiers = dict({"fm": fm.STATS, "sam": sam.STATS}.get(cfg.mode, {}))
     fallbacks = agc.STATS["scan_fallbacks"]
-    phase(f"flagship launches {launches}, agc scan fallbacks {fallbacks}")
-    if min(launches.values()) == 0:
-        raise AssertionError("a kernel of the main path was never launched")
-    if fallbacks:
-        raise AssertionError("the AGC fell back to the sequential scan")
+    phase(f"{label} launches {launches}, pll tiers {tiers}, agc scan "
+          f"fallbacks {fallbacks} over {len(blocks)} blocks")
+    if fallbacks and not may_fall_back:
+        raise AssertionError(f"{label}: the AGC fell back to the "
+                             "sequential scan")
+    want = routed_kernels(cfg) | set(need)
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
+    if wrong:
+        raise AssertionError(f"{label}: launches {wrong} do not match the "
+                             f"kernels its configuration routes to {want}")
+    if tone_hz is not None:
+        tone_ratio(np.concatenate(audio[1:]), cfg.audio_rate, tone_hz, label)
+    elif not all(np.all(np.isfinite(a)) for a in audio):
+        raise AssertionError(f"{label}: non-finite audio")
 
-    a = np.concatenate(audio[1:])                   # skip the AGC settling
-    if not np.all(np.isfinite(a)):
-        raise AssertionError("non-finite audio")
-    spec = np.abs(np.fft.rfft(a * np.hanning(len(a)))) ** 2
-    f = np.fft.rfftfreq(len(a), 1 / cfg.audio_rate)
-    k = int(np.argmax(spec))
-    floor = np.median(np.delete(spec, np.s_[max(0, k - 20):k + 21]))
-    ratio = 10 * np.log10(spec[k] / floor)
-    phase(f"flagship audio: {len(a)} samples, peak at {f[k]:.2f} Hz, "
-          f"peak/floor {ratio:.1f} dB")
-    if abs(f[k] - 1000.0) > 2.0 or ratio < 60.0:
-        raise AssertionError("the 1 kHz tone was not recovered")
-
-    steps = 12
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
     start.record()
     for i in range(steps):
         r.process(blocks[i % len(blocks)])
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / steps
-    phase(f"flagship step: {ms:.3f} ms/step, "
+    phase(f"{label} step: {ms:.3f} ms/step, "
           f"{cfg.block_size / (ms * 1e-3) / 1e6:.1f} Msps over {steps} "
           f"chained steps, input resident ({gpu_label})")
     return launches
+
+
+def check_paths(gen, gpu_label) -> dict:
+    """Every receiver path; returns the launches summed over the paths."""
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run(label, cfg, blocks, **kw):
+        for k, v in drive_path(label, cfg, blocks, gpu_label, **kw).items():
+            total[k] += v
+
+    full = dict(input_rate=2e6, tune_freq=100e3, frames_per_block=256)
+    cfg = rx.ReceiverConfig(mode="usb", **full)
+    assert cfg.block_size == N_IN
+    run("flagship usb", cfg, stimulus(cfg, 4, gen, offset_hz=1000.0),
+        tone_hz=1000.0, steps=8, may_fall_back=False)
+    cfg = rx.ReceiverConfig(mode="fm", **full)
+    run("fm", cfg, stimulus(cfg, 3, gen, fm_dev_hz=3000.0, mod_hz=1000.0),
+        tone_hz=1000.0, steps=6)
+    cfg = rx.ReceiverConfig(mode="sam", **full)
+    run("sam", cfg, stimulus(cfg, 3, gen, offset_hz=100.0, mod_hz=400.0,
+                             am_depth=0.5),
+        tone_hz=400.0, steps=6, need=("seqloop_sam",))
+    cfg = rx.ReceiverConfig(mode="am", **full)
+    run("am", cfg, stimulus(cfg, 3, gen, mod_hz=1000.0, am_depth=0.5),
+        tone_hz=1000.0, steps=6)
+    # a monitor on an idle channel: noise only, 256 samples per step, so
+    # the chunked tier's gate is closed and every block takes K7
+    cfg = rx.ReceiverConfig(mode="fm", input_rate=2e6, tune_freq=100e3,
+                            frames_per_block=1, fastfir_nfft=512,
+                            fastfir_ntaps=257)
+    run("fm idle channel", cfg,
+        stimulus(cfg, 16, gen, signal_db=None, noise_db=-60.0),
+        steps=32, need=("seqloop_fm",))
+    return total
 
 
 def main() -> int:
@@ -337,9 +545,13 @@ def main() -> int:
     check_mixdec(gen, results, 20e6, " D=256")
     check_fastfir(gen, results)
     check_scans(gen, results)
+    check_seqloops(gen, results)
     check_other_shapes(gen)
     check_fixtures()
-    launches = check_flagship(gen, smi)
+    launches = check_paths(gen, smi)
+    never = [k for k, v in launches.items() if v == 0]
+    if never:
+        raise AssertionError(f"kernels never launched on a path: {never}")
 
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

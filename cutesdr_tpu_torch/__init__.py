@@ -6,8 +6,10 @@ counterpart is easy to find.  This package imports ``torch`` and never
 ``jax``; it reuses only the numpy layers of ``cutesdr_tpu`` (types,
 coefficients, design, the demod mode table, the test-signal generators).
 
-Ported so far: the SSB/CW receiver chain (``pipeline.receiver``) with its
-kernels ``mixdec``, ``fastfir``, ``scan`` (two modes) and ``smeter``.
+Ported so far: the receiver chain (``pipeline.receiver``) in all seven
+demod modes, mono and stereo, with its kernels ``mixdec``, ``fastfir``,
+``scan`` (two modes), ``smeter`` and ``seqloop`` (the FM and SAM PLL
+loops).
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,10 @@ can continue on the port mid-way.  Both JAX decimator layouts are taken:
   tail * conj(osc_backdated) + dc.
 
 The Pallas four-step filter's pre-permuted ``h2`` is mapped back to
-natural-order H.
+natural-order H.  The AGC, S-meter, resampler and demodulator params and
+carries (for AM, SAM and FM: FIR tails, IIR state, PLL state, squelch
+flag, de-emphasis) map field by field onto the port's NamedTuples of the
+same names.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ import numpy as np
 import torch
 
 from cutesdr_tpu_torch.kernels import mixdec
-from cutesdr_tpu_torch.ops import agc, decimator, fastfir, nco, resampler, smeter
+from cutesdr_tpu_torch.ops import decimator, fastfir, nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
-from cutesdr_tpu_torch.types import CDTYPE, RDTYPE, complex_tensor
+from cutesdr_tpu_torch.types import CDTYPE, complex_tensor
 
 
 def h_from_permuted(h2: np.ndarray) -> np.ndarray:
@@ -45,13 +48,26 @@ def _raw_tail_from_fused(tail: np.ndarray, phase: int, inc: int,
     return np.asarray(tail, np.complex128) * np.conj(osc) + dc
 
 
+def _like(template, value, dev):
+    """``value`` (a JAX leaf as numpy, or a NamedTuple of them) in the form
+    of the port's ``template``: NamedTuples field by field, tensors on
+    ``dev`` in the template's dtype, host scalars in the template's type
+    (np.float32, int)."""
+    if template is None:
+        return None
+    if isinstance(template, tuple):
+        return type(template)(*(_like(t, getattr(value, f), dev)
+                                for f, t in zip(template._fields, template)))
+    if isinstance(template, torch.Tensor):
+        return torch.tensor(np.asarray(value), device=dev).to(template.dtype)
+    return type(template)(np.asarray(value))
+
+
 def from_jax(cfg: rx.ReceiverConfig, params, state, device):
     """(port params, port state) from JAX ReceiverParams/ReceiverState of
     numpy arrays, for the same configuration."""
     dev = torch.device(device)
-    base_p, _ = rx.init(cfg, dev)
-    r = lambda v: torch.tensor(np.float32(v), dtype=RDTYPE, device=dev)
-    f = np.float32
+    base_p, base_s = rx.init(cfg, dev)
     dc = complex(np.asarray(params.dc_offset))
 
     # decimator: raw tail + phase, in either JAX layout
@@ -79,48 +95,14 @@ def from_jax(cfg: rx.ReceiverConfig, params, state, device):
     ff_c = fastfir.FastFirCarry(
         tail=complex_tensor(state.chan_filter.tail, dev))
 
-    ap = params.agc
-    agc_p = agc.AgcParams(
-        knee=f(ap.knee), gain_slope=f(ap.gain_slope),
-        fixed_gain=f(ap.fixed_gain), manual_gain=f(ap.manual_gain),
-        attack_rise_alpha=f(ap.attack_rise_alpha),
-        attack_fall_alpha=f(ap.attack_fall_alpha),
-        decay_rise_alpha=f(ap.decay_rise_alpha),
-        decay_fall_alpha=f(ap.decay_fall_alpha),
-        hang_time=int(ap.hang_time))
-    ac = state.agc
-    agc_c = agc.AgcCarry(
-        sig_delay=complex_tensor(ac.sig_delay, dev),
-        mag_tail=torch.tensor(np.asarray(ac.mag_tail, np.float32),
-                              device=dev),
-        attack_ave=r(ac.attack_ave), decay_ave=r(ac.decay_ave),
-        hang_timer=torch.tensor(int(ac.hang_timer), dtype=torch.int32,
-                                device=dev))
-
-    sm_p = smeter.SMeterParams(attack_alpha=f(params.smeter.attack_alpha),
-                               decay_alpha=f(params.smeter.decay_alpha))
-    sc = state.smeter
-    sm_c = smeter.SMeterCarry(attack_ave=r(sc.attack_ave),
-                              decay_ave=r(sc.decay_ave),
-                              average_mag=r(sc.average_mag),
-                              peak_mag=r(sc.peak_mag))
-
-    if params.resamp is not None:
-        rs_p = resampler.ResamplerParams(dt_hi=f(params.resamp.dt_hi),
-                                         dt_lo=f(params.resamp.dt_lo))
-        tail = np.asarray(state.resamp.tail)
-        rs_c = resampler.ResamplerCarry(
-            tail=(complex_tensor(tail, dev) if np.iscomplexobj(tail) else
-                  torch.tensor(tail.astype(np.float32), device=dev)),
-            t0=r(state.resamp.t0))
-    else:
-        rs_p, rs_c = None, None
-
+    # the rest maps field by field onto the port's NamedTuples
+    like_p = {k: _like(getattr(base_p, k), getattr(params, k), dev)
+              for k in ("agc", "smeter", "demod", "resamp")}
+    like_s = {k: _like(getattr(base_s, k), getattr(state, k), dev)
+              for k in ("agc", "smeter", "demod", "resamp")}
     out_p = rx.ReceiverParams(
-        dec=dec_p, chan_filter=ff_p, agc=agc_p, smeter=sm_p, demod=None,
-        resamp=rs_p,
+        dec=dec_p, chan_filter=ff_p, **like_p,
         dc_offset=torch.tensor(dc, dtype=CDTYPE, device=dev),
         audio_gain=float(np.float32(params.audio_gain)))
-    out_s = rx.ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c,
-                             smeter=sm_c, demod=None, resamp=rs_c)
+    out_s = rx.ReceiverState(dec=dec_c, chan_filter=ff_c, **like_s)
     return out_p, out_s

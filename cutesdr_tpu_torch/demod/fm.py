@@ -1,0 +1,288 @@
+"""NBFM demodulator with PLL frequency tracker and noise squelch (port of
+``cutesdr_tpu/demod/fm.py``).
+
+The PLL (BW 6 kHz, zeta 0.707, +-6 kHz range) has an NCO-frequency term
+that is the FM audio once its slow DC (a one-pole tracked offset) is
+removed.  It takes one of three tiers per block, numbered as in the JAX
+package:
+
+* 0, linear: the parallel locked-loop solve (``ops/pll.solve_locked``);
+* 1, chunked: the exact recurrence as concurrent chunk scans with a
+  bitwise boundary check (``ops/pll.chunked_scan``), for blocks of at
+  least four 128-sample chunks (``_chunkable``);
+* 2, scan: the exact sequential loop (``kernels/seqloop.fm_pll_scan``, the
+  K7 kernel on CUDA).
+
+The JAX package picks the tier on the device with ``lax.cond``; here it
+is a host branch on each validity flag: one device sync per block, two
+when the linear tier fails on a chunkable block.  ``STATS`` counts the
+tiers taken.  Every tier runs the DC tracker afterwards, vectorized in the
+offset frame (``_dc_track``).  The noise squelch (HP FIR, rectified EMA,
++-100 hysteresis against a 0..5000 threshold) and the optional one-pole
+de-emphasis are parallel and stay on the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cutesdr_tpu.design.fir_kaiser import design_highpass
+from cutesdr_tpu.design.iir_biquad import biquad_lowpass
+from cutesdr_tpu.types import K_2PI
+from cutesdr_tpu_torch.kernels import seqloop
+from cutesdr_tpu_torch.ops import fir, iir, pll
+from cutesdr_tpu_torch.ops.pll import TWO_PI, wrap_pi
+from cutesdr_tpu_torch.ops.util import ema
+from cutesdr_tpu_torch.types import real_scalar
+
+FMPLL_RANGE = 6000.0
+VOICE_BANDWIDTH = 3000.0
+FMPLL_BW = VOICE_BANDWIDTH * 2.0
+FMPLL_ZETA = 0.707
+FMDC_ALPHA = 0.01
+MAX_FMOUT = 25000.0
+SQUELCH_MAX = 5000.0
+SQUELCHAVE_TIMECONST = 0.02
+SQUELCH_HYSTERESIS = 100.0
+
+PLL_CHUNK = 128
+PLL_HALO = 128
+
+TIER_LINEAR, TIER_CHUNKED, TIER_SCAN = 0, 1, 2
+TIER_NAMES = {TIER_LINEAR: "linear", TIER_CHUNKED: "chunked",
+              TIER_SCAN: "scan"}
+STATS = {"linear": 0, "chunked": 0, "scan": 0}     # blocks per tier taken
+
+
+class FmParams(NamedTuple):
+    pll_alpha: np.float32
+    pll_beta: np.float32
+    nco_limit: np.float32
+    out_gain: np.float32
+    dc_alpha: np.float32
+    squelch_alpha: np.float32
+    squelch_threshold: np.float32
+    pll_kernel: torch.Tensor      # [D,2,2] powers A^d of the locked loop
+    hp_fir: fir.FirParams         # noise HP above the voice band
+    lp_iir: iir.IirParams         # 3 kHz audio lowpass when squelch open
+    deemph_alpha: np.float32      # one-pole de-emphasis; 1.0 = off (y = x)
+
+
+class FmCarry(NamedTuple):
+    nco_phase: torch.Tensor       # float32 0-dim
+    nco_freq: torch.Tensor
+    freq_error_dc: torch.Tensor
+    squelch_ave: torch.Tensor
+    squelch_on: torch.Tensor      # bool 0-dim
+    hp_fir: fir.FirCarry
+    lp_iir: iir.IirCarry
+    deemph: torch.Tensor          # de-emphasis filter state
+
+
+def squelch_threshold_from_ui(value: int) -> float:
+    """UI 0..99 -> threshold (99 forces permanent squelch)."""
+    return SQUELCH_MAX - (SQUELCH_MAX * value) / 99.0
+
+
+def deemphasis_alpha(sample_rate: float, tau_us: float) -> float:
+    """One-pole de-emphasis coefficient for a time constant in
+    microseconds; 0 (off) maps to alpha = 1 (identity)."""
+    if tau_us <= 0.0:
+        return 1.0
+    return float(1.0 - np.exp(-1.0 / (sample_rate * tau_us * 1e-6)))
+
+
+def _one_pole(sample_rate: float, timeconst: float) -> np.float32:
+    return np.float32(1.0 - np.exp(-1.0 / (sample_rate * timeconst)))
+
+
+def _hp_taps(fm_bw: float, sample_rate: float):
+    return design_highpass(1.0, 50.0, fm_bw, fm_bw * 0.6, sample_rate)
+
+
+def init(sample_rate: float, device, squelch_ui_value: int = 0,
+         fm_bw: float = VOICE_BANDWIDTH,
+         deemphasis_us: float = 0.0) -> tuple[FmParams, FmCarry]:
+    norm = K_2PI / sample_rate
+    alpha = 2.0 * FMPLL_ZETA * FMPLL_BW * norm
+    beta = (alpha * alpha) / (4.0 * FMPLL_ZETA * FMPLL_ZETA)
+    limit = FMPLL_RANGE * norm
+    kernel = pll.locked_loop_kernel(float(alpha), float(beta))
+    fp, fc = fir.init(_hp_taps(fm_bw, sample_rate), device)
+    ip, ic = iir.init(biquad_lowpass(VOICE_BANDWIDTH, 1.0, sample_rate),
+                      device)
+    f = np.float32
+    params = FmParams(
+        pll_alpha=f(alpha), pll_beta=f(beta), nco_limit=f(limit),
+        out_gain=f(MAX_FMOUT / limit),
+        dc_alpha=_one_pole(sample_rate, FMDC_ALPHA),
+        squelch_alpha=_one_pole(sample_rate, SQUELCHAVE_TIMECONST),
+        squelch_threshold=f(squelch_threshold_from_ui(squelch_ui_value)),
+        pll_kernel=torch.tensor(kernel.astype(np.float32), device=device),
+        hp_fir=fp, lp_iir=ip,
+        deemph_alpha=f(deemphasis_alpha(sample_rate, deemphasis_us)))
+    zero = lambda: real_scalar(0.0, device)
+    carry = FmCarry(
+        nco_phase=zero(), nco_freq=zero(), freq_error_dc=zero(),
+        squelch_ave=zero(),
+        squelch_on=torch.tensor(True, device=device),
+        hp_fir=fc, lp_iir=ic, deemph=zero())
+    return params, carry
+
+
+def set_squelch(params: FmParams, ui_value: int) -> FmParams:
+    return params._replace(
+        squelch_threshold=np.float32(squelch_threshold_from_ui(ui_value)))
+
+
+def set_deemphasis(params: FmParams, tau_us: float,
+                   sample_rate: float) -> FmParams:
+    """Live de-emphasis change; off (tau 0) by default, as the reference's
+    CFmDemod has none.  Typical NBFM values: 75 us, 50 us."""
+    return params._replace(
+        deemph_alpha=np.float32(deemphasis_alpha(sample_rate, tau_us)))
+
+
+def set_bandwidth(params: FmParams, fm_bw: float,
+                  sample_rate: float) -> FmParams:
+    """Re-derive the squelch HP filter when the channel filter BW changes."""
+    fp, _ = fir.init(_hp_taps(fm_bw, sample_rate),
+                     params.hp_fir.taps_i.device)
+    return params._replace(hp_fir=fp)
+
+
+def _dc_track(params: FmParams, freqs: torch.Tensor, dc0: torch.Tensor):
+    """DC-tracker EMA about the block's first frequency sample as origin
+    (an exact identity that keeps the float32 state near zero: the
+    absolute-frame EMA was the FM chain's noise floor).  Returns
+    (audio series, dc_last)."""
+    off = freqs[0]
+    f_off = freqs - off
+    dcs_off = ema(params.dc_alpha, f_off, dc0 - off)
+    audio = (f_off - dcs_off) * float(params.out_gain)
+    return audio, off + dcs_off[-1]
+
+
+def _pll_scan(params: FmParams, carry: FmCarry, theta: torch.Tensor):
+    """The exact loop, then the DC tracker."""
+    phase, freq, freqs, err = seqloop.fm_pll_scan(
+        params.pll_alpha, params.pll_beta, params.nco_limit,
+        carry.nco_phase, carry.nco_freq, theta)
+    audio, dc_last = _dc_track(params, freqs, carry.freq_error_dc)
+    return phase, freq, dc_last, audio, err
+
+
+def _chunkable(n: int) -> bool:
+    """Static gate of the chunked tier."""
+    return n % PLL_CHUNK == 0 and n // PLL_CHUNK >= 4
+
+
+def _pll_chunked(params: FmParams, carry: FmCarry, theta: torch.Tensor):
+    """The exact recurrence as chunk scans (``ops/pll.chunked_scan``)."""
+    a, b, lim = (float(v) for v in (params.pll_alpha, params.pll_beta,
+                                    params.nco_limit))
+
+    def step(state, th):
+        phase, freq = state
+        err = -wrap_pi(th + phase)
+        freq = torch.clamp(freq + b * err, -lim, lim)
+        phase = wrap_pi(phase + freq + a * err)
+        return (phase, freq), (freq, err)
+
+    init = (carry.nco_phase, carry.nco_freq)
+    valid, (freqs, errs), (phase, freq) = pll.chunked_scan(
+        step, init, init, theta, PLL_CHUNK, PLL_HALO)
+    audio, dc_last = _dc_track(params, freqs, carry.freq_error_dc)
+    return valid, (torch.remainder(phase, TWO_PI), freq, dc_last, audio,
+                   errs)
+
+
+def _pll_linear(params: FmParams, carry: FmCarry, theta: torch.Tensor):
+    """Parallel solve of the locked loop plus its exactness flag."""
+    e0 = -wrap_pi(theta[0] + carry.nco_phase)
+    psi = wrap_pi(theta[1:] - theta[:-1])
+    u = torch.cat([theta.new_zeros(1), -psi])
+    e, f_next, valid = pll.solve_locked(params.pll_kernel, params.pll_beta,
+                                        params.nco_limit, e0,
+                                        carry.nco_freq, u)
+    audio, dc_last = _dc_track(params, f_next, carry.freq_error_dc)
+    phase = torch.remainder(-theta[-1] - e[-1] + f_next[-1]
+                            + float(params.pll_alpha) * e[-1], TWO_PI)
+    return valid, (phase, f_next[-1], dc_last, audio, e)
+
+
+def _pll(params: FmParams, carry: FmCarry, x: torch.Tensor):
+    """Tiered PLL solve.  Returns (tier, pll_out) with the tier taken."""
+    theta = torch.atan2(x.imag, x.real)
+    valid, out = _pll_linear(params, carry, theta)
+    tier = TIER_LINEAR
+    if not bool(valid):                                     # host sync
+        tier = TIER_SCAN
+        if _chunkable(theta.shape[-1]):
+            cvalid, out = _pll_chunked(params, carry, theta)
+            if bool(cvalid):                                # host sync
+                tier = TIER_CHUNKED
+        if tier == TIER_SCAN:
+            out = _pll_scan(params, carry, theta)
+    STATS[TIER_NAMES[tier]] += 1
+    return tier, out
+
+
+def _noise_squelch(params: FmParams, carry: FmCarry, audio: torch.Tensor):
+    fc, noise = fir.process_real(params.hp_fir, carry.hp_fir, audio)
+    ave = ema(params.squelch_alpha, noise.abs(), carry.squelch_ave)[-1]
+
+    thresh = params.squelch_threshold
+    if thresh == 0.0:
+        squelched = torch.ones((), dtype=torch.bool, device=audio.device)
+    else:
+        squelched = torch.where(carry.squelch_on,
+                                ave >= float(thresh - SQUELCH_HYSTERESIS),
+                                ave >= float(thresh + SQUELCH_HYSTERESIS))
+
+    ic, lp_audio = iir.process(params.lp_iir, carry.lp_iir, audio)
+    # freeze the LP state and zero the audio while squelched
+    ic = iir.IirCarry(*(torch.where(squelched, old, new)
+                        for new, old in zip(ic, carry.lp_iir)))
+    y = torch.where(squelched, torch.zeros_like(lp_audio), lp_audio)
+    return fc, ic, ave, squelched, y
+
+
+def _post(params: FmParams, carry: FmCarry, pll_out):
+    """Squelch + de-emphasis + carry assembly after the PLL."""
+    phase, freq, dc, audio, _err = pll_out
+    fc, ic, ave, squelched, y = _noise_squelch(params, carry, audio)
+    y = ema(params.deemph_alpha, y, carry.deemph)
+    return FmCarry(nco_phase=phase, nco_freq=freq, freq_error_dc=dc,
+                   squelch_ave=ave, squelch_on=squelched,
+                   hp_fir=fc, lp_iir=ic, deemph=y[-1]), y
+
+
+def process(params: FmParams, carry: FmCarry,
+            x: torch.Tensor) -> tuple[FmCarry, torch.Tensor]:
+    _tier, pll_out = _pll(params, carry, x)
+    return _post(params, carry, pll_out)
+
+
+def process_probed(params: FmParams, carry: FmCarry, x: torch.Tensor):
+    """process() + the per-sample phase error x100 (the reference's
+    PROFILE_6 tap, dsp/fmdemod.cpp:120) and the tier taken.  Returns
+    (carry', audio, p6, tier)."""
+    tier, pll_out = _pll(params, carry, x)
+    c, y = _post(params, carry, pll_out)
+    return c, y, pll_out[4] * 100.0, tier
+
+
+def process_stereo(params: FmParams, carry: FmCarry,
+                   x: torch.Tensor) -> tuple[FmCarry, torch.Tensor]:
+    carry, y = process(params, carry, x)
+    return carry, torch.complex(y, y)
+
+
+def last_tier(params: FmParams, carry: FmCarry, x: torch.Tensor) -> int:
+    """The tier a block would take (0/1/2), alone."""
+    tier, _ = _pll(params, carry, x)
+    return tier

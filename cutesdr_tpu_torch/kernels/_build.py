@@ -52,6 +52,10 @@ SIGNATURES = {
     # mag, attack, decay, a0, d0, n, out, totals_a, totals_b, starts,
     # maps_c, maps_u, maps_v, stream
     "cutesdr_smeter": [P, F32, F32, P, P, I32, P, P, P, P, P, P, P, P],
+    # theta, n, alpha, beta, limit, state0, freqs, err, state, stream
+    "cutesdr_fm_pll": [P, I32, F32, F32, F32, P, P, P, P, P],
+    # theta, n, alpha, beta, limit, state0, prev, state, stream
+    "cutesdr_sam_pll": [P, I32, F32, F32, F32, P, P, P, P],
 }
 
 _lock = threading.Lock()

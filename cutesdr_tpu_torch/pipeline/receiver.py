@@ -1,9 +1,11 @@
 """The receiver chain as one streaming step (port of
-``cutesdr_tpu/pipeline/receiver.py``, SSB/CW slice).
+``cutesdr_tpu/pipeline/receiver.py``).
 
 DC cal + NCO mix + polyphase decimation (mixdec kernel) -> overlap-save
 channel filter (fastfir kernel) -> S-meter (smeter kernel) -> AGC (scan
-kernels) -> SSB real part -> exact-rational or banded resample -> gain.
+kernels) -> demod (AM, SAM with the seqloop_sam kernel, FM with the
+seqloop_fm kernel, or SSB/CW; mono or stereo) -> exact-rational or banded
+resample -> gain.
 
 Numeric knobs (tune frequency, filter H, AGC constants, resample ratio,
 volume, DC cal) are plain values in ``ReceiverParams``, swapped between
@@ -23,8 +25,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.demod import MODE_IDS
+from cutesdr_tpu.demod import DEMOD_AM, DEMOD_FM, DEMOD_SAM, MODE_IDS
 from cutesdr_tpu.design.decimation_plan import DecimationPlan, plan_decimation
+from cutesdr_tpu_torch.demod import am as am_demod
+from cutesdr_tpu_torch.demod import fm as fm_demod
+from cutesdr_tpu_torch.demod import sam as sam_demod
 from cutesdr_tpu_torch.demod import ssb as ssb_demod
 from cutesdr_tpu_torch.kernels import fastfir as fastfir_k
 from cutesdr_tpu_torch.kernels import mixdec
@@ -51,7 +56,7 @@ MODE_DEFAULT_CUTS = {
     "cwu": (-250, 250), "cwl": (-250, 250),
 }
 
-PORTED_MODES = ("usb", "lsb", "cwu", "cwl")
+PORTED_MODES = tuple(MODE_LIMITS)   # all seven modes of the JAX package
 RATIONAL_MIN_SAMPLES = 131072   # receiver.py:543 (set by TPU timing)
 
 
@@ -138,14 +143,10 @@ def check_supported(cfg: ReceiverConfig) -> None:
     """Raise NotImplementedError for what this slice of the port lacks,
     naming the ROADMAP item that brings it."""
     missing = []
-    if cfg.mode not in PORTED_MODES:
-        missing.append(f"mode {cfg.mode!r} (ROADMAP Queue 1: other demods)")
     if cfg.nb_on:
         missing.append("nb_on (ROADMAP Queue 1: noise blanker)")
     if cfg.agc_hang:
         missing.append("agc_hang (ROADMAP Queue 1: hang-mode AGC)")
-    if cfg.stereo:
-        missing.append("stereo (ROADMAP Queue 1: other demods)")
     if cfg.probes:
         missing.append("probes (ROADMAP Queue 1: probe taps)")
     if missing:
@@ -157,7 +158,7 @@ class ReceiverParams(NamedTuple):
     chan_filter: fastfir.FastFirParams
     agc: agc.AgcParams
     smeter: smeter.SMeterParams
-    demod: Any                       # None: SSB/CW is stateless
+    demod: Any                       # Am/Sam/FmParams; None for SSB/CW
     resamp: Any                      # ResamplerParams or None
     dc_offset: torch.Tensor          # NCO-spur I/Q cal, complex64 0-dim
     audio_gain: float                # volume (linear)
@@ -173,7 +174,8 @@ class ReceiverState(NamedTuple):
 
 
 class StepOutput(NamedTuple):
-    audio: torch.Tensor              # [audio_block_cap] float32
+    audio: torch.Tensor              # [audio_block_cap] float32, or
+                                     # complex64 for stereo (left = real)
     n_audio: torch.Tensor            # valid audio samples (int32 0-dim)
     smeter_ave_db: torch.Tensor
     smeter_peak_db: torch.Tensor
@@ -182,6 +184,31 @@ class StepOutput(NamedTuple):
 
 def _agc_cfg(cfg: ReceiverConfig) -> agc.AgcConfig:
     return agc.AgcConfig(cfg.agc_on, cfg.agc_hang, cfg.plan.out_rate)
+
+
+def _demod_init(cfg: ReceiverConfig, device):
+    fs = cfg.plan.out_rate
+    m = cfg.mode_id
+    if m == DEMOD_AM:
+        return am_demod.init((cfg.hi_cut - cfg.low_cut) / 2.0, fs, device)
+    if m == DEMOD_SAM:
+        return sam_demod.init(fs, device)
+    if m == DEMOD_FM:
+        return fm_demod.init(fs, device, cfg.squelch_ui, cfg.hi_cut,
+                             deemphasis_us=cfg.fm_deemphasis_us)
+    return None, None                # ssb/cw: stateless
+
+
+_DEMODS = {DEMOD_AM: am_demod, DEMOD_SAM: sam_demod, DEMOD_FM: fm_demod}
+
+
+def _demod_apply(cfg: ReceiverConfig, params, carry, x: torch.Tensor):
+    mod = _DEMODS.get(cfg.mode_id)
+    if mod is None:
+        f = ssb_demod.process_stereo if cfg.stereo else ssb_demod.process
+        return f(carry, x)
+    f = mod.process_stereo if cfg.stereo else mod.process
+    return f(params, carry, x)
 
 
 def init(cfg: ReceiverConfig, device) -> tuple[ReceiverParams, ReceiverState]:
@@ -201,17 +228,19 @@ def init(cfg: ReceiverConfig, device) -> tuple[ReceiverParams, ReceiverState]:
                             cfg.agc_slope, cfg.agc_decay_ms)
     agc_c = agc.init_carry(acfg, device)
     sm_p, sm_c = smeter.init(fs_out, device)
+    dm_p, dm_c = _demod_init(cfg, device)
     if cfg.audio_rate is not None:
         rs_p, rs_c = resampler.init(fs_out / cfg.audio_rate, device,
+                                    complex_input=cfg.stereo,
                                     periods=cfg.resampler_periods)
     else:
         rs_p, rs_c = None, None
     params = ReceiverParams(
-        dec=dec_p, chan_filter=ff_p, agc=agc_p, smeter=sm_p, demod=None,
+        dec=dec_p, chan_filter=ff_p, agc=agc_p, smeter=sm_p, demod=dm_p,
         resamp=rs_p, dc_offset=torch.zeros((), dtype=CDTYPE, device=device),
         audio_gain=1.0)
     state = ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c,
-                          smeter=sm_c, demod=None, resamp=rs_c)
+                          smeter=sm_c, demod=dm_c, resamp=rs_c)
     return params, state
 
 
@@ -264,7 +293,7 @@ def receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
     """One block of cfg.block_size samples given as float32 re/im planes."""
     dec_c, ff_c, filt = _front(cfg, params, state, re, im)
     sm_c, agc_c, leveled = _levels(cfg, params, state, filt)
-    dm_c, audio = ssb_demod.process(state.demod, leveled)
+    dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
     sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c)
     return ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c, smeter=sm_c,
                          demod=dm_c, resamp=rs_c), out

@@ -20,6 +20,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "import cutesdr_tpu_torch.kernels.mixdec\n"
         "import cutesdr_tpu_torch.kernels.fastfir\n"
         "import cutesdr_tpu_torch.kernels.scan\n"
+        "import cutesdr_tpu_torch.kernels.seqloop\n"
+        "import cutesdr_tpu_torch.demod.am, cutesdr_tpu_torch.demod.fm\n"
+        "import cutesdr_tpu_torch.demod.sam, cutesdr_tpu_torch.ops.iir\n"
         "import cutesdr_tpu_torch.ops.resampler\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -63,6 +66,27 @@ def test_redeclared_constants_match_reference():
     for name in ("SINC_PERIODS", "SINC_PERIOD_PTS", "_DT_SPLIT", "_K_SPLIT",
                  "_CHUNK", "_BH_COEFS"):
         assert getattr(t_rs, name) == getattr(j_rs, name), name
+    from cutesdr_tpu.demod import am as j_am
+    from cutesdr_tpu.demod import fm as j_fm
+    from cutesdr_tpu.demod import sam as j_sam
+    from cutesdr_tpu.ops import pll as j_pll
+    from cutesdr_tpu_torch.demod import am as t_am
+    from cutesdr_tpu_torch.demod import fm as t_fm
+    from cutesdr_tpu_torch.demod import sam as t_sam
+    from cutesdr_tpu_torch.ops import pll as t_pll
+
+    assert t_am.DC_ALPHA == j_am.DC_ALPHA == j_sam.DC_ALPHA
+    for name in ("PLL_BW", "PLL_ZETA", "PLL_LIMIT", "TIER_LINEAR",
+                 "TIER_SCAN"):
+        assert getattr(t_sam, name) == getattr(j_sam, name), name
+    for name in ("FMPLL_RANGE", "VOICE_BANDWIDTH", "FMPLL_BW", "FMPLL_ZETA",
+                 "FMDC_ALPHA", "MAX_FMOUT", "SQUELCH_MAX",
+                 "SQUELCHAVE_TIMECONST", "SQUELCH_HYSTERESIS", "PLL_CHUNK",
+                 "PLL_HALO", "TIER_LINEAR", "TIER_CHUNKED", "TIER_SCAN"):
+        assert getattr(t_fm, name) == getattr(j_fm, name), name
+    for n in (256, 384, 512, 1000, 1024, 262144):
+        assert t_fm._chunkable(n) == j_fm._chunkable(n)
+    assert t_pll.WRAP_MARGIN == j_pll.WRAP_MARGIN
     assert t_scan.MIN_KERNEL_N == j_scan.MIN_KERNEL_N
     assert t_scan.ROWS_PER_STEP == j_scan.ROWS_PER_STEP
     for n in (65536, 65536 + 128, 262144, 1024):
@@ -89,7 +113,7 @@ def test_kernel_library_is_built_from_the_checkout():
 
     names = sorted(p.name for p in _build._sources())
     assert names == ["common.cuh", "fastfir.cu", "mixdec.cu", "scan.cu",
-                     "scan_common.cuh", "smeter.cu"]
+                     "scan_common.cuh", "seqloop.cu", "smeter.cu"]
     assert str(_build.BUILD_ROOT.parent) == os.path.join(ROOT, "build")
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "build/" in f.read().split()

@@ -5,19 +5,27 @@ its plain version; the CUDA kernels themselves are held against these
 plain versions on the card by chip_smoke.py.
 
 Tolerances are the JAX kernel tests': 5e-5 x scale for mixdec and
-fastfir, 1e-5 for the scans, 1e-3 dB for the S-meter."""
+fastfir, 1e-5 for the scans, 1e-3 dB for the S-meter; for the sequential
+PLL loops the FMA rounding bounds stated at their test."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from cutesdr_tpu.design.decimation_plan import plan_decimation
+from cutesdr_tpu.demod import fm as j_fm
+from cutesdr_tpu.demod import sam as j_sam
 from cutesdr_tpu.kernels import scan1
+from cutesdr_tpu.kernels import seqloop as j_seq
 from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
 from cutesdr_tpu.kernels.mixdec import MixDecimate
 from cutesdr_tpu_torch import convert, kernels
+from cutesdr_tpu_torch.demod import fm as t_fm
+from cutesdr_tpu_torch.demod import sam as t_sam
 from cutesdr_tpu_torch.kernels import fastfir, mixdec, scan
+from cutesdr_tpu_torch.kernels import seqloop as t_seq
 from cutesdr_tpu_torch.ops import decimator
 from cutesdr_tpu_torch.ops import fastfir as ff_ops
 
@@ -27,6 +35,12 @@ torch.set_num_threads(1)
 def _cplx(rng, n, scale):
     return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
             * scale).astype(np.complex64)
+
+
+def _ang(got, want):
+    """Largest wrapped angle difference."""
+    d = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+    return float(np.abs((d + np.pi) % (2 * np.pi) - np.pi).max())
 
 
 @pytest.mark.parametrize("in_rate,tile_out", [(2_000_000.0, 256),
@@ -127,3 +141,48 @@ def test_smeter_last_plain_matches_pallas():
     assert abs(float(ta) - float(ja)) < 1e-3
     assert abs(float(td) - float(jd)) < 1e-3
     assert scan.smeter_supported(n) and not scan.smeter_supported(n + 128)
+
+
+@pytest.mark.parametrize("mode", ["fm", "sam"])
+def test_seqloop_plain_matches_pallas(mode):
+    """The K7/K8 plain versions against the Pallas kernels (interpret
+    mode) on noise, the worst case, chained over blocks of 1024, 2048 and
+    5120.  tests/test_kernels.py holds the Pallas kernels bitwise to the
+    XLA scans; the port differs from both by the FMA rounding only:
+    FM err within 2e-6 rad, SAM phases within 2e-6 rad (wrapped), and the
+    bounds of tests/test_kernels.py on the state and the audio."""
+    rng = np.random.default_rng(3 if mode == "fm" else 4)
+    jm, tm = (j_fm, t_fm) if mode == "fm" else (j_sam, t_sam)
+    jp, jc = jm.init(62_500.0)
+    tp, tc = tm.init(62_500.0, "cpu")
+    kernels.reset_launches()
+    for n in (1024, 2048, 5120):
+        x = _cplx(rng, n, 3000.0)
+        th = np.arctan2(x.imag, x.real).astype(np.float32)
+        args = lambda p, c: (p.pll_alpha, p.pll_beta, p.nco_limit,
+                             c.nco_phase, c.nco_freq)
+        if mode == "fm":
+            jph, jfr, jfreqs, jerr = j_seq.fm_pll_scan(
+                *args(jp, jc), jnp.asarray(th), interpret=True)
+            tph, tfr, tfreqs, terr = t_seq.fm_pll_scan(*args(tp, tc),
+                                                       torch.from_numpy(th))
+            assert float(np.abs(terr.numpy() - np.asarray(jerr)).max()) < 2e-6
+            jaudio, jdc = jax.jit(j_fm._dc_track)(jp, jfreqs,
+                                                  jc.freq_error_dc)
+            taudio, tdc = t_fm._dc_track(tp, tfreqs, tc.freq_error_dc)
+            jaudio = np.asarray(jaudio)
+            assert (float(np.abs(taudio.numpy() - jaudio).max())
+                    < 1e-5 * float(np.abs(jaudio).max()))
+            jc = jc._replace(nco_phase=jph, nco_freq=jfr, freq_error_dc=jdc)
+            tc = tc._replace(nco_phase=tph, nco_freq=tfr, freq_error_dc=tdc)
+        else:
+            jph, jfr, jprev = j_seq.sam_pll_scan(
+                *args(jp, jc), jnp.asarray(th), interpret=True)
+            tph, tfr, tprev = t_seq.sam_pll_scan(*args(tp, tc),
+                                                 torch.from_numpy(th))
+            assert _ang(tprev.numpy(), jprev) < 2e-6
+            jc = jc._replace(nco_phase=jph, nco_freq=jfr)
+            tc = tc._replace(nco_phase=tph, nco_freq=tfr)
+        assert _ang(float(tph), float(jph)) < 1e-5
+        assert abs(float(tfr) - float(jfr)) < 1e-6
+    assert not any(kernels.LAUNCHES.values())       # CPU: plain versions

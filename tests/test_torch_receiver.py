@@ -1,6 +1,7 @@
-"""The PyTorch port's receiver slice (SSB/CW) on the CPU: the golden and
-reference-binary fixtures at their pinned bounds, parity with the JAX
-Receiver, the live setters, and carrying a JAX stream into the port."""
+"""The PyTorch port's receiver on the CPU: the golden and reference-binary
+fixtures at their pinned bounds (SSB/CW, AM, SAM mono and stereo, FM),
+parity with the JAX Receiver, the live setters, and carrying a JAX stream
+into the port."""
 
 import json
 import os
@@ -20,7 +21,7 @@ from cutesdr_tpu_torch.pipeline import receiver as trx
 torch.set_num_threads(1)
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-SLICE = ("usb", "lsb", "cwu", "usb2m")
+SLICE = ("usb", "lsb", "cwu", "usb2m", "am", "sam", "fm")
 
 
 def _snr_db(want, got, skip):
@@ -59,6 +60,26 @@ def test_fixture_through_port(name, kind):
         assert snr > rmeta["min_snr_prod_db"], snr
 
 
+def test_stereo_sam_fixture_through_port():
+    """Driven as tests/test_refgold_fixtures.py drives the JAX receiver:
+    complex audio (left = real, right = imag) against the reference
+    binary's stereo output at the pinned bound."""
+    d = np.load(os.path.join(FIXDIR, "refgold_sam_stereo.npz"))
+    meta = json.loads(str(d["meta"]))
+    cfg = trx.ReceiverConfig(input_rate=meta["input_rate"], mode="sam",
+                             tune_freq=meta["tune_freq"], audio_rate=None,
+                             stereo=True, agc_on=True, agc_thresh_db=-90.0)
+    rx = trx.Receiver(cfg, "cpu")
+    got = []
+    for b in range(meta["n_blocks"]):
+        sl = slice(b * cfg.block_size, (b + 1) * cfg.block_size)
+        a = rx.process(d["iq_re"][sl] + 1j * d["iq_im"][sl]).audio
+        assert a.dtype == torch.complex64
+        got.append(torch.stack([a.real, a.imag], -1).double().numpy())
+    got = np.concatenate(got)
+    assert _snr_db(d["audio"], got, meta["skip"]) > meta["min_snr_prod_db"]
+
+
 def _blocks(cfg, n_blocks, seed=7, power_db=-30.0, offset_hz=1000.0):
     """An in-band tone at tune + offset plus -90 dBFS noise."""
     gen = SignalGenerator(GenConfig(
@@ -68,12 +89,12 @@ def _blocks(cfg, n_blocks, seed=7, power_db=-30.0, offset_hz=1000.0):
             for _ in range(n_blocks)]
 
 
-def _match(jout, tout, min_snr=90.0):
+def _match(jout, tout, min_snr=90.0, skip=0):
     n = int(jout.n_audio)
     assert int(tout.n_audio) == n
     want = np.asarray(jout.audio)[:n].astype(np.float64)
     got = tout.audio[:n].double().numpy()
-    assert _snr_db(want, got, 0) >= min_snr
+    assert _snr_db(want, got, skip) >= min_snr
     assert abs(float(tout.smeter_ave_db) - float(jout.smeter_ave_db)) < 0.01
     assert abs(float(tout.smeter_peak_db)
                - float(jout.smeter_peak_db)) < 0.01
@@ -91,6 +112,60 @@ def test_port_matches_jax_receiver_rational_path():
     for x in _blocks(tr.cfg, 2):
         _match(jr.process(jnp.asarray(x)), tr.process(x))
     assert not any(kernels.LAUNCHES.values())     # CPU: plain versions only
+
+
+def _modulated(cfg, n_blocks, seed, noise=True):
+    """The mode's own stimulus at -30 dBFS, with -90 dBFS noise if
+    ``noise``, phase continuous across blocks: AM and SAM a carrier at
+    tune + 20 Hz with 400 Hz AM at 50 % depth, FM a 1 kHz tone at +-3 kHz
+    deviation."""
+    rng = np.random.default_rng(seed)
+    amp = 32767.0 * 10 ** (-30 / 20)
+    noise_amp = 32767.0 * 10 ** (-90 / 20) if noise else 0.0
+    out = []
+    for b in range(n_blocks):
+        t = (np.arange(cfg.block_size) + b * cfg.block_size) / cfg.input_rate
+        if cfg.mode == "fm":
+            sig = amp * np.exp(1j * (2 * np.pi * cfg.tune_freq * t
+                                     + 3.0 * np.sin(2 * np.pi * 1e3 * t)))
+        else:
+            env = 1.0 + 0.5 * np.cos(2 * np.pi * 400.0 * t)
+            sig = amp * env * np.exp(2j * np.pi * (cfg.tune_freq + 20.0) * t)
+        sig += noise_amp * _cnoise(rng, cfg.block_size)
+        out.append(sig.astype(np.complex64))
+    return out
+
+
+def _cnoise(rng, n):
+    return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+@pytest.mark.parametrize("mode", ["am", "sam", "fm"])
+def test_port_matches_jax_receiver_demods(mode):
+    """131,072 demodulated samples per block (frames_per_block=128 at
+    250 kSPS), so the rational resampler and the scan kernels' paths are
+    taken, on the CPU through their plain versions.  Two chained blocks:
+    the first acquires (SAM through the sequential loop, FM through the
+    chunked tier), the second runs locked (the linear tier), as in JAX.
+    The stimulus is noise-free, so that the AGC's guess-verify converges
+    and the test stays short (with -90 dBFS noise the FM chain's second
+    block takes the AGC's per-sample fallback, in both packages).
+
+    The first 4,096 audio samples of the first block are left out of the
+    SNR: there the PLL runs on the filters' fill-in noise, where the FMA
+    rounding of JAX's loop against the port's flips a phase wrap now and
+    then (FM: 32 dB with them, 118.9 dB without).  The lowest is SAM's
+    92.1 dB, set by the float32 DC block, whose output y = z0[n] - z0[n-1]
+    cancels two values near |x|/(1 - 0.99) that the two packages round
+    differently."""
+    kw = dict(input_rate=250_000.0, mode=mode, tune_freq=60_000.0,
+              frames_per_block=128)
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw))
+    tr = trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
+    assert tr.cfg.fastfir_valid * tr.cfg.frames_per_block == 131_072
+    for b, x in enumerate(_modulated(tr.cfg, 2, seed=8, noise=False)):
+        _match(jr.process(jnp.asarray(x)), tr.process(x),
+               skip=4096 if b == 0 else 0)
 
 
 def test_live_setters_match_jax_receiver():
@@ -148,16 +223,47 @@ def test_from_jax_mid_stream(layout):
         _match(jout, tout)
 
 
-@pytest.mark.parametrize("kw", [dict(mode="am"), dict(mode="fm"),
-                                dict(mode="sam"), dict(nb_on=True),
-                                dict(agc_hang=True), dict(stereo=True)])
+@pytest.mark.parametrize("mode,stereo", [("fm", False), ("sam", True)])
+def test_from_jax_mid_stream_demods(mode, stereo):
+    """The demodulator's params and carry (PLL state, FIR tails, IIR and
+    DC states, squelch flag, de-emphasis) and a complex stereo resampler
+    tail carried across after block 2: the port continues the JAX stream."""
+    kw = dict(input_rate=250_000.0, mode=mode, tune_freq=60_000.0,
+              frames_per_block=2, stereo=stereo)
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw))
+    tcfg = trx.ReceiverConfig(**kw)
+    blocks = _modulated(tcfg, 4, seed=12)
+    for x in blocks[:2]:
+        jr.process(jnp.asarray(x))
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    params, state = convert.from_jax(tcfg, to_np(jr.params), to_np(jr.state),
+                                     "cpu")
+    assert state.resamp.tail.is_complex() == stereo
+    for x in blocks[2:]:
+        jout = jr.process(jnp.asarray(x))
+        state, tout = trx.receiver_step(tcfg, params, state,
+                                        torch.from_numpy(x))
+        if stereo:
+            for part in ("real", "imag"):
+                _match(jout._replace(audio=getattr(np.asarray(jout.audio),
+                                                   part)),
+                       tout._replace(audio=getattr(tout.audio, part)))
+        else:
+            _match(jout, tout)
+
+
+@pytest.mark.parametrize("kw", [dict(nb_on=True), dict(agc_hang=True),
+                                dict(probes=True)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
 
 
 def test_config_geometry_matches_jax():
+    assert set(trx.PORTED_MODES) == set(jrx.MODE_LIMITS)
     for kw in (dict(), dict(mode="lsb", input_rate=250_000.0),
+               dict(mode="am"), dict(mode="fm", frames_per_block=256),
+               dict(mode="sam", stereo=True),
                dict(mode="cwl", input_rate=20_000_000.0, frames_per_block=4),
                dict(audio_rate=None, frames_per_block=256)):
         j, t = jrx.ReceiverConfig(**kw), trx.ReceiverConfig(**kw)
