@@ -23,6 +23,12 @@ Prints one line per phase, a JSON line of per-kernel results, the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, so the script exits non-zero.  It
 needs a CUDA device; it never imports jax.
+
+    python3 chip_smoke.py --profile
+
+builds the kernels and profiles the same receiver paths instead (step
+time, device busy time, launches and host reads per step; see
+``profile_paths``).
 """
 
 from __future__ import annotations
@@ -222,13 +228,40 @@ def pll_theta(kind: str, n: int, fs: float, offset_hz: float, gen):
     return (torch.remainder(k * w + 0.3 + np.pi, 2 * np.pi) - np.pi).float()
 
 
+def seq_err(name: str, got, want) -> tuple[float, int]:
+    """Largest difference of a seqloop kernel's outputs from its plain
+    loop's (angles wrapped) and the count of values not bitwise equal;
+    raises beyond SEQ_TOL."""
+    err = max(angle_err(g, w) if is_angle else float((g - w).abs().max())
+              for g, w, is_angle in zip(got, want, ANGLES[name]))
+    unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+    if not err <= SEQ_TOL:
+        raise AssertionError(f"{name} disagrees with its plain loop: "
+                             f"{err:.3e} > {SEQ_TOL:.1e}")
+    return err, unequal
+
+
+def chained(fn, p, phase0, freq0, th, split: int):
+    """fn over th[:split], then over th[split:] from the state the first
+    call returned: (final phase, final freq, *series concatenated)."""
+    first = fn(p.pll_alpha, p.pll_beta, p.nco_limit, phase0, freq0,
+               th[:split])
+    second = fn(p.pll_alpha, p.pll_beta, p.nco_limit, first[0], first[1],
+                th[split:])
+    return (second[0], second[1],
+            *(torch.cat(pair) for pair in zip(first[2:], second[2:])))
+
+
 def check_seqloops(gen, results):
     """K7 and K8 against their plain per-sample loops at the FM (62.5 kHz)
     and SAM (31.25 kHz) paths' rates: 32,768 samples of noise and of a
     locked tone, and the full-width 262,144 samples of noise.  The kernel
     is timed as the others are; the plain loop (one launch per torch op
     per sample) once.  Then FM's chunked tier (torch) at 262,144 on the
-    same noise: it must equal K7 where it validates."""
+    same noise: it must equal K7 where it validates.  Last, partial tiles
+    and the carry between calls: two chained calls of 256 samples (the FM
+    idle channel's block) and of 261,144 then 777 samples (neither whole
+    1,024-sample tiles), on noise."""
     fm_p, fm_c = fm.init(62_500.0, "cuda")
     sam_p, _ = sam.init(31_250.0, "cuda")
     phase0 = torch.tensor(0.5, device="cuda")
@@ -245,14 +278,7 @@ def check_seqloops(gen, results):
             got = run_k()
             out = []
             plain_ms = time_once(lambda: out.append(plain(*args)))
-            want = out[0]
-            err = max(angle_err(g, w) if is_angle
-                      else float((g - w).abs().max())
-                      for g, w, is_angle in zip(got, want, ANGLES[name]))
-            unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
-            if not err <= SEQ_TOL:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"loop: {err:.3e} > {SEQ_TOL:.1e}")
+            err, unequal = seq_err(name, got, out[0])
             ms = time_ms(run_k)
             phase(f"kernel {name} n={n} {kind}: max_abs_err {err:.3e} (tol "
                   f"{SEQ_TOL:.0e}), {unequal} values not bitwise equal, "
@@ -263,6 +289,15 @@ def check_seqloops(gen, results):
                                  "plain_ms": plain_ms}
                 if name == "seqloop_fm":
                     check_fm_chunked(fm_p, fm_c, phase0, freq0, th, got, ms)
+    for n1, n2 in ((256, 256), (N_DEMOD - 1000, 777)):
+        for name, (p, fs, off, kernel, plain) in loops.items():
+            th = pll_theta("noise", n1 + n2, fs, off, gen)
+            err, unequal = seq_err(
+                name, chained(kernel, p, phase0, freq0, th, n1),
+                chained(plain, p, phase0, freq0, th, n1))
+            phase(f"kernel {name} n={n1}+{n2} chained, noise: max_abs_err "
+                  f"{err:.3e} (tol {SEQ_TOL:.0e}), {unequal} values not "
+                  "bitwise equal")
 
 
 def check_fm_chunked(p, c, phase0, freq0, th, k_out, k_ms):
@@ -487,38 +522,88 @@ def drive_path(label, cfg, blocks, gpu_label, tone_hz=None, steps=8,
     return launches
 
 
+def path_specs() -> list:
+    """Every receiver path: (label, config, stimulus arguments, blocks,
+    drive_path arguments)."""
+    full = dict(input_rate=2e6, tune_freq=100e3, frames_per_block=256)
+    # a monitor on an idle channel: noise only, 256 samples per step, so
+    # the chunked tier's gate is closed and every block takes K7
+    idle = dict(input_rate=2e6, tune_freq=100e3, frames_per_block=1,
+                fastfir_nfft=512, fastfir_ntaps=257)
+    return [
+        ("flagship usb", rx.ReceiverConfig(mode="usb", **full),
+         dict(offset_hz=1000.0), 4,
+         dict(tone_hz=1000.0, steps=8, may_fall_back=False)),
+        ("fm", rx.ReceiverConfig(mode="fm", **full),
+         dict(fm_dev_hz=3000.0, mod_hz=1000.0), 3,
+         dict(tone_hz=1000.0, steps=6)),
+        ("sam", rx.ReceiverConfig(mode="sam", **full),
+         dict(offset_hz=100.0, mod_hz=400.0, am_depth=0.5), 3,
+         dict(tone_hz=400.0, steps=6, need=("seqloop_sam",))),
+        ("am", rx.ReceiverConfig(mode="am", **full),
+         dict(mod_hz=1000.0, am_depth=0.5), 3,
+         dict(tone_hz=1000.0, steps=6)),
+        ("fm idle channel", rx.ReceiverConfig(mode="fm", **idle),
+         dict(signal_db=None, noise_db=-60.0), 16,
+         dict(steps=32, need=("seqloop_fm",))),
+    ]
+
+
 def check_paths(gen, gpu_label) -> dict:
     """Every receiver path; returns the launches summed over the paths."""
     total = dict.fromkeys(KERNELS, 0)
-
-    def run(label, cfg, blocks, **kw):
+    for label, cfg, stim, n_blocks, kw in path_specs():
+        blocks = stimulus(cfg, n_blocks, gen, **stim)
         for k, v in drive_path(label, cfg, blocks, gpu_label, **kw).items():
             total[k] += v
-
-    full = dict(input_rate=2e6, tune_freq=100e3, frames_per_block=256)
-    cfg = rx.ReceiverConfig(mode="usb", **full)
-    assert cfg.block_size == N_IN
-    run("flagship usb", cfg, stimulus(cfg, 4, gen, offset_hz=1000.0),
-        tone_hz=1000.0, steps=8, may_fall_back=False)
-    cfg = rx.ReceiverConfig(mode="fm", **full)
-    run("fm", cfg, stimulus(cfg, 3, gen, fm_dev_hz=3000.0, mod_hz=1000.0),
-        tone_hz=1000.0, steps=6)
-    cfg = rx.ReceiverConfig(mode="sam", **full)
-    run("sam", cfg, stimulus(cfg, 3, gen, offset_hz=100.0, mod_hz=400.0,
-                             am_depth=0.5),
-        tone_hz=400.0, steps=6, need=("seqloop_sam",))
-    cfg = rx.ReceiverConfig(mode="am", **full)
-    run("am", cfg, stimulus(cfg, 3, gen, mod_hz=1000.0, am_depth=0.5),
-        tone_hz=1000.0, steps=6)
-    # a monitor on an idle channel: noise only, 256 samples per step, so
-    # the chunked tier's gate is closed and every block takes K7
-    cfg = rx.ReceiverConfig(mode="fm", input_rate=2e6, tune_freq=100e3,
-                            frames_per_block=1, fastfir_nfft=512,
-                            fastfir_ntaps=257)
-    run("fm idle channel", cfg,
-        stimulus(cfg, 16, gen, signal_db=None, noise_db=-60.0),
-        steps=32, need=("seqloop_fm",))
     return total
+
+
+def profile_paths(gen, gpu_label) -> None:
+    """``--profile``: where the time goes on each receiver path.  The
+    path's blocks run once (acquisition, AGC settling), then as chained
+    steps twice: unprofiled for the step time, and under torch.profiler.
+    Device busy time per step is the sum of the device-side events
+    (kernels, copies; one stream, so they do not overlap); the aten ops,
+    which carry their kernels' time as well, are left out so that nothing
+    counts twice.  Launches are cudaLaunchKernel calls, host reads
+    aten::_local_scalar_dense calls (``.item()``, ``bool`` of a device
+    tensor).  Prints one JSON line per path."""
+    from torch.profiler import ProfilerActivity, profile
+    for label, cfg, stim, n_blocks, kw in path_specs():
+        r = rx.Receiver(cfg, "cuda")
+        blocks = stimulus(cfg, n_blocks, gen, **stim)
+        steps = kw["steps"]
+
+        def run_steps():
+            for i in range(steps):
+                r.process(blocks[i % len(blocks)])
+            torch.cuda.synchronize()
+
+        for b in blocks:
+            r.process(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_steps()
+        events = prof.key_averages()
+        device = {e.key: e.self_device_time_total / 1e3 / steps
+                  for e in events if "CUDA" in str(e.device_type)}
+        count = {e.key: e.count / steps for e in events}
+        busy = sum(device.values())
+        top = sorted(((t, k[:70]) for k, t in device.items() if t > 0),
+                     reverse=True)[:8]
+        print(json.dumps({
+            "path": label, "ms_per_step": ms, "device_busy_ms": busy,
+            "busy_share": busy / ms,
+            "launches_per_step": count.get("cudaLaunchKernel", 0.0),
+            "host_reads_per_step": count.get("aten::_local_scalar_dense",
+                                             0.0),
+            "top_device_ms": [[round(t, 4), k] for t, k in top],
+            "gpu": gpu_label}), flush=True)
 
 
 def main() -> int:
@@ -540,6 +625,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    if sys.argv[1:] == ["--profile"]:
+        profile_paths(gen, smi)
+        return 0
     results: dict = {}
     check_mixdec(gen, results, 2e6, "")
     check_mixdec(gen, results, 20e6, " D=256")

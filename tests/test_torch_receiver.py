@@ -15,6 +15,8 @@ import torch
 from cutesdr_tpu.pipeline import receiver as jrx
 from cutesdr_tpu.testbench.generators import GenConfig, SignalGenerator
 from cutesdr_tpu_torch import convert, kernels
+from cutesdr_tpu_torch.demod import fm as tfm
+from cutesdr_tpu_torch.demod import sam as tsam
 from cutesdr_tpu_torch.ops import agc
 from cutesdr_tpu_torch.pipeline import receiver as trx
 
@@ -22,6 +24,7 @@ torch.set_num_threads(1)
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 SLICE = ("usb", "lsb", "cwu", "usb2m", "am", "sam", "fm")
+HEAD = 4096     # audio samples of a first block left out of the parity SNR
 
 
 def _snr_db(want, got, skip):
@@ -90,6 +93,8 @@ def _blocks(cfg, n_blocks, seed=7, power_db=-30.0, offset_hz=1000.0):
 
 
 def _match(jout, tout, min_snr=90.0, skip=0):
+    """Equal n_audio, S-meter within 0.01 dB, audio SNR from ``skip`` on;
+    returns the two audio series."""
     n = int(jout.n_audio)
     assert int(tout.n_audio) == n
     want = np.asarray(jout.audio)[:n].astype(np.float64)
@@ -98,6 +103,7 @@ def _match(jout, tout, min_snr=90.0, skip=0):
     assert abs(float(tout.smeter_ave_db) - float(jout.smeter_ave_db)) < 0.01
     assert abs(float(tout.smeter_peak_db)
                - float(jout.smeter_peak_db)) < 0.01
+    return want, got
 
 
 def test_port_matches_jax_receiver_rational_path():
@@ -151,21 +157,35 @@ def test_port_matches_jax_receiver_demods(mode):
     and the test stays short (with -90 dBFS noise the FM chain's second
     block takes the AGC's per-sample fallback, in both packages).
 
-    The first 4,096 audio samples of the first block are left out of the
-    SNR: there the PLL runs on the filters' fill-in noise, where the FMA
-    rounding of JAX's loop against the port's flips a phase wrap now and
-    then (FM: 32 dB with them, 118.9 dB without).  The lowest is SAM's
-    92.1 dB, set by the float32 DC block, whose output y = z0[n] - z0[n-1]
-    cancels two values near |x|/(1 - 0.99) that the two packages round
-    differently."""
+    The first block's first HEAD = 4,096 audio samples are left out of
+    the SNR.  They hold the resampler's delay (~512 zeros), the channel
+    filter's fill ((ntaps - 1) = 1,024 demodulated samples: 786 audio
+    samples for FM, 1,573 for AM and SAM), where the PLL acquires on a
+    near-silent transient and the FMA rounding of JAX's loop against the
+    port's flips a phase wrap now and then, and, for FM, the decay of
+    that difference through the DC tracker and the de-emphasis (about
+    9 dB per 512 samples, 90 dB by ~3,600).  FM reads 32 dB with them,
+    118.9 dB without.  Two checks keep the head honest: each block takes
+    the same PLL tier as JAX's (its ``pll_tier`` probe), and the next HEAD
+    samples alone already reach 90 dB, so the difference is confined to
+    the head.  The lowest is SAM's 92.1 dB, set by the float32 DC block,
+    whose output y = z0[n] - z0[n-1] cancels two values near
+    |x|/(1 - 0.99) that the two packages round differently."""
     kw = dict(input_rate=250_000.0, mode=mode, tune_freq=60_000.0,
               frames_per_block=128)
-    jr = jrx.Receiver(jrx.ReceiverConfig(**kw))
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw, probes=True))
     tr = trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
     assert tr.cfg.fastfir_valid * tr.cfg.frames_per_block == 131_072
+    demod = {"fm": tfm, "sam": tsam}.get(mode)
     for b, x in enumerate(_modulated(tr.cfg, 2, seed=8, noise=False)):
-        _match(jr.process(jnp.asarray(x)), tr.process(x),
-               skip=4096 if b == 0 else 0)
+        before = dict(demod.STATS) if demod else {}
+        jout, tout = jr.process(jnp.asarray(x)), tr.process(x)
+        if demod:
+            taken = [k for k, v in demod.STATS.items() if v != before[k]]
+            assert taken == [demod.TIER_NAMES[int(jout.probes["pll_tier"])]]
+        want, got = _match(jout, tout, skip=HEAD if b == 0 else 0)
+        if b == 0:
+            assert _snr_db(want[:2 * HEAD], got[:2 * HEAD], HEAD) >= 90.0
 
 
 def test_live_setters_match_jax_receiver():
