@@ -16,6 +16,10 @@ natural-order H.  The AGC, S-meter, resampler and demodulator params and
 carries (for AM, SAM and FM: FIR tails, IIR state, PLL state, squelch
 flag, de-emphasis) map field by field onto the port's NamedTuples of the
 same names.
+
+``from_jax_bank`` does the same for a JAX channel bank (every leaf with a
+leading channel axis): channel by channel through ``from_jax``, then
+stacked as ``shard.channels`` stacks a bank.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from cutesdr_tpu_torch.kernels import mixdec
 from cutesdr_tpu_torch.ops import decimator, fastfir, nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
+from cutesdr_tpu_torch.shard import channels
 from cutesdr_tpu_torch.types import CDTYPE, complex_tensor
 
 
@@ -106,3 +111,24 @@ def from_jax(cfg: rx.ReceiverConfig, params, state, device):
         audio_gain=float(np.float32(params.audio_gain)))
     out_s = rx.ReceiverState(dec=dec_c, chan_filter=ff_c, **like_s)
     return out_p, out_s
+
+
+def _row(tree, c: int):
+    """Channel ``c`` of a JAX bank's tree of numpy arrays."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_row(leaf, c) for leaf in tree))
+    return np.asarray(tree)[c]
+
+
+def from_jax_bank(cfg: rx.ReceiverConfig, params, state, device):
+    """(port params, port state) of a bank from a JAX bank's
+    ReceiverParams/ReceiverState of numpy arrays with a leading channel
+    axis.  Raises ValueError where the JAX channels differ in a param the
+    port's bank keeps as one shared value."""
+    n_ch = np.asarray(params.dc_offset).shape[0]
+    rows = [from_jax(cfg, _row(params, c), _row(state, c), device)
+            for c in range(n_ch)]
+    return (channels.stack_params([p for p, _ in rows], device),
+            channels.stack_state([s for _, s in rows]))

@@ -84,12 +84,11 @@ __global__ void apply_kernel(ScanArgs s, const float* __restrict__ starts,
             const float pk = s.peak[i];
             const bool np = pk > prev;
             newpat[i] = np;
-            // same predicates as scan1.py:_round_kernel, rounded op by op
-            // (no FMA contraction) like the plain version's tensor ops
-            const float up = __fadd_rn(__fmul_rn(1.f - s.rise, prev),
-                                       __fmul_rn(s.rise, pk));
-            const float dn = __fadd_rn(__fmul_rn(1.f - s.fall, prev),
-                                       __fmul_rn(s.fall, pk));
+            // same predicates as scan1.py:_round_kernel; each branch's
+            // update (1-a)*prev + a*pk rounds once, as an FMA, like the
+            // plain version (scan.guess_round_plain) and XLA:CPU
+            const float up = fmaf(1.f - s.rise, prev, __fmul_rn(s.rise, pk));
+            const float dn = fmaf(1.f - s.fall, prev, __fmul_rn(s.fall, pk));
             mism += (np != (s.pat[i] != 0)) && (pk != prev) && !(up == dn);
         }
     }

@@ -1,10 +1,12 @@
-// Exact sequential FM and SAM PLL loops, one stream each.
+// Exact sequential FM and SAM PLL loops over C independent streams.
 //
 // Replaces cutesdr_tpu/kernels/seqloop.py:fm_pll_scan (_fm_kernel) and
 // seqloop.py:sam_pll_scan (_sam_kernel): the per-sample reference
 // recurrences (dsp/fmdemod.cpp:62-89, dsp/samdemod.cpp:78-110) that the
 // demodulators fall back to when neither parallel tier is exact
-// (acquisition, clamp hits, carrier-less noise).
+// (acquisition, clamp hits, carrier-less noise).  A channel bank runs
+// its C streams in one launch, as the JAX bank vmaps its scan; one stream
+// is C = 1.
 //
 //   FM:  err = -wrap(th + phase)            emits freq (post-update), err
 //   SAM: err =  wrap(th - phase)            emits phase (pre-update)
@@ -14,8 +16,9 @@
 //
 // Bound on the H100: the loop-carried latency.  Every sample is a chain of
 // about a dozen dependent float32 operations (~60 cycles), so 262,144
-// samples take a few ms whatever the memory does; one SM works, the others
-// idle.  Design: one block of one warp per stream.  The warp stages a
+// samples take a few ms whatever the memory does; one SM works per
+// stream, the others idle.  Design: one block of one warp per stream
+// (the stream in blockIdx.x, state and series at its row).  The warp stages a
 // 1024-sample tile of theta in shared memory with coalesced loads, lane 0
 // runs the recurrence over the tile into shared memory, and the warp
 // stores the outputs coalesced.  The next tile's loads are issued into
@@ -69,13 +72,13 @@ __device__ __forceinline__ void fetch(float (&next)[SEQ_PER_LANE],
 }
 
 struct PllArgs {
-    const float* theta;
+    const float* theta;      // [C, n]
     int n;
     float alpha, beta, limit;
-    const float* state0;     // [2] phase, freq
-    float* out0;             // FM: freq series;  SAM: pre-update phase
-    float* out1;             // FM: err series;   SAM: unused
-    float* state;            // [2] phase mod 2pi, freq
+    const float* state0;     // [C, 2] phase, freq
+    float* out0;             // [C, n] FM: freq series;  SAM: pre-update phase
+    float* out1;             // [C, n] FM: err series;   SAM: unused
+    float* state;            // [C, 2] phase mod 2pi, freq
 };
 
 template <bool FM>
@@ -84,6 +87,12 @@ pll_kernel(PllArgs a) {
     __shared__ float th_s[SEQ_TILE];
     __shared__ float o0_s[SEQ_TILE];
     __shared__ float o1_s[FM ? SEQ_TILE : 1];
+    const long long row = (long long)blockIdx.x * a.n;
+    a.theta += row;
+    a.out0 += row;
+    if (FM) a.out1 += row;
+    a.state0 += 2 * blockIdx.x;
+    a.state += 2 * blockIdx.x;
     const int lane = threadIdx.x;
     const float inv_two_pi = __fdiv_rn(1.f, SEQ_TWO_PI);
     float phase = a.state0[0], freq = a.state0[1];
@@ -140,19 +149,22 @@ pll_kernel(PllArgs a) {
 
 using namespace cutesdr;
 
-CUTESDR_API int cutesdr_fm_pll(const float* theta, int n, float alpha,
-                               float beta, float limit, const float* state0,
-                               float* freqs, float* err, float* state,
-                               void* stream) {
+CUTESDR_API int cutesdr_fm_pll(const float* theta, int n, int n_ch,
+                               float alpha, float beta, float limit,
+                               const float* state0, float* freqs, float* err,
+                               float* state, void* stream) {
+    if (n_ch <= 0) return 0;
     PllArgs a{theta, n, alpha, beta, limit, state0, freqs, err, state};
-    pll_kernel<true><<<1, SEQ_LANES, 0, (cudaStream_t)stream>>>(a);
+    pll_kernel<true><<<n_ch, SEQ_LANES, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-CUTESDR_API int cutesdr_sam_pll(const float* theta, int n, float alpha,
-                                float beta, float limit, const float* state0,
-                                float* prev, float* state, void* stream) {
+CUTESDR_API int cutesdr_sam_pll(const float* theta, int n, int n_ch,
+                                float alpha, float beta, float limit,
+                                const float* state0, float* prev,
+                                float* state, void* stream) {
+    if (n_ch <= 0) return 0;
     PllArgs a{theta, n, alpha, beta, limit, state0, prev, nullptr, state};
-    pll_kernel<false><<<1, SEQ_LANES, 0, (cudaStream_t)stream>>>(a);
+    pll_kernel<false><<<n_ch, SEQ_LANES, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

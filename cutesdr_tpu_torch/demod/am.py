@@ -3,7 +3,8 @@
 Magnitude envelope sqrt(I^2+Q^2), one-pole DC-removal highpass
 H(z) = (1-z^-1)/(1-0.99 z^-1) solved by the log-depth first-order
 recurrence, then a post lowpass FIR at the channel's half-bandwidth
-(Kaiser, 50 dB, transition to 1.8 x BW).
+(Kaiser, 50 dB, transition to 1.8 x BW).  A bank's [C, n] rows are
+independent channels with [C] states.
 """
 
 from __future__ import annotations
@@ -50,11 +51,11 @@ def set_bandwidth(params: AmParams, bandwidth: float,
 
 
 def dc_block(z1: torch.Tensor, u: torch.Tensor):
-    """z0[n] = u[n] + 0.99*z0[n-1];  y[n] = z0[n] - z0[n-1].
-    Returns (z0 last, y)."""
+    """z0[n] = u[n] + 0.99*z0[n-1];  y[n] = z0[n] - z0[n-1], along the
+    last axis.  Returns (z0 last, y)."""
     z0 = first_order_recurrence(DC_ALPHA, u, z1)
-    z_prev = torch.cat([z1.reshape(1), z0[:-1]])
-    return z0[-1], z0 - z_prev
+    z_prev = torch.cat([z1.unsqueeze(-1), z0[..., :-1]], -1)
+    return z0[..., -1], z0 - z_prev
 
 
 def process(params: AmParams, carry: AmCarry,

@@ -16,8 +16,12 @@ package:
 The JAX package picks the tier on the device with ``lax.cond``; here it
 is a host branch on each validity flag: one device sync per block, two
 when the linear tier fails on a chunkable block.  ``STATS`` counts the
-tiers taken.  Every tier runs the DC tracker afterwards, vectorized in the
-offset frame (``_dc_track``).  The noise squelch (HP FIR, rectified EMA,
+tiers taken.  Every function takes a channel bank as well ([C, n] input,
+a leading channel axis on the carry, shared params): the tier is then
+voted bank-wide, as in the JAX package's ``process_batch``, so a locked
+channel takes the scan tier when another channel of the bank is not.
+Every tier runs the DC tracker afterwards, vectorized in the offset
+frame (``_dc_track``).  The noise squelch (HP FIR, rectified EMA,
 +-100 hysteresis against a 0..5000 threshold) and the optional one-pole
 de-emphasis are parallel and stay on the device.
 """
@@ -159,11 +163,11 @@ def _dc_track(params: FmParams, freqs: torch.Tensor, dc0: torch.Tensor):
     (an exact identity that keeps the float32 state near zero: the
     absolute-frame EMA was the FM chain's noise floor).  Returns
     (audio series, dc_last)."""
-    off = freqs[0]
-    f_off = freqs - off
+    off = freqs[..., 0]
+    f_off = freqs - off.unsqueeze(-1)
     dcs_off = ema(params.dc_alpha, f_off, dc0 - off)
     audio = (f_off - dcs_off) * float(params.out_gain)
-    return audio, off + dcs_off[-1]
+    return audio, off + dcs_off[..., -1]
 
 
 def _pll_scan(params: FmParams, carry: FmCarry, theta: torch.Tensor):
@@ -202,28 +206,30 @@ def _pll_chunked(params: FmParams, carry: FmCarry, theta: torch.Tensor):
 
 def _pll_linear(params: FmParams, carry: FmCarry, theta: torch.Tensor):
     """Parallel solve of the locked loop plus its exactness flag."""
-    e0 = -wrap_pi(theta[0] + carry.nco_phase)
-    psi = wrap_pi(theta[1:] - theta[:-1])
-    u = torch.cat([theta.new_zeros(1), -psi])
+    e0 = -wrap_pi(theta[..., 0] + carry.nco_phase)
+    psi = wrap_pi(theta[..., 1:] - theta[..., :-1])
+    u = torch.cat([theta.new_zeros(theta.shape[:-1] + (1,)), -psi], -1)
     e, f_next, valid = pll.solve_locked(params.pll_kernel, params.pll_beta,
                                         params.nco_limit, e0,
                                         carry.nco_freq, u)
     audio, dc_last = _dc_track(params, f_next, carry.freq_error_dc)
-    phase = torch.remainder(-theta[-1] - e[-1] + f_next[-1]
-                            + float(params.pll_alpha) * e[-1], TWO_PI)
-    return valid, (phase, f_next[-1], dc_last, audio, e)
+    e_last, f_last = e[..., -1], f_next[..., -1]
+    phase = torch.remainder(-theta[..., -1] - e_last + f_last
+                            + float(params.pll_alpha) * e_last, TWO_PI)
+    return valid, (phase, f_last, dc_last, audio, e)
 
 
 def _pll(params: FmParams, carry: FmCarry, x: torch.Tensor):
-    """Tiered PLL solve.  Returns (tier, pll_out) with the tier taken."""
+    """Tiered PLL solve.  Returns (tier, pll_out) with the tier taken; a
+    bank takes a tier only where it is exact for every channel."""
     theta = torch.atan2(x.imag, x.real)
     valid, out = _pll_linear(params, carry, theta)
     tier = TIER_LINEAR
-    if not bool(valid):                                     # host sync
+    if not bool(valid.all()):                               # host sync
         tier = TIER_SCAN
         if _chunkable(theta.shape[-1]):
             cvalid, out = _pll_chunked(params, carry, theta)
-            if bool(cvalid):                                # host sync
+            if bool(cvalid.all()):                          # host sync
                 tier = TIER_CHUNKED
         if tier == TIER_SCAN:
             out = _pll_scan(params, carry, theta)
@@ -233,11 +239,11 @@ def _pll(params: FmParams, carry: FmCarry, x: torch.Tensor):
 
 def _noise_squelch(params: FmParams, carry: FmCarry, audio: torch.Tensor):
     fc, noise = fir.process_real(params.hp_fir, carry.hp_fir, audio)
-    ave = ema(params.squelch_alpha, noise.abs(), carry.squelch_ave)[-1]
+    ave = ema(params.squelch_alpha, noise.abs(), carry.squelch_ave)[..., -1]
 
     thresh = params.squelch_threshold
     if thresh == 0.0:
-        squelched = torch.ones((), dtype=torch.bool, device=audio.device)
+        squelched = torch.ones_like(ave, dtype=torch.bool)
     else:
         squelched = torch.where(carry.squelch_on,
                                 ave >= float(thresh - SQUELCH_HYSTERESIS),
@@ -247,7 +253,8 @@ def _noise_squelch(params: FmParams, carry: FmCarry, audio: torch.Tensor):
     # freeze the LP state and zero the audio while squelched
     ic = iir.IirCarry(*(torch.where(squelched, old, new)
                         for new, old in zip(ic, carry.lp_iir)))
-    y = torch.where(squelched, torch.zeros_like(lp_audio), lp_audio)
+    y = torch.where(squelched.unsqueeze(-1), torch.zeros_like(lp_audio),
+                    lp_audio)
     return fc, ic, ave, squelched, y
 
 
@@ -258,7 +265,7 @@ def _post(params: FmParams, carry: FmCarry, pll_out):
     y = ema(params.deemph_alpha, y, carry.deemph)
     return FmCarry(nco_phase=phase, nco_freq=freq, freq_error_dc=dc,
                    squelch_ave=ave, squelch_on=squelched,
-                   hp_fir=fc, lp_iir=ic, deemph=y[-1]), y
+                   hp_fir=fc, lp_iir=ic, deemph=y[..., -1]), y
 
 
 def process(params: FmParams, carry: FmCarry,
@@ -280,6 +287,12 @@ def process_stereo(params: FmParams, carry: FmCarry,
                    x: torch.Tensor) -> tuple[FmCarry, torch.Tensor]:
     carry, y = process(params, carry, x)
     return carry, torch.complex(y, y)
+
+
+# The JAX package's channel-bank entry points: the functions above take a
+# bank as they are, with the tier voted bank-wide.
+process_batch = process
+process_batch_stereo = process_stereo
 
 
 def last_tier(params: FmParams, carry: FmCarry, x: torch.Tensor) -> int:

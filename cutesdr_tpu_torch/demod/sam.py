@@ -13,9 +13,13 @@ There is no chunked tier 1: the 100 Hz loop's memory (~2600 samples) is
 as long as any useful chunk (see the JAX module).  The JAX package picks
 the tier on the device with ``lax.cond``; here it is a host branch on the
 validity flag, one device sync per block.  ``STATS`` counts the tiers
-taken.  The baseband is rotated by the pre-update phase sequence either
-way, as the reference does; stereo splits the DC-removed I/Q into LSB
-(left) and USB (right) through a 0-10 kHz Hilbert bandpass pair.
+taken.  Every function takes a channel bank as well ([C, n] input, a
+leading channel axis on the carry, shared params), with the tier voted
+bank-wide as in the JAX package's ``_pll_batch``: a locked channel takes
+the scan tier when another channel of the bank is not.  The baseband is
+rotated by the pre-update phase sequence either way, as the reference
+does; stereo splits the DC-removed I/Q into LSB (left) and USB (right)
+through a 0-10 kHz Hilbert bandpass pair.
 """
 
 from __future__ import annotations
@@ -86,23 +90,24 @@ def _pll_scan(params: SamParams, carry: SamCarry, theta: torch.Tensor):
 def _pll_linear(params: SamParams, carry: SamCarry, theta: torch.Tensor):
     """Parallel locked-loop solve; pre-update phases come back as
     theta - e (equal to the scan's mod 2pi, which the rotation absorbs)."""
-    e0 = wrap_pi(theta[0] - carry.nco_phase)
-    psi = wrap_pi(theta[1:] - theta[:-1])
-    u = torch.cat([theta.new_zeros(1), psi])
+    e0 = wrap_pi(theta[..., 0] - carry.nco_phase)
+    psi = wrap_pi(theta[..., 1:] - theta[..., :-1])
+    u = torch.cat([theta.new_zeros(theta.shape[:-1] + (1,)), psi], -1)
     e, f_next, valid = pll.solve_locked(params.pll_kernel, params.pll_beta,
                                         params.nco_limit, e0,
                                         carry.nco_freq, u)
     prev = theta - e
-    phase = torch.remainder(theta[-1] - e[-1] + f_next[-1]
-                            + float(params.pll_alpha) * e[-1], TWO_PI)
-    return valid, (phase, f_next[-1], prev)
+    e_last, f_last = e[..., -1], f_next[..., -1]
+    phase = torch.remainder(theta[..., -1] - e_last + f_last
+                            + float(params.pll_alpha) * e_last, TWO_PI)
+    return valid, (phase, f_last, prev)
 
 
 def _pll(params: SamParams, carry: SamCarry, x: torch.Tensor):
     """Tiered PLL; returns (tier, phase', freq', baseband, phase error)."""
     theta = torch.atan2(x.imag, x.real)
     valid, linear = _pll_linear(params, carry, theta)
-    if bool(valid):                                    # host sync
+    if bool(valid.all()):                              # host sync
         tier, (phase, freq, prev) = TIER_LINEAR, linear
     else:
         tier, (phase, freq, prev) = TIER_SCAN, _pll_scan(params, carry, theta)
@@ -147,3 +152,9 @@ def process_stereo(params: SamParams, carry: SamCarry,
                    x: torch.Tensor) -> tuple[SamCarry, torch.Tensor]:
     _tier, phase, freq, base, _ = _pll(params, carry, x)
     return _post_stereo(params, carry, phase, freq, base)
+
+
+# The JAX package's channel-bank entry points: the functions above take a
+# bank as they are, with the tier voted bank-wide.
+process_batch = process
+process_batch_stereo = process_stereo

@@ -38,12 +38,13 @@ F32 = ctypes.c_float
 
 # C signatures: name -> argument types (every entry returns a cudaError_t)
 SIGNATURES = {
-    # re, im, re_stride, im_stride, tail, tail_len, taps, ntaps, dc, phase,
-    # inc, scale, dec, n_out, y, stream
-    "cutesdr_mixdec": [P, P, I64, I64, P, I32, P, I32, P, P,
-                       U32, F32, I32, I32, P, P],
-    # z, h, twiddles, y, nfft, ntaps, n_frames, stream
-    "cutesdr_fastfir": [P, P, P, P, I32, I32, I32, P],
+    # re, im, re_cstride, im_cstride, re_stride, im_stride, tail, tail_len,
+    # taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out, n_ch, y, stream
+    "cutesdr_mixdec": [P, P, I64, I64, I64, I64, P, I32, P, I32, P, P,
+                       P, U32, F32, I32, I32, I32, P, P],
+    # z, h, twiddles, y, nfft, ntaps, n_frames, n_ch, z_cstride,
+    # h_cstride, y_cstride, stream
+    "cutesdr_fastfir": [P, P, P, P, I32, I32, I32, I32, I64, I64, I64, P],
     # a, b, x0, n, x, totals_a, totals_b, starts, stream
     "cutesdr_scan_plain": [P, P, P, I32, P, P, P, P, P],
     # peak, pattern, rise, fall, x0, n, x, newpat, count, totals_a,
@@ -52,10 +53,10 @@ SIGNATURES = {
     # mag, attack, decay, a0, d0, n, out, totals_a, totals_b, starts,
     # maps_c, maps_u, maps_v, stream
     "cutesdr_smeter": [P, F32, F32, P, P, I32, P, P, P, P, P, P, P, P],
-    # theta, n, alpha, beta, limit, state0, freqs, err, state, stream
-    "cutesdr_fm_pll": [P, I32, F32, F32, F32, P, P, P, P, P],
-    # theta, n, alpha, beta, limit, state0, prev, state, stream
-    "cutesdr_sam_pll": [P, I32, F32, F32, F32, P, P, P, P],
+    # theta, n, n_ch, alpha, beta, limit, state0, freqs, err, state, stream
+    "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, P, P, P, P, P],
+    # theta, n, n_ch, alpha, beta, limit, state0, prev, state, stream
+    "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, P, P, P, P],
 }
 
 _lock = threading.Lock()
@@ -127,16 +128,25 @@ def stream(t: torch.Tensor) -> int:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            numel: int | None = None, contiguous: bool = True) -> None:
-    """Raise unless ``t`` is a 1-D CUDA tensor of ``dtype`` (and length)."""
+            numel: int | None = None, contiguous: bool = True,
+            rows: int | None = None) -> None:
+    """Raise unless ``t`` is a CUDA tensor of ``dtype``: 1-D (of ``numel``
+    elements), or with ``rows`` 2-D of [rows, numel]."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() > 1:
-        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
-    if numel is not None and t.numel() != numel:
-        raise ValueError(f"{name}: expected {numel} elements, got {t.numel()}")
+    if rows is None:
+        if t.dim() > 1:
+            raise ValueError(f"{name}: expected a 1-D tensor, got "
+                             f"{tuple(t.shape)}")
+        if numel is not None and t.numel() != numel:
+            raise ValueError(f"{name}: expected {numel} elements, got "
+                             f"{t.numel()}")
+    elif t.dim() != 2 or t.shape[0] != rows or \
+            (numel is not None and t.shape[1] != numel):
+        raise ValueError(f"{name}: expected [{rows}, {numel}], got "
+                         f"{tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 

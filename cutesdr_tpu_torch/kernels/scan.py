@@ -54,9 +54,11 @@ def _scratch(n: int, k: int, like: torch.Tensor) -> list[torch.Tensor]:
 
 
 def shift1(x: torch.Tensor, x0) -> torch.Tensor:
-    """x[n-1] series: [x0, x[0], ..., x[-2]]."""
-    return torch.cat([torch.as_tensor(x0, dtype=x.dtype,
-                                      device=x.device).reshape(1), x[:-1]])
+    """x[n-1] series along the last axis: [x0, x[0], ..., x[-2]]; ``x0`` a
+    scalar or one value per row."""
+    x0 = torch.as_tensor(x0, dtype=x.dtype, device=x.device)
+    return torch.cat([x0.expand(x.shape[:-1]).unsqueeze(-1), x[..., :-1]],
+                     -1)
 
 
 # ------------------------------------------------------------ mode plain --
@@ -90,7 +92,9 @@ def guess_round_plain(peak: torch.Tensor, pattern: torch.Tensor, x0,
     """One guess-verify round of the two-rate averager (the loop body of
     ops/agc._two_rate_parallel): A/B from the branch pattern, the affine
     solve, x[n-1], the re-derived pattern, and the count of mismatches
-    that are not forgiven (exact ties, rounding-identical branches)."""
+    that are not forgiven (exact ties, rounding-identical branches).
+    Rows of a [C, n] ``peak`` are independent streams, each with its own
+    ``x0`` and count."""
     rise_c = np.float32(1.0) - rise_alpha
     fall_c = np.float32(1.0) - fall_alpha
     rise_b = peak * rise_alpha
@@ -99,9 +103,15 @@ def guess_round_plain(peak: torch.Tensor, pattern: torch.Tensor, x0,
     x = first_order_recurrence(A, torch.where(pattern, rise_b, fall_b), x0)
     prev = shift1(x, x0)
     newpat = peak > prev
-    same_val = prev * rise_c + rise_b == prev * fall_c + fall_b
+    # each branch's update rounds once, as XLA:CPU's FMA contraction of
+    # c*prev + b does (float64 holds c*prev exactly).  Rounded twice, the
+    # two branches differ by an ulp at many plateau near-ties, and the
+    # rounds creep a few samples at a time: 27 rounds where JAX takes 3 on
+    # a full-width USB block
+    fused = lambda c, b: (prev.double() * float(c) + b.double()).to(RDTYPE)
+    same_val = fused(rise_c, rise_b) == fused(fall_c, fall_b)
     mism = (newpat != pattern) & (peak != prev) & ~same_val
-    return x, newpat, mism.sum()
+    return x, newpat, mism.sum(-1)
 
 
 def guess_round(peak: torch.Tensor, pattern: torch.Tensor, x0, rise_alpha,

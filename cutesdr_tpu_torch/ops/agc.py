@@ -1,16 +1,21 @@
-"""Digital AGC, non-hang mode (port of ``cutesdr_tpu/ops/agc.py``).
+"""Digital AGC (port of ``cutesdr_tpu/ops/agc.py``).
 
 1. a 15 ms signal delay line so the gain leads the signal;
 2. log magnitude log10(max(|I|,|Q|) + K_MIN) - log10(32767), in decades;
 3. an 18 ms sliding-window peak (van Herk cummax);
-4. attack and decay two-rate averagers, solved in parallel by guess-verify
-   over the rise/fall branch pattern, with an exact sequential fallback;
+4. attack and decay averagers, solved in parallel by guess-verify over
+   the branch pattern, with an exact sequential fallback.  The decay
+   averager is two-rate, or in hang mode rises fast, holds for hang_time
+   samples and then releases;
 5. the gain law: fixed gain below the knee, 10^(mag*(slope-1)) above.
 
-The guess-verify loop is a Python loop that reads each round's mismatch
-count on the host (one device sync per round, at most GUESS_ITERS rounds
-per averager), and the fallback is a Python branch.  Hang mode is not
-ported yet (ROADMAP Queue 1, "hang-mode AGC").
+The guess-verify loop is a Python loop that reads each round's validity
+on the host (one device sync per round, at most GUESS_ITERS rounds per
+averager), and the fallback is a Python branch.  ``process`` is the single
+stream, with the scan kernels above their size gate; ``process_batch`` a
+channel bank ([C, n], per-channel carries), in plain torch as the JAX
+package's vmapped form: one host read per round for the whole bank, and
+one bank-wide vote between the parallel result and the per-sample loop.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import numpy as np
 import torch
 
 from cutesdr_tpu_torch.kernels import scan
-from cutesdr_tpu_torch.ops.util import (first_order_recurrence,
+from cutesdr_tpu_torch.ops.util import (distance_since_last_true,
+                                        first_order_recurrence,
                                         sliding_window_max)
 from cutesdr_tpu_torch.types import MAX_AMPLITUDE, RDTYPE, real_scalar
 
@@ -70,6 +76,7 @@ class AgcParams(NamedTuple):
 
 
 class AgcCarry(NamedTuple):
+    """A bank adds a leading channel axis to every field."""
     sig_delay: torch.Tensor      # [delay_samples] complex input history
     mag_tail: torch.Tensor       # [window_samples-1] magnitude history
     attack_ave: torch.Tensor     # float32 0-dim
@@ -77,15 +84,8 @@ class AgcCarry(NamedTuple):
     hang_timer: torch.Tensor     # int32 0-dim (hang mode only)
 
 
-def _no_hang(cfg: AgcConfig) -> None:
-    if cfg.use_hang:
-        raise NotImplementedError(
-            "agc_hang is not ported yet (ROADMAP Queue 1: hang-mode AGC)")
-
-
 def make_params(cfg: AgcConfig, threshold_db: float, manual_gain_db: float,
                 slope_factor: float, decay_ms: float) -> AgcParams:
-    _no_hang(cfg)
     fs = cfg.sample_rate
     knee = threshold_db / 20.0
     gain_slope = slope_factor / 100.0
@@ -94,7 +94,10 @@ def make_params(cfg: AgcConfig, threshold_db: float, manual_gain_db: float,
     a_rise = 1.0 - np.exp(-1.0 / (fs * ATTACK_RISE_TIMECONST))
     a_fall = 1.0 - np.exp(-1.0 / (fs * ATTACK_FALL_TIMECONST))
     d_rise = 1.0 - np.exp(-1.0 / (fs * decay_ms * 1e-3 * DECAY_RISEFALL_RATIO))
-    d_fall = 1.0 - np.exp(-1.0 / (fs * decay_ms * 1e-3))
+    if cfg.use_hang:
+        d_fall = 1.0 - np.exp(-1.0 / (fs * RELEASE_TIMECONST))
+    else:
+        d_fall = 1.0 - np.exp(-1.0 / (fs * decay_ms * 1e-3))
     f = np.float32
     return AgcParams(knee=f(knee), gain_slope=f(gain_slope),
                      fixed_gain=f(fixed_gain), manual_gain=f(manual),
@@ -104,7 +107,6 @@ def make_params(cfg: AgcConfig, threshold_db: float, manual_gain_db: float,
 
 
 def init_carry(cfg: AgcConfig, device) -> AgcCarry:
-    _no_hang(cfg)
     return AgcCarry(
         sig_delay=torch.zeros(cfg.delay_samples, dtype=torch.complex64,
                               device=device),
@@ -115,76 +117,150 @@ def init_carry(cfg: AgcConfig, device) -> AgcCarry:
         hang_timer=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _solve(A: torch.Tensor, B: torch.Tensor, x0) -> torch.Tensor:
-    """x[n] = A[n]*x[n-1] + B[n]: the scan kernel from 65,536 samples up
-    (the JAX package's gate), the log-depth torch solve below."""
-    if scan.supported(B.shape[-1]):
+def _solve(A: torch.Tensor, B: torch.Tensor, x0, fast: bool) -> torch.Tensor:
+    """x[n] = A[n]*x[n-1] + B[n]: with ``fast`` (the single stream) the scan
+    kernel from 65,536 samples up (the JAX package's gate), else the
+    log-depth torch solve."""
+    if fast and scan.supported(B.shape[-1]):
         return scan.first_order_scan(A, B, x0)
     return first_order_recurrence(A, B, x0)
 
 
+def _guess_verify(body, carry, n_iters: int):
+    """Guess-verify rounds ``body(carry) -> (carry', ok)`` until every row
+    validates or ``n_iters`` rounds ran; ``ok`` is one flag per row (0-dim
+    for the single stream).  A row that has validated is frozen, as the
+    JAX package's vmapped ``lax.while_loop`` leaves a converged channel
+    alone: another round could still move it (the tie forgiveness).  One
+    host read per round.  Returns (carry, ok, all rows ok)."""
+    carry, ok = body(carry)
+    for _ in range(n_iters - 1):
+        if bool(ok.all()):                                 # host sync
+            return carry, ok, True
+        new, new_ok = body(carry)
+        if ok.dim() == 0:
+            carry = new
+        else:
+            keep = ok.unsqueeze(-1)
+            carry = tuple(torch.where(keep, old, nw)
+                          for old, nw in zip(carry, new))
+        ok = ok | new_ok
+    return carry, ok, bool(ok.all())                       # host sync
+
+
 def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
-                       n_iters: int):
+                       n_iters: int, fast: bool):
     """Guess-verify solve of the two-rate averager
         x[n] = (1-a[n])*x[n-1] + a[n]*pk[n],
         a[n] = rise if pk[n] > x[n-1] else fall.
     Every fixed-pattern trajectory lower-bounds the true one, so the
     iteration rises monotonically to the exact solution.  Returns
-    (trajectory, converged)."""
+    (trajectory, all rows converged)."""
     # warm start: one solve at the geometric-mean rate as a proxy state
     ag = np.sqrt(rise_alpha * fall_alpha)
     xg = _solve((np.float32(1.0) - ag) * torch.ones_like(peak),
-                peak * ag, x0)
-    pattern = peak > scan.shift1(xg, x0)
-    one_round = scan.guess_round if scan.supported(peak.shape[-1]) \
+                peak * ag, x0, fast)
+    one_round = scan.guess_round if fast and scan.supported(peak.shape[-1]) \
         else scan.guess_round_plain
-    x, pattern, count = one_round(peak, pattern, x0, rise_alpha, fall_alpha)
-    rounds = 1
-    converged = int(count) == 0                          # host sync
-    while not converged and rounds < n_iters:
-        x, pattern, count = one_round(peak, pattern, x0, rise_alpha,
-                                      fall_alpha)
-        rounds += 1
-        converged = int(count) == 0                      # host sync
-    return x, converged
+
+    def body(c):
+        x, pattern, count = one_round(peak, c[1], x0, rise_alpha, fall_alpha)
+        return (x, pattern), count == 0
+
+    (x, _), _, ok = _guess_verify(body, (xg, peak > scan.shift1(xg, x0)),
+                                  n_iters)
+    return x, ok
 
 
-def _averager_scan(p: AgcParams, carry: AgcCarry, peak: torch.Tensor):
-    """The exact sequential recurrence of both averagers, one sample at a
-    time on the tensors' device; taken only when guess-verify does not
-    converge."""
-    rise = torch.tensor([p.attack_rise_alpha, p.decay_rise_alpha],
-                        dtype=RDTYPE, device=peak.device)
-    fall = torch.tensor([p.attack_fall_alpha, p.decay_fall_alpha],
-                        dtype=RDTYPE, device=peak.device)
-    s = torch.stack([carry.attack_ave, carry.decay_ave])
-    states = torch.empty(peak.shape[-1], 2, dtype=RDTYPE, device=peak.device)
-    for i in range(peak.shape[-1]):
-        pk = peak[i]
-        alpha = torch.where(pk > s, rise, fall)
-        s = (1.0 - alpha) * s + alpha * pk
-        states[i] = s
-    return s[0], s[1], states.amax(-1)
+def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
+                         n_iters: int, fast: bool):
+    """Guess-verify solve of the hang-mode decay averager: rise while
+    pk > d, HOLD for hang_time samples, then release.  The pattern is the
+    rising flags alone; the hold window is `distance since the last rise
+    < hang_time`, and the timer is min(distance, hang_time).  A tie
+    resets the timer even where the value cannot change, so the check is
+    exact pattern equality (no forgiveness).  Returns (trajectory, timer,
+    all rows converged)."""
+    dev = peak.device
+    rise, fall, zero = (torch.tensor(v, dtype=RDTYPE, device=dev) for v in
+                        (p.decay_rise_alpha, p.decay_fall_alpha, 0.0))
+
+    def body(c):
+        pattern = c[0]
+        dist = distance_since_last_true(pattern, timer0)
+        hold = ~pattern & (scan.shift1(dist, timer0) < p.hang_time)
+        alpha = torch.where(pattern, rise, torch.where(hold, zero, fall))
+        d = _solve(1.0 - alpha, alpha * peak, d0, fast)
+        new = peak > scan.shift1(d, d0)
+        return (new, d, dist), (new == pattern).all(-1)
+
+    pattern0 = peak > scan.shift1(peak, d0)
+    (_, d, dist), _, ok = _guess_verify(body, (pattern0, None, None),
+                                        n_iters)
+    timer = torch.clamp(dist[..., -1], max=p.hang_time).to(torch.int32)
+    return d, timer, ok
 
 
-def _averager(p: AgcParams, carry: AgcCarry, peak: torch.Tensor):
-    """(attack_last, decay_last, max(attack, decay) series)."""
+def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
+                       peak: torch.Tensor, fast: bool):
+    """Both averagers in parallel: ((attack_last, decay_last, timer,
+    max(attack, decay) series), every row of both converged)."""
     a, a_ok = _two_rate_parallel(p.attack_rise_alpha, p.attack_fall_alpha,
-                                 carry.attack_ave, peak, GUESS_ITERS)
-    d, d_ok = _two_rate_parallel(p.decay_rise_alpha, p.decay_fall_alpha,
-                                 carry.decay_ave, peak, GUESS_ITERS)
-    if a_ok and d_ok:
-        return a[-1], d[-1], torch.maximum(a, d)
-    STATS["scan_fallbacks"] += 1
-    return _averager_scan(p, carry, peak)
+                                 carry.attack_ave, peak, GUESS_ITERS, fast)
+    if cfg.use_hang:
+        d, timer, d_ok = _hang_decay_parallel(p, carry.decay_ave,
+                                              carry.hang_timer, peak,
+                                              GUESS_ITERS, fast)
+    else:
+        d, d_ok = _two_rate_parallel(p.decay_rise_alpha, p.decay_fall_alpha,
+                                     carry.decay_ave, peak, GUESS_ITERS, fast)
+        timer = carry.hang_timer
+    return (a[..., -1], d[..., -1], timer, torch.maximum(a, d)), a_ok and d_ok
+
+
+def _averager_scan(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
+                   peak: torch.Tensor):
+    """The exact sequential recurrence of both averagers, one sample at a
+    time on the tensors' device (every row at once); taken only when
+    guess-verify does not converge.  Returns the tuple of
+    ``_averager_parallel``."""
+    dev = peak.device
+    r = lambda v: torch.tensor(v, dtype=RDTYPE, device=dev)
+    if not cfg.use_hang:
+        # both averagers as one [..., 2] state
+        rise = r([p.attack_rise_alpha, p.decay_rise_alpha])
+        fall = r([p.attack_fall_alpha, p.decay_fall_alpha])
+        s = torch.stack([carry.attack_ave, carry.decay_ave], -1)
+        states = torch.empty(peak.shape + (2,), dtype=RDTYPE, device=dev)
+        for i, pk in enumerate(peak.unbind(-1)):
+            pk = pk.unsqueeze(-1)
+            alpha = torch.where(pk > s, rise, fall)
+            s = (1.0 - alpha) * s + alpha * pk
+            states[..., i, :] = s
+        return s[..., 0], s[..., 1], carry.hang_timer, states.amax(-1)
+    ar, af = r(p.attack_rise_alpha), r(p.attack_fall_alpha)
+    dr, df = p.decay_rise_alpha, p.decay_fall_alpha
+    one = np.float32(1.0)
+    a, d, timer = carry.attack_ave, carry.decay_ave, carry.hang_timer
+    mag = torch.empty_like(peak)
+    for i, pk in enumerate(peak.unbind(-1)):
+        alpha = torch.where(pk > a, ar, af)
+        a = (1.0 - alpha) * a + alpha * pk
+        rising = pk > d
+        hold = timer < p.hang_time
+        d = torch.where(rising, (one - dr) * d + dr * pk,
+                        torch.where(hold, d, (one - df) * d + df * pk))
+        timer = torch.where(rising, 0, torch.where(hold, timer + 1, timer))
+        mag[..., i] = torch.maximum(a, d)
+    return a, d, timer, mag
 
 
 def _prefix(cfg: AgcConfig, carry: AgcCarry, x: torch.Tensor):
     """Delay line, log magnitude, window peak — the fully parallel part."""
     n = x.shape[-1]
     zd = torch.cat([carry.sig_delay, x], -1)
-    delayed = zd[:n]
-    new_sig_delay = zd[n:].clone()
+    delayed = zd[..., :n]
+    new_sig_delay = zd[..., n:].clone()
     inst = torch.maximum(x.real.abs(), x.imag.abs())
     mag = torch.log10(inst + MIN_CONSTANT) - np.float32(np.log10(MAX_AMPLITUDE))
     peak, mag_tail = sliding_window_max(mag, cfg.window_samples,
@@ -201,14 +277,30 @@ def _apply_gain(params: AgcParams, magsel: torch.Tensor,
     return delayed * gain
 
 
-def process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
-            x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
+def _process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
+             x: torch.Tensor, fast: bool) -> tuple[AgcCarry, torch.Tensor]:
     if not cfg.agc_on:
         return carry, x * params.manual_gain
-    _no_hang(cfg)
     delayed, new_sig_delay, peak, mag_tail = _prefix(cfg, carry, x)
-    a, d, magsel = _averager(params, carry, peak)
+    levels, ok = _averager_parallel(cfg, params, carry, peak, fast)
+    if not ok:
+        STATS["scan_fallbacks"] += 1
+        levels = _averager_scan(cfg, params, carry, peak)
+    a, d, timer, magsel = levels
     y = _apply_gain(params, magsel, delayed)
     return AgcCarry(sig_delay=new_sig_delay, mag_tail=mag_tail,
-                    attack_ave=a, decay_ave=d,
-                    hang_timer=carry.hang_timer), y
+                    attack_ave=a, decay_ave=d, hang_timer=timer), y
+
+
+def process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
+            x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
+    """One stream: the scan kernels where their size gate allows."""
+    return _process(cfg, params, carry, x, fast=True)
+
+
+def process_batch(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
+                  x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
+    """A channel bank: ``x`` [C, n] and a leading channel axis on the
+    carry; the params are shared.  The plain torch solves (no kernels);
+    converged channels are frozen, the fallback is voted bank-wide."""
+    return _process(cfg, params, carry, x, fast=False)

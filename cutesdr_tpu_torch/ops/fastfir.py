@@ -62,7 +62,8 @@ def retune(params: FastFirParams, f_lo_cut: float, f_hi_cut: float,
 def filter_frames(h_freq: torch.Tensor, z: torch.Tensor,
                   ntaps: int = NFIR) -> torch.Tensor:
     """Overlap-save core on an explicit [ntaps-1 + n] history+block buffer;
-    returns the n filtered samples."""
+    returns the n filtered samples.  A bank gives z [C, ntaps-1 + n] and
+    one H per channel, h_freq [C, nfft]."""
     nfft = h_freq.shape[-1]
     valid = nfft - (ntaps - 1)
     n = z.shape[-1] - (ntaps - 1)
@@ -70,14 +71,15 @@ def filter_frames(h_freq: torch.Tensor, z: torch.Tensor,
         raise ValueError(f"fastfir block length {n} not a multiple of {valid}")
     frames = z.unfold(-1, nfft, valid)                 # [..., n_frames, nfft]
     spec = torch.fft.fft(frames, dim=-1)
-    yf = torch.fft.ifft(spec * h_freq, dim=-1) * nfft
+    yf = torch.fft.ifft(spec * h_freq.unsqueeze(-2), dim=-1) * nfft
     y = yf[..., ntaps - 1:]                            # [..., n_frames, valid]
     return y.reshape(y.shape[:-2] + (n,)).to(z.dtype)
 
 
 def process(params: FastFirParams, carry: FastFirCarry,
             x: torch.Tensor) -> tuple[FastFirCarry, torch.Tensor]:
-    """len(x) must be a multiple of the frame's valid length."""
+    """len(x) must be a multiple of the frame's valid length; a bank has a
+    leading channel axis on params, carry and x."""
     ntaps = carry.tail.shape[-1] + 1
     z = torch.cat([carry.tail, x], -1)
     y = filter_frames(params.h_freq, z, ntaps)

@@ -7,7 +7,8 @@ A block is one convolution with a carried (taps-1)-sample input tail:
 
 The complex form filters the I and Q planes with their own real tap sets
 (hI, hQ), which is what lets a Hilbert bandpass pair impose a 90 degree
-phase shift between the planes.
+phase shift between the planes.  A bank's [C, n] rows are independent
+streams with their own tails, through the same taps.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def init(taps, device, taps_q=None,
 
 
 def _new_tail(z: torch.Tensor, L: int) -> FirCarry:
-    return FirCarry(tail=z[z.shape[-1] - (L - 1):].clone())
+    return FirCarry(tail=z[..., z.shape[-1] - (L - 1):].clone())
 
 
 def process_real(params: FirParams, carry: FirCarry,

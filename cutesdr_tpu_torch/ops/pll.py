@@ -68,63 +68,73 @@ def _conv_causal(u: torch.Tensor, k: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def chunked_scan(step, init, guess, xs: torch.Tensor, chunk: int, halo: int):
-    """Guess-verify evaluation of a self-synchronizing scan.
+    """Guess-verify evaluation of a self-synchronizing scan along the last
+    axis of ``xs`` (leading axes are independent streams: a bank).
 
     ``step(state, x) -> (state', y)`` with ``state`` and ``y`` flat tuples
-    of tensors, applied elementwise over a [C]-wide batch of chunks.  Pass
+    of tensors, applied elementwise over a [..., K] batch of chunks.  Pass
     1 runs every chunk from ``guess`` through a ``halo``-sample warmup (the
     tail of the previous chunk) and its own samples; chunk 0 starts from
     the true ``init`` with its warmup frozen.  Pass 2 re-runs every chunk
     from the pass-1 end state of its left neighbour.  The result is exact
     iff every pass-2 end state equals, bitwise, the pass-1 end state the
     right neighbour consumed (induction from chunk 0).  Returns
-    (valid, ys, end): ``valid`` a bool tensor, ``ys`` the per-sample
-    outputs in time order, ``end`` the final state."""
+    (valid, ys, end): ``valid`` a bool tensor per stream, ``ys`` the
+    per-sample outputs in time order, ``end`` the final state."""
     n = xs.shape[-1]
     if n % chunk or halo > chunk:
         raise ValueError(f"chunked_scan: n={n} chunk={chunk} halo={halo}")
-    C = n // chunk
-    main = xs.reshape(C, chunk)
-    halos = torch.cat([xs.new_zeros(1, halo), main[:-1, chunk - halo:]], 0)
-    xs1 = torch.cat([halos, main], 1).T                 # [halo+chunk, C]
-    frozen = torch.zeros(C, dtype=torch.bool, device=xs.device)
+    K = n // chunk
+    lead = xs.shape[:-1]
+    main = xs.reshape(lead + (K, chunk))
+    halos = torch.cat([xs.new_zeros(lead + (1, halo)),
+                       main[..., :-1, chunk - halo:]], -2)
+    xs1 = torch.cat([halos, main], -1)                  # [..., K, halo+chunk]
+    frozen = torch.zeros(K, dtype=torch.bool, device=xs.device)
     frozen[0] = True
 
-    state = tuple(torch.cat([i.reshape(1), g.reshape(1).expand(C - 1)])
+    state = tuple(torch.cat([i.unsqueeze(-1),
+                             g.unsqueeze(-1).expand(lead + (K - 1,))], -1)
                   for i, g in zip(init, guess))
     for t in range(halo + chunk):
-        new, _ = step(state, xs1[t])
+        new, _ = step(state, xs1[..., t])
         state = tuple(torch.where(frozen, o, s) for o, s in zip(state, new)) \
             if t < halo else new
     e1 = state
 
-    state = tuple(torch.cat([i.reshape(1), e[:-1]]) for i, e in zip(init, e1))
+    state = tuple(torch.cat([i.unsqueeze(-1), e[..., :-1]], -1)
+                  for i, e in zip(init, e1))
     ys = []
     for t in range(chunk):
-        state, y = step(state, main[:, t])
+        state, y = step(state, main[..., t])
         ys.append(y)
-    valid = torch.stack([(a[:-1] == b[:-1]).all()
-                         for a, b in zip(e1, state)]).all()
-    ys = tuple(torch.stack(series).T.reshape(-1) for series in zip(*ys))
-    return valid, ys, tuple(s[-1] for s in state)
+    valid = torch.stack([(a[..., :-1] == b[..., :-1]).all(-1)
+                         for a, b in zip(e1, state)]).all(0)
+    ys = tuple(torch.stack(series, -1).reshape(lead + (n,))
+               for series in zip(*ys))
+    return valid, ys, tuple(s[..., -1] for s in state)
 
 
 def solve_locked(kernel: torch.Tensor, beta, limit, e0: torch.Tensor,
                  f0: torch.Tensor, u: torch.Tensor):
-    """Solve e[n], f[n] for x[n+1] = A x[n] + [u[n+1], 0], x[0] = [e0, f0].
+    """Solve e[n], f[n] for x[n+1] = A x[n] + [u[n+1], 0], x[0] = [e0, f0],
+    along the last axis of ``u`` (leading axes: a bank, with one e0 and f0
+    per stream).
 
-    ``u[0] == 0`` by construction (the first sample's error is e0).
+    ``u[..., 0] == 0`` by construction (the first sample's error is e0).
     Returns (e, f_next, valid): the error sequence, the post-update
     frequencies f[n+1] = f[n] + beta*e[n], and the exactness flag (a bool
-    tensor)."""
+    tensor per stream)."""
     n = u.shape[-1]
-    e, f = _conv_causal(u, kernel[:, :, 0].T, n)
+    out = _conv_causal(u.unsqueeze(-2), kernel[:, :, 0].T, n)   # [..., 2, n]
+    e, f = out[..., 0, :], out[..., 1, :]
     d = min(kernel.shape[0], n)
-    e = torch.cat([e[:d] + (kernel[:d, 0, 0] * e0 + kernel[:d, 0, 1] * f0),
-                   e[d:]])
-    f = torch.cat([f[:d] + (kernel[:d, 1, 0] * e0 + kernel[:d, 1, 1] * f0),
-                   f[d:]])
+    e0, f0 = e0.unsqueeze(-1), f0.unsqueeze(-1)
+    e = torch.cat([e[..., :d] + (kernel[:d, 0, 0] * e0 + kernel[:d, 0, 1] * f0),
+                   e[..., d:]], -1)
+    f = torch.cat([f[..., :d] + (kernel[:d, 1, 0] * e0 + kernel[:d, 1, 1] * f0),
+                   f[..., d:]], -1)
     f_next = f + float(beta) * e
-    valid = ((e.abs().amax() < float(np.float32(WRAP_MARGIN * np.pi)))
-             & (f_next.abs().amax() <= float(limit)))
+    valid = ((e.abs().amax(-1) < float(np.float32(WRAP_MARGIN * np.pi)))
+             & (f_next.abs().amax(-1) <= float(limit)))
     return e, f_next, valid

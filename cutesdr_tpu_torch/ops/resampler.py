@@ -14,7 +14,8 @@ Output timestamps t_k = t0 + k*dt use the exact two-level split of
 ``_times``: a single float32 product k*dt loses the fractional phase at
 262k-sample blocks (46 dB instead of 130 dB).  The output count per block
 is data-dependent; the block yields a fixed ``max_out`` with a validity
-count, as in the JAX package.
+count, as in the JAX package.  The banded path also takes a channel bank
+([C, n] input, a [C] time offset and tail rows; one count per channel).
 """
 
 from __future__ import annotations
@@ -237,11 +238,18 @@ def _times(params: ResamplerParams, t0: torch.Tensor, k: torch.Tensor):
 
 def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
                     x: torch.Tensor, max_out: int, interp: bool = False):
-    """Arbitrary-ratio banded evaluator.  Returns (carry', y[max_out],
+    """Arbitrary-ratio banded evaluator.  Returns (carry', y[..., max_out],
     n_valid); y[k] for k >= n_valid is zero.  C consecutive outputs share
     one M-sample window (chunk bases rounded down to 128 samples, as in
-    the JAX package, so the two compute the same sums)."""
+    the JAX package, so the two compute the same sums).  A leading axis
+    of x is a bank of independent streams."""
+    if x.dim() == 1:
+        c, y, n_valid = _banded_process(
+            params, ResamplerCarry(carry.tail[None], carry.t0[None]),
+            x[None], max_out, interp)
+        return ResamplerCarry(c.tail[0], c.t0[0]), y[0], n_valid[0]
     n = x.shape[-1]
+    B = x.shape[0]
     periods = carry.tail.shape[-1]
     if periods % 2:
         raise NotImplementedError("odd sinc lengths are not ported yet")
@@ -254,35 +262,37 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
     M = -(-M // 128) * 128
 
     k = torch.arange(max_out_p, dtype=RDTYPE, device=dev)
-    t_int, t_frac = _times(params, carry.t0, k)
-    valid = t_int[:max_out] < n
+    t_int, t_frac = _times(params, carry.t0[:, None], k)      # [B, max_out_p]
+    valid = t_int[:, :max_out] < n
 
     z = torch.cat([carry.tail, x], -1)                   # z[m] = x[m-P]
     nrows = -(-z.shape[-1] // 128)
-    zpad = torch.cat([z, z[-1:].expand(nrows * 128 - z.shape[-1])])
-    first = t_int[::C].clamp(min=0)
+    zpad = torch.cat([z, z[:, -1:].expand(B, nrows * 128 - z.shape[-1])], -1)
+    first = t_int[:, ::C].clamp(min=0)                   # [B, n_chunks]
     b0 = torch.div(first, 128, rounding_mode="floor") * 128
-    rows = (b0[:, None] // 128 + torch.arange(M // 128, device=dev)).clamp(
+    rows = (b0[..., None] // 128 + torch.arange(M // 128, device=dev)).clamp(
         max=nrows - 1)                                   # whole-row gather
-    zc = zpad.reshape(nrows, 128)[rows].reshape(n_chunks, M)
+    zc = zpad.reshape(B, nrows, 128)[
+        torch.arange(B, device=dev)[:, None, None], rows].reshape(
+            B, n_chunks, M)
 
-    idx_local = t_int.reshape(n_chunks, C) - b0[:, None]
-    tf = t_frac.reshape(n_chunks, C)
+    idx_local = t_int.reshape(B, n_chunks, C) - b0[..., None]
+    tf = t_frac.reshape(B, n_chunks, C)
     if not interp:
         # truncating-table semantics, decided at the chunk-local offset
-        offs = (t_int.reshape(n_chunks, C) - first[:, None]).to(RDTYPE)
+        offs = (t_int.reshape(B, n_chunks, C) - first[..., None]).to(RDTYPE)
         qg = torch.ceil((offs + tf) * SINC_PERIOD_PTS)
         tf = (qg - offs * SINC_PERIOD_PTS) / SINC_PERIOD_PTS
-    sv = _sinc_band(idx_local, tf, np.arange(M), periods)  # [nc, C, M]
+    sv = _sinc_band(idx_local, tf, np.arange(M), periods)  # [B, nc, C, M]
 
     if z.is_complex():
-        y = torch.complex((sv * zc.real[:, None, :]).sum(-1),
-                          (sv * zc.imag[:, None, :]).sum(-1))
+        y = torch.complex((sv * zc.real[..., None, :]).sum(-1),
+                          (sv * zc.imag[..., None, :]).sum(-1))
     else:
-        y = (sv * zc[:, None, :]).sum(-1)
-    y = y.reshape(max_out_p)[:max_out]
+        y = (sv * zc[..., None, :]).sum(-1)
+    y = y.reshape(B, max_out_p)[:, :max_out]
     y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=dev))
-    n_valid = valid.sum().to(torch.int32)
+    n_valid = valid.sum(-1).to(torch.int32)
 
     # t0' = t0 + n_valid*dt - n through the same exact split as _times
     cnt = n_valid.to(RDTYPE)
@@ -293,7 +303,7 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
     i2 = torch.floor(a2)
     t0_new = (((i1 + i2) - n) + ((a1 - i1) + (a2 - i2))
               + (carry.t0 + cnt * params.dt_lo))
-    return (ResamplerCarry(tail=z[z.shape[-1] - periods:].clone(),
+    return (ResamplerCarry(tail=z[:, z.shape[-1] - periods:].clone(),
                            t0=t0_new), y, n_valid)
 
 
@@ -303,7 +313,8 @@ def process(params: ResamplerParams, carry: ResamplerCarry, x: torch.Tensor,
     """Resample one block.  ``rational`` is the nominal (p, q) or None; the
     static-polyphase path runs when the ratio equals it exactly (the
     rate-lock correction is zero), the banded evaluator otherwise.  The
-    int32 phase numerators p*o and q*n must not overflow."""
+    int32 phase numerators p*o and q*n must not overflow.  A bank ([C, n])
+    takes the banded evaluator, as the JAX package's does."""
     if rational is not None and carry.tail.shape[-1] % 2 == 0 \
             and rational[0] * (max_out + 1) < 2**31 \
             and rational[1] * (x.shape[-1] + 1) < 2**31:

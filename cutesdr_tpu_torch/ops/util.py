@@ -52,12 +52,19 @@ def affine_prefix(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
+def _initial(s0, u: torch.Tensor) -> torch.Tensor:
+    """An initial state (a scalar, or one per row of ``u``) as a column
+    that broadcasts against ``u``'s last axis."""
+    return torch.as_tensor(s0, device=u.device).unsqueeze(-1)
+
+
 def first_order_recurrence(alpha, u: torch.Tensor, s0) -> torch.Tensor:
-    """Log-depth solve of s[n] = alpha*s[n-1] + u[n], s[-1] = s0.
-    ``alpha`` is a scalar or a per-sample tensor."""
+    """Log-depth solve of s[n] = alpha*s[n-1] + u[n], s[-1] = s0, along the
+    last axis.  ``alpha`` is a scalar or a per-sample tensor; ``s0`` a
+    scalar or one value per row."""
     a = torch.as_tensor(alpha, dtype=u.dtype, device=u.device)
     A, B = affine_prefix(a.expand(u.shape), u)
-    return A * s0 + B
+    return A * _initial(s0, u) + B
 
 
 def ema(alpha, x: torch.Tensor, init) -> torch.Tensor:
@@ -82,7 +89,20 @@ def max_affine_recurrence(c, u: torch.Tensor, v, s0) -> torch.Tensor:
         u = torch.cat([u[..., :s], cs * u[..., :-s] + u[..., s:]], -1)
         c = torch.cat([c[..., :s], cs * c[..., :-s]], -1)
         s *= 2
-    return torch.maximum(c * s0 + u, v)
+    return torch.maximum(c * _initial(s0, u) + u, v)
+
+
+def distance_since_last_true(flags: torch.Tensor,
+                             init_distance) -> torch.Tensor:
+    """For each n, the samples since ``flags`` was last True (0 at a True
+    sample); positions before any True count on from ``init_distance``
+    (the carry of the previous block; a scalar or one per row).  int32."""
+    n = flags.shape[-1]
+    idx = torch.arange(1, n + 1, dtype=torch.int32, device=flags.device)
+    # a virtual last True before the block, at index -init_distance
+    start = -_initial(init_distance, flags).to(torch.int32)
+    last = torch.cummax(torch.where(flags, idx, start), -1).values
+    return idx - last
 
 
 def sliding_window_max(x: torch.Tensor, window: int,

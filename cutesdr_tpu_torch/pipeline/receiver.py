@@ -14,6 +14,12 @@ The path choices are the JAX package's: the rational resampler from
 131,072 demodulated samples up, the scan kernels from 65,536, the S-meter
 kernel for whole 32,768-sample blocks.  Tensors on the CPU run every
 kernel's plain version; CUDA tensors launch the kernels.
+
+``bank_receiver_step`` runs C channels of one configuration at once (a
+leading channel axis on the state and on the per-channel params): one
+mixdec and one batched channel-filter launch for the bank, the AGC and
+the PLL tiers voted bank-wide, and, as in the JAX package's bank, never
+the single-stream kernels (scan, S-meter) or the rational resampler.
 """
 
 from __future__ import annotations
@@ -145,8 +151,6 @@ def check_supported(cfg: ReceiverConfig) -> None:
     missing = []
     if cfg.nb_on:
         missing.append("nb_on (ROADMAP Queue 1: noise blanker)")
-    if cfg.agc_hang:
-        missing.append("agc_hang (ROADMAP Queue 1: hang-mode AGC)")
     if cfg.probes:
         missing.append("probes (ROADMAP Queue 1: probe taps)")
     if missing:
@@ -154,6 +158,8 @@ def check_supported(cfg: ReceiverConfig) -> None:
 
 
 class ReceiverParams(NamedTuple):
+    """A bank has one phase increment, channel-filter H and DC cal per
+    channel (a leading channel axis); the other params are shared."""
     dec: mixdec.MixDecParams         # composed taps + NCO phase increment
     chan_filter: fastfir.FastFirParams
     agc: agc.AgcParams
@@ -165,6 +171,7 @@ class ReceiverParams(NamedTuple):
 
 
 class ReceiverState(NamedTuple):
+    """A bank has a leading channel axis on every tensor."""
     dec: mixdec.MixDecCarry          # raw input tail + DDS phase
     chan_filter: fastfir.FastFirCarry
     agc: agc.AgcCarry
@@ -174,6 +181,7 @@ class ReceiverState(NamedTuple):
 
 
 class StepOutput(NamedTuple):
+    """A bank adds a leading channel axis to every field."""
     audio: torch.Tensor              # [audio_block_cap] float32, or
                                      # complex64 for stereo (left = real)
     n_audio: torch.Tensor            # valid audio samples (int32 0-dim)
@@ -244,31 +252,32 @@ def init(cfg: ReceiverConfig, device) -> tuple[ReceiverParams, ReceiverState]:
     return params, state
 
 
-def _front(cfg: ReceiverConfig, params: ReceiverParams,
-           state: ReceiverState, re: torch.Tensor, im: torch.Tensor):
-    """DC cal -> mix + decimate -> channel filter."""
-    dec_c, base = mixdec.process_planes(cfg.plan, params.dec, state.dec, re,
-                                        im, params.dc_offset)
-    ff_c, filt = fastfir_k.process(params.chan_filter, state.chan_filter,
-                                   base)
-    return dec_c, ff_c, filt
+def _front_prefilter(cfg: ReceiverConfig, params: ReceiverParams,
+                     state: ReceiverState, re: torch.Tensor,
+                     im: torch.Tensor):
+    """DC cal -> mix + decimate (everything before the channel filter)."""
+    return mixdec.process_planes(cfg.plan, params.dec, state.dec, re, im,
+                                 params.dc_offset)
 
 
 def _levels(cfg: ReceiverConfig, params: ReceiverParams,
-            state: ReceiverState, filt: torch.Tensor):
-    """S-meter + AGC on the channel-filtered samples."""
-    sm_c, _ = smeter.process(params.smeter, state.smeter, filt, fast=True)
-    agc_c, leveled = agc.process(_agc_cfg(cfg), params.agc, state.agc, filt)
+            state: ReceiverState, filt: torch.Tensor, fast: bool):
+    """S-meter + AGC on the channel-filtered samples.  ``fast`` is the
+    single stream, with its kernels; a bank passes False."""
+    sm_c, _ = smeter.process(params.smeter, state.smeter, filt, fast=fast)
+    agc_step = agc.process if fast else agc.process_batch
+    agc_c, leveled = agc_step(_agc_cfg(cfg), params.agc, state.agc, filt)
     return sm_c, agc_c, leveled
 
 
 def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
-          audio: torch.Tensor, sm_c: smeter.SMeterCarry):
-    """Resample -> gain -> output assembly."""
+          audio: torch.Tensor, sm_c: smeter.SMeterCarry, fast: bool):
+    """Resample -> gain -> output assembly.  Only the single stream
+    (``fast``) takes the rational resampler, as in the JAX package."""
     if cfg.audio_rate is not None:
         cap = resampler.max_out_for(audio.shape[-1],
                                     cfg.output_rate / cfg.audio_rate)
-        use_rat = audio.shape[-1] >= RATIONAL_MIN_SAMPLES
+        use_rat = fast and audio.shape[-1] >= RATIONAL_MIN_SAMPLES
         rs_c, audio_out, n_audio = resampler.process(
             params.resamp, state.resamp, audio, cap,
             interp=cfg.resampler_interp,
@@ -277,8 +286,8 @@ def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
         audio_out = audio_out * params.audio_gain
     else:
         rs_c, audio_out = state.resamp, audio * params.audio_gain
-        n_audio = torch.tensor(audio.shape[-1], dtype=torch.int32,
-                               device=audio.device)
+        n_audio = torch.full(audio.shape[:-1], audio.shape[-1],
+                             dtype=torch.int32, device=audio.device)
     sm_c, peak = smeter.get_peak(sm_c)
     out = StepOutput(audio=audio_out, n_audio=n_audio,
                      smeter_ave_db=smeter.get_ave(sm_c),
@@ -291,10 +300,12 @@ def receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
                          im: torch.Tensor
                          ) -> tuple[ReceiverState, StepOutput]:
     """One block of cfg.block_size samples given as float32 re/im planes."""
-    dec_c, ff_c, filt = _front(cfg, params, state, re, im)
-    sm_c, agc_c, leveled = _levels(cfg, params, state, filt)
+    dec_c, base = _front_prefilter(cfg, params, state, re, im)
+    ff_c, filt = fastfir_k.process(params.chan_filter, state.chan_filter,
+                                   base)
+    sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=True)
     dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
-    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c)
+    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=True)
     return ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c, smeter=sm_c,
                          demod=dm_c, resamp=rs_c), out
 
@@ -307,6 +318,49 @@ def receiver_step(cfg: ReceiverConfig, params: ReceiverParams,
     if iq.dtype != CDTYPE:
         raise ValueError(f"expected complex64 input, got {iq.dtype}")
     return receiver_step_planes(cfg, params, state, iq.real, iq.imag)
+
+
+def bank_safe_config(cfg: ReceiverConfig) -> ReceiverConfig:
+    """The configuration a channel bank runs: every ported configuration
+    runs as a bank unchanged (the JAX package's hook, kept as its entry
+    point for banks)."""
+    check_supported(cfg)
+    return cfg
+
+
+def bank_receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
+                              state: ReceiverState, re: torch.Tensor,
+                              im: torch.Tensor, shared_input: bool = True
+                              ) -> tuple[ReceiverState, StepOutput]:
+    """One block of a channel bank, as float32 planes: [block_size] shared
+    by every channel (``shared_input``, a ChannelBank) or [C, block_size],
+    one stream per channel (a StackedReceiver).  The demods take a bank as
+    they are (FM and SAM vote their PLL tier bank-wide)."""
+    n_ch = state.chan_filter.tail.shape[0]
+    want = (cfg.block_size,) if shared_input else (n_ch, cfg.block_size)
+    if tuple(re.shape) != want or tuple(im.shape) != want:
+        raise ValueError(f"bank input: expected planes of {want}, got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    dec_c, base = _front_prefilter(cfg, params, state, re, im)
+    ff_c, filt = fastfir_k.batch_call(params.chan_filter, state.chan_filter,
+                                      base)
+    sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=False)
+    dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
+    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=False)
+    return ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c, smeter=sm_c,
+                         demod=dm_c, resamp=rs_c), out
+
+
+def bank_receiver_step(cfg: ReceiverConfig, params: ReceiverParams,
+                       state: ReceiverState, iq: torch.Tensor,
+                       shared_input: bool = True
+                       ) -> tuple[ReceiverState, StepOutput]:
+    """``bank_receiver_step_planes`` of a complex64 block ([block_size] or
+    [C, block_size]); the planes are strided views, not copies."""
+    if iq.dtype != CDTYPE:
+        raise ValueError(f"expected complex64 input, got {iq.dtype}")
+    return bank_receiver_step_planes(cfg, params, state, iq.real, iq.imag,
+                                     shared_input)
 
 
 # --- live param updates as pure (cfg, params) -> params functions ---

@@ -1,0 +1,139 @@
+"""Channel banks (port of ``cutesdr_tpu/shard/channels.py``): C receivers
+of one configuration, run as one batched step.
+
+* ``ChannelBank``: C channels tuned across one shared wideband stream
+  (BASELINE config 4: 64 USB channels from one 10 MSPS stream).
+* ``StackedReceiver``: C chains over C separate streams, one row each
+  (the two receivers of a dual-ADC radio, antenna-array elements).
+
+Both hold their params and state on one explicit device and run
+``pipeline.receiver.bank_receiver_step``; spreading a bank over several
+cards is not ported (ROADMAP Queue 1, item 20).
+
+A bank's params and state are the single receiver's NamedTuples with a
+leading channel axis on every state tensor and on the per-channel params
+(``PER_CHANNEL``: the DDS increment, the channel filter's H, the DC cal).
+Every other param (AGC and demod constants, taps, the volume) is one
+value shared by the bank, as every JAX entry point that builds a bank
+leaves it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from cutesdr_tpu_torch.ops import nco
+from cutesdr_tpu_torch.pipeline import receiver as rx
+from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
+
+PER_CHANNEL = {("dec", "phase_inc"), ("chan_filter", "h_freq"),
+               ("dc_offset",)}
+
+
+def _stack(leaves: list, path: tuple, per_channel, device):
+    """One field of a bank from the same field of each channel: stacked
+    where ``per_channel`` holds its path (None: every field), else the
+    one value every channel agrees on."""
+    first = leaves[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return type(first)(*(
+            _stack([leaf[i] for leaf in leaves], path + (name,),
+                   per_channel, device)
+            for i, name in enumerate(first._fields)))
+    if per_channel is None or path in per_channel:
+        if isinstance(first, torch.Tensor):
+            return torch.stack(leaves)
+        return torch.tensor(leaves, dtype=torch.int64, device=device)
+    same = (torch.equal if isinstance(first, torch.Tensor)
+            else lambda a, b: a == b)
+    if not all(same(leaf, first) for leaf in leaves[1:]):
+        raise ValueError(f"{'.'.join(path)} differs across channels; a bank "
+                         "shares it")
+    return first
+
+
+def stack_params(channels: Sequence[rx.ReceiverParams],
+                 device) -> rx.ReceiverParams:
+    """A bank's params from one ReceiverParams per channel: the
+    ``PER_CHANNEL`` fields stacked, every other field the one value all
+    channels hold (ValueError where they differ)."""
+    return _stack(list(channels), (), PER_CHANNEL, torch.device(device))
+
+
+def stack_state(channels: Sequence[rx.ReceiverState]) -> rx.ReceiverState:
+    """A bank's state: every tensor of the channels' states stacked."""
+    return _stack(list(channels), (), None, None)
+
+
+def bank_init(cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
+              device) -> tuple[rx.ReceiverParams, rx.ReceiverState]:
+    """(params, state) of a bank with one channel per tune frequency."""
+    device = torch.device(device)
+    p0, s0 = rx.init(cfg, device)
+    params = stack_params([rx.tune_params(cfg, p0, f) for f in tune_freqs],
+                          device)
+    return params, stack_state([s0] * len(tune_freqs))
+
+
+class _Bank:
+    """The bank entry points over ``bank_receiver_step``; host numpy input
+    is moved to the bank's device."""
+
+    shared_input: bool
+
+    def __init__(self, cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
+                 device):
+        self.cfg = rx.bank_safe_config(cfg)
+        self.device = torch.device(device)
+        self.params, self.state = bank_init(self.cfg, tune_freqs,
+                                            self.device)
+
+    @property
+    def n_channels(self) -> int:
+        return self.state.chan_filter.tail.shape[0]
+
+    def _to_device(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+
+    def process(self, iq) -> rx.StepOutput:
+        self.state, out = rx.bank_receiver_step(
+            self.cfg, self.params, self.state, self._to_device(iq, CDTYPE),
+            self.shared_input)
+        return out
+
+    def process_planes(self, re, im) -> rx.StepOutput:
+        """The block as float32 or int16 planes (the radio's 16-bit wire
+        format, cast on the device)."""
+        re, im = self._to_device(re, RDTYPE), self._to_device(im, RDTYPE)
+        self.state, out = rx.bank_receiver_step_planes(
+            self.cfg, self.params, self.state, re, im, self.shared_input)
+        return out
+
+    def set_tune_freqs(self, freqs: Sequence[float]) -> None:
+        """Retune every channel between blocks (one frequency each)."""
+        if len(freqs) != self.n_channels:
+            raise ValueError(f"{len(freqs)} frequencies for "
+                             f"{self.n_channels} channels")
+        incs = [nco.phase_increment(f - self.cfg.cw_offset,
+                                    self.cfg.input_rate) for f in freqs]
+        self.params = self.params._replace(dec=self.params.dec._replace(
+            phase_inc=torch.tensor(incs, dtype=torch.int64,
+                                   device=self.device)))
+
+
+class ChannelBank(_Bank):
+    """C channels of one configuration over one shared block of
+    cfg.block_size samples per step; audio [C, cap] and n_audio [C]."""
+
+    shared_input = True
+
+
+class StackedReceiver(_Bank):
+    """C chains of one configuration over C separate streams: input
+    [C, cfg.block_size] per step; audio [C, cap] and n_audio [C]."""
+
+    shared_input = False

@@ -24,11 +24,13 @@ def test_port_and_chip_smoke_import_no_jax():
         "import cutesdr_tpu_torch.demod.am, cutesdr_tpu_torch.demod.fm\n"
         "import cutesdr_tpu_torch.demod.sam, cutesdr_tpu_torch.ops.iir\n"
         "import cutesdr_tpu_torch.ops.resampler\n"
+        "import cutesdr_tpu_torch.shard.channels\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('cutesdr_tpu.pipeline')\n"
         "       or m.startswith('cutesdr_tpu.ops')\n"
-        "       or m.startswith('cutesdr_tpu.kernels')]\n"
+        "       or m.startswith('cutesdr_tpu.kernels')\n"
+        "       or m.startswith('cutesdr_tpu.shard')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

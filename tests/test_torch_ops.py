@@ -147,6 +147,49 @@ def test_util_scans():
         np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
+def test_util_and_smeter_bank_rows():
+    """The channel-bank forms: distance_since_last_true (hang mode) with
+    one carried distance per row equals JAX's vmapped form; the scans and
+    the S-meter on [C, n] with per-row initial states equal the port's
+    own rows one at a time, bitwise, and JAX's vmapped S-meter within
+    1e-3 dB."""
+    rng = np.random.default_rng(8)
+    flags = rng.random((3, 700)) < np.array([[0.0], [0.01], [0.3]])
+    d0 = np.array([0, 17, 5000], np.int32)
+    want = jax.jit(jax.vmap(j_util.distance_since_last_true))(
+        jnp.asarray(flags), jnp.asarray(d0))
+    got = t_util.distance_since_last_true(_t(flags), _t(d0))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    u = _t((rng.standard_normal((3, 700)) * 0.01).astype(np.float32))
+    s0 = _t(np.array([-3.0, 0.5, 2.0], np.float32))
+    rows = t_util.first_order_recurrence(np.float32(0.99), u, s0)
+    caps = t_util.max_affine_recurrence(np.float32(0.9), u, rows, s0)
+    for c in range(3):
+        r = t_util.first_order_recurrence(np.float32(0.99), u[c], s0[c])
+        assert torch.equal(rows[c], r)
+        assert torch.equal(
+            caps[c], t_util.max_affine_recurrence(np.float32(0.9), u[c], r,
+                                                  s0[c]))
+
+    x = np.stack([_cplx(rng, 4096, 300.0 * (c + 1)) for c in range(3)])
+    jp, jc = j_sm.init(62_500.0, jnp.float32)
+    tp, tc = t_sm.init(62_500.0, "cpu")
+    jcb = jax.tree_util.tree_map(lambda a: jnp.stack([a] * 3), jc)
+    jcb, jm = jax.jit(jax.vmap(lambda c, xx: j_sm.process(jp, c, xx)))(
+        jcb, jnp.asarray(x))
+    tcb, tm = t_sm.process(tp, type(tc)(*(torch.stack([a] * 3) for a in tc)),
+                           _t(x))
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-4)
+    for f in ("attack_ave", "decay_ave", "peak_mag"):
+        np.testing.assert_allclose(getattr(tcb, f).numpy(),
+                                   np.asarray(getattr(jcb, f)), atol=1e-3)
+    for c in range(3):
+        one, _ = t_sm.process(tp, tc, _t(x[c]))
+        assert all(torch.equal(a[c], b) for a, b in zip(tcb, one))
+
+
 def _envelope_blocks(rng, n, n_blocks):
     """Complex test signal with a stepping envelope (AGC attack/decay)."""
     out = []
@@ -190,6 +233,41 @@ def test_agc_three_blocks(monkeypatch, force_fallback):
     assert fell_back == force_fallback
 
 
+def test_agc_guess_verify_rounds_match_jax(monkeypatch):
+    """On a window-peak plateau (a steady tone at 65,536 samples: the
+    attack average sits within ulps of the peak), the port's plain
+    guess-verify converges in as many rounds as JAX's, and to the same
+    trajectory within 1e-5 decades.  Its tie forgiveness rounds each
+    branch once, as XLA:CPU's FMA contraction does; rounded twice, the
+    rounds crept a few samples at a time (10 here, against JAX's 2)."""
+    from cutesdr_tpu_torch.kernels import scan as t_scan
+    fs, n = 62_500.0, 65536
+    rng = np.random.default_rng(9)
+    k = np.arange(n)
+    x = (1036.0 * np.exp(2j * np.pi * 1000.0 * k / fs)
+         + _cplx(rng, n)).astype(np.complex64)
+    cfg = t_agc.AgcConfig(True, False, fs)
+    p = t_agc.make_params(cfg, -100.0, 30.0, 0.0, 200.0)
+    c = t_agc.init_carry(cfg, "cpu")
+    c = c._replace(attack_ave=torch.tensor(np.float32(-1.5)),
+                   mag_tail=torch.full_like(c.mag_tail, -1.5))
+    peak = t_agc._prefix(cfg, c, _t(x))[2]
+    rounds = []
+    real = t_scan.guess_round_plain
+    monkeypatch.setattr(t_scan, "guess_round_plain",
+                        lambda *a: rounds.append(1) or real(*a))
+    tx, ok = t_agc._two_rate_parallel(p.attack_rise_alpha,
+                                      p.attack_fall_alpha, c.attack_ave,
+                                      peak, t_agc.GUESS_ITERS, fast=False)
+    solve = jax.jit(lambda it: j_agc._two_rate_parallel(
+        jnp.float32(p.attack_rise_alpha), jnp.float32(p.attack_fall_alpha),
+        jnp.float32(-1.5), jnp.asarray(peak.numpy()), it))
+    j_rounds = next(it for it in range(1, 25) if bool(solve(it)[1]))
+    assert ok and len(rounds) == j_rounds, (len(rounds), j_rounds)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(solve(j_rounds)[0]),
+                               atol=1e-5)
+
+
 def test_agc_manual_gain():
     x = _cplx(np.random.default_rng(6), 1024, 100.0)
     jcfg = j_agc.AgcConfig(False, False, 62_500.0)
@@ -200,8 +278,16 @@ def test_agc_manual_gain():
                           jnp.asarray(x))
     _, ty = t_agc.process(tcfg, tp, t_agc.init_carry(tcfg, "cpu"), _t(x))
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
-    with pytest.raises(NotImplementedError, match="hang"):
-        t_agc.init_carry(t_agc.AgcConfig(True, True, 62_500.0), "cpu")
+    # a bank of two channels: one shared manual gain
+    xb = np.stack([x, x[::-1]])
+    jpb = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]), jp)
+    jcb = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]),
+                                 j_agc.init_carry(jcfg, True))
+    _, jy = j_agc.process_batch(jcfg, jpb, jcb, jnp.asarray(xb))
+    tc = t_agc.init_carry(tcfg, "cpu")
+    _, ty = t_agc.process_batch(tcfg, tp, type(tc)(*(torch.stack([a, a])
+                                                     for a in tc)), _t(xb))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
 
 
 @pytest.mark.parametrize("interp", [True, False])

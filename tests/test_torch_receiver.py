@@ -272,8 +272,28 @@ def test_from_jax_mid_stream_demods(mode, stereo):
             _match(jout, tout)
 
 
-@pytest.mark.parametrize("kw", [dict(nb_on=True), dict(agc_hang=True),
-                                dict(probes=True)])
+def test_port_matches_jax_receiver_hang_agc():
+    """Hang-mode AGC through the whole USB receiver, three chained blocks
+    against the JAX Receiver: a keyed carrier (on 60 % of each block) so
+    the decay averager rises, holds through the gaps and releases."""
+    kw = dict(input_rate=250_000.0, mode="usb", tune_freq=60_000.0,
+              frames_per_block=4, agc_hang=True, agc_decay_ms=20.0)
+    jr = jrx.Receiver(jrx.ReceiverConfig(**kw))
+    tr = trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
+    assert tr.params.agc == type(tr.params.agc)(*(
+        np.asarray(v).item() for v in jr.params.agc))
+    n = tr.cfg.block_size
+    key = (np.arange(n) % (n // 2)) < 0.6 * (n // 2)
+    before = agc.STATS["scan_fallbacks"]
+    for b, x in enumerate(_blocks(tr.cfg, 3, seed=13, power_db=-40.0)):
+        x = np.where(key, x, x * np.float32(1e-3)).astype(np.complex64)
+        jout, tout = jr.process(jnp.asarray(x)), tr.process(x)
+        _match(jout, tout)
+        assert int(tr.state.agc.hang_timer) == int(jr.state.agc.hang_timer)
+    assert agc.STATS["scan_fallbacks"] == before
+
+
+@pytest.mark.parametrize("kw", [dict(nb_on=True), dict(probes=True)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
