@@ -3,14 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``cutesdr_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the main paths' shapes,
-replays the golden / reference-binary fixtures (usb2m, usb, lsb, cwu, am,
-sam, fm, and stereo sam) through the port on the card, then drives the
-receiver paths with the input resident on the card, each over chained
-steps, 48 kHz audio (``path_specs``):
+kernel against its plain PyTorch version at the main paths' shapes (and
+times both, one PyTorch call that computes the same function where there
+is one, and the kernel's bound from the bytes and operations of its
+inputs), replays the golden / reference-binary fixtures (usb2m, usb, lsb,
+cwu, am, sam, fm, stereo sam; the resampler, noise blanker and display
+fixtures) through the port on the card, then drives the receiver paths
+with the input resident on the card, each over chained steps, 48 kHz
+audio (``path_specs``):
 
 * the flagship, USB at 2 MSPS, tune 100 kHz, frames_per_block=256
-  (8,388,608 input samples), and the same with hang-mode AGC;
+  (8,388,608 input samples), the same with hang-mode AGC, and the same
+  with the resample ratio 50 ppm off nominal (the audio rate lock), so
+  its 262,144-sample tail takes the banded resampler kernel;
 * FM, SAM and AM at frames_per_block=256 (262,144 demodulated samples,
   8,388,608 or 16,777,216 input samples), each recovering its modulating
   tone; SAM's first block acquires through the seqloop_sam kernel;
@@ -21,7 +26,12 @@ steps, 48 kHz audio (``path_specs``):
   package's config 4, one frame per step), an 8-channel FM monitor whose
   bank-wide vote sends every block to seqloop_fm over 8 streams, 4 SAM
   channels acquiring through seqloop_sam, and a StackedReceiver of two
-  separate full-width 2 MSPS streams.
+  separate full-width 2 MSPS streams;
+* a live ``ReceiverSession`` at the default block (one frame, 2 MSPS
+  USB) with the noise blanker and the spectrum display, fed int16 planes
+  of a tone with impulses while an audio consumer drains its queue
+  100 ppm fast (so the rate lock moves the ratio) and the mode walks
+  usb -> am -> fm -> usb (``check_session``).
 
 Before each path every launch count is set to 0; after it, every kernel
 that the path's configuration routes to must have launched, and no other.
@@ -32,9 +42,9 @@ needs a CUDA device; it never imports jax.
 
     python3 chip_smoke.py --profile
 
-builds the kernels and profiles the same receiver paths instead (step
-time, device busy time, launches and host reads per step; see
-``profile_paths``).
+builds the kernels and profiles the same receiver paths and the session
+instead (step time, device busy time, launches and host reads per step;
+see ``profile_paths``).
 """
 
 from __future__ import annotations
@@ -52,14 +62,20 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from cutesdr_tpu.design.decimation_plan import plan_decimation  # noqa: E402
-from cutesdr_tpu.design.fastfir_design import design_fastfir  # noqa: E402
 from cutesdr_tpu_torch import kernels  # noqa: E402
 from cutesdr_tpu_torch.demod import fm, sam  # noqa: E402
+from cutesdr_tpu_torch.design.decimation_plan import (  # noqa: E402
+    plan_decimation)
+from cutesdr_tpu_torch.design.fastfir_design import (  # noqa: E402
+    design_fastfir)
+from cutesdr_tpu_torch.io.audio_sink import RateLockedQueue  # noqa: E402
 from cutesdr_tpu_torch.kernels import (  # noqa: E402
-    _build, fastfir, mixdec, scan, seqloop)
-from cutesdr_tpu_torch.ops import agc, nco  # noqa: E402
+    _build, fastfir, mixdec, resamp, scan, seqloop)
+from cutesdr_tpu_torch.ops import (  # noqa: E402
+    agc, nco, noiseblanker, resampler)
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
+from cutesdr_tpu_torch.pipeline import spectrum  # noqa: E402
+from cutesdr_tpu_torch.session import ReceiverSession  # noqa: E402
 from cutesdr_tpu_torch.shard import channels  # noqa: E402
 
 FIXDIR = os.path.join(ROOT, "tests", "fixtures")
@@ -84,7 +100,15 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                    "cutesdr_tpu/kernels/seqloop.py:164"),
     "seqloop_sam": ("cutesdr_tpu_torch/csrc/seqloop.cu",
                     "cutesdr_tpu/kernels/seqloop.py:235"),
+    "resamp": ("cutesdr_tpu_torch/csrc/resamp.cu",
+               "cutesdr_tpu/kernels/resamp1.py:222"),
 }
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+RESAMP_TOL = 2e-5         # x the block's peak: the two differ only in the
+                          # order of the tap sum
 SEQ_TOL = 1e-6            # rad: kernel and plain loop round alike
 # which outputs of the seqloop wrappers are angles (compared wrapped):
 # FM (phase, freq, freqs, err), SAM (phase, freq, pre-update phases)
@@ -131,15 +155,68 @@ def max_err(name: str, got, want, tol: float) -> float:
     return err
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``ops``
+    float32 operations: the larger of the two over the card's peaks."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fir_library(h_freq: torch.Tensor, z: torch.Tensor, ntaps: int):
+    """One PyTorch call that computes the overlap-save filter's function:
+    a complex ``conv1d`` with the filter's time-domain taps (the inverse
+    transform of H, which holds 1/NFFT), one group per channel of a bank;
+    float32 without TF32.  Used only as a yardstick."""
+    nfft = h_freq.shape[-1]
+    taps = (torch.fft.ifft(h_freq) * nfft)[..., :ntaps].flip(-1)
+    weight = taps.reshape(-1, 1, ntaps).contiguous()
+    inp = z.reshape(1, -1, z.shape[-1])
+
+    def run():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return torch.nn.functional.conv1d(
+                inp, weight, groups=weight.shape[0]).reshape(
+                    z.shape[:-1] + (-1,))
+    return run
+
+
+def library_time(label: str, fn, want) -> float | None:
+    """ms of a library call (median as ``time_ms``) and its max abs
+    difference from the kernel's result; None where PyTorch cannot run
+    it on this card."""
+    try:
+        got = fn()
+    except (RuntimeError, NotImplementedError) as e:
+        phase(f"  library call for {label} not run: {str(e)[:120]}")
+        return None
+    diff = float((got - want).abs().max())
+    ms = time_ms(fn)
+    phase(f"  library call for {label}: {ms:.4f} ms, max abs difference "
+          f"from the kernel {diff:.3e}")
+    return ms
+
+
 def compare(name: str, got, want, tol: float, results: dict,
-            kernel_fn, plain_fn, label: str = "") -> None:
-    """Check a kernel against its plain version and time both."""
+            kernel_fn, plain_fn, label: str = "", work=None,
+            library=None) -> None:
+    """Check a kernel against its plain version and time both; for the
+    main shape (no ``label``) also record its bound from ``work`` =
+    (bytes, operations) and the time of ``library`` = (one PyTorch call
+    computing the same function, the kernel's result), or None."""
     err = max_err(name + label, got, want, tol)
     ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+    b = bound(*work) if work else {}
     phase(f"kernel {name}{label}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          + (f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']})" if b
+             else ""))
+    lib = library_time(name + label, *library) if library else None
     if not label:
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **b, "library_ms": lib}
 
 
 def check_mixdec(gen, results, input_rate, label):
@@ -160,10 +237,15 @@ def check_mixdec(gen, results, input_rate, label):
             and int(ck.phase) == int(cp.phase)):
         raise AssertionError("mixdec carries differ")
     scale = float(yp.abs().max())
+    D, L = plan.decimation, len(params.h_eq)
+    # bytes: the two input planes, tail, taps, output; operations: the DC
+    # cal (2), oscillator phase and sincos (counted 2) and complex mix (6)
+    # per input sample, a complex-by-real tap (4) per tap and output
+    work = (8 * N_IN + 8 * carry.raw_tail.numel() + 4 * L + 8 * N_IN // D,
+            10 * N_IN + 4 * L * N_IN // D)
     compare("mixdec", [yk.real, yk.imag], [yp.real, yp.imag], 5e-5 * scale,
-            results, run_k, run_p, label)
-    phase(f"  (D={plan.decimation}, {len(params.h_eq)} taps, "
-          f"{N_IN} samples)")
+            results, run_k, run_p, label, work=work)
+    phase(f"  (D={D}, {L} taps, {N_IN} samples)")
 
 
 def check_fastfir(gen, results):
@@ -176,7 +258,19 @@ def check_fastfir(gen, results):
     yk, yp = run_k(), run_p()
     scale = float(yp.abs().max())
     compare("fastfir", [yk.real, yk.imag], [yp.real, yp.imag], 5e-5 * scale,
-            results, run_k, run_p)
+            results, run_k, run_p, work=fastfir_work(1, N_DEMOD // 1024),
+            library=(fir_library(hf, z, 1025), yk))
+
+
+def fastfir_work(n_ch: int, frames: int, nfft: int = 2048,
+                 ntaps: int = 1025) -> tuple[float, float]:
+    """(bytes, operations) of the overlap-save filter: history + block in,
+    H, block out (complex64); two radix-2 FFTs (5 N log2 N each) and the
+    complex product per frame."""
+    n = frames * (nfft - ntaps + 1)
+    nbytes = n_ch * 8 * ((ntaps - 1 + n) + nfft + n)
+    ops = n_ch * frames * (10 * nfft * int(np.log2(nfft)) + 6 * nfft)
+    return nbytes, ops
 
 
 def check_fastfir_batch(gen, results):
@@ -195,7 +289,9 @@ def check_fastfir_batch(gen, results):
         scale = float(yp.abs().max())
         compare("fastfir_batch", [yk.real, yk.imag], [yp.real, yp.imag],
                 5e-5 * scale, results, run_k, run_p,
-                "" if frames == 1 else f" {n_ch}x{frames}")
+                "" if frames == 1 else f" {n_ch}x{frames}",
+                work=fastfir_work(n_ch, frames),
+                library=(fir_library(hf, z, 1025), yk))
         phase(f"  ({n_ch} channels x {frames} frames, 2048/1025)")
 
 
@@ -279,7 +375,9 @@ def check_scans(gen, results):
     x0 = torch.tensor(-3.0, device="cuda")
     run_k = lambda: scan.first_order_scan(a, b, x0)
     run_p = lambda: scan.first_order_scan_plain(a, b, x0)
-    compare("scan_plain", [run_k()], [run_p()], 1e-5, results, run_k, run_p)
+    # bytes: a, b in, x out; operations: one multiply-add a sample
+    compare("scan_plain", [run_k()], [run_p()], 1e-5, results, run_k, run_p,
+            work=(12 * n, 2 * n))
 
     pk = randn(n, gen, 0.3) - 3.0
     pat = torch.rand(n, generator=gen, device="cuda") > 0.5
@@ -291,15 +389,82 @@ def check_scans(gen, results):
     if n_flip > 4 or abs(int(ck) - int(cp)) > 4:
         raise AssertionError(f"scan_round pattern/count differ: {n_flip} "
                              f"flips, count {int(ck)} vs {int(cp)}")
-    compare("scan_round", [xk], [xp], 1e-5, results, run_k, run_p)
+    # bytes: peaks and pattern in, values and pattern out; operations: the
+    # two branch updates and their comparison a sample
+    compare("scan_round", [xk], [xp], 1e-5, results, run_k, run_p,
+            work=(10 * n, 6 * n))
 
     mag = randn(n, gen, 10.0) - 60.0
     aa, ad = np.float32(1 / 625.0), np.float32(1 / 31250.0)
     a0 = torch.tensor(-120.0, device="cuda")
     run_k = lambda: scan.smeter_last(mag, aa, ad, a0, a0)
     run_p = lambda: scan.smeter_last_plain(mag, aa, ad, a0, a0)
+    # bytes: the magnitudes in; operations: two averager updates and the
+    # snap a sample
     compare("smeter", list(run_k()), list(run_p()), 1e-3, results, run_k,
-            run_p)
+            run_p, work=(4 * n, 5 * n))
+
+
+def resamp_case(gen, n_streams: int, n: int, ratio: float, nominal: float,
+                cplx: bool):
+    """The banded resampler's inputs for ``n_streams`` blocks of ``n``
+    samples at ``ratio`` (capacity sized for ``nominal``, as the receiver
+    sizes it), as ``ops/resampler._banded_process`` forms them: z =
+    [tail | block] and the output times from a random start in [0, dt).
+    Returns (z, t_int, t_frac, M, valid)."""
+    params, _ = resampler.init(ratio, "cuda", complex_input=cplx)
+    periods = resampler.SINC_PERIODS
+    K, M = resampler.band_size(n, resampler.max_out_for(n, nominal), periods)
+    t0 = torch.rand(n_streams, 1, generator=gen, device="cuda") * ratio
+    t_int, t_frac = resampler._times(
+        params, t0, torch.arange(K, dtype=torch.float32, device="cuda"))
+    z = randn(n_streams * (n + periods), gen, 1000.0)
+    if cplx:
+        z = torch.complex(z, randn(z.numel(), gen, 1000.0))
+    return z.reshape(n_streams, -1), t_int, t_frac, M, t_int < n
+
+
+def check_resamp(gen, results):
+    """K9 against its plain version on the valid outputs (the caller masks
+    the rest): the flagship's rate-locked tail (1 x 262,144 at 125/96
+    x (1 + 50e-6)) in both modes, the 64-channel bank's tail (64 x 1,024 at
+    78,125/48,000), a complex stereo tail (4 x 32,768 at 31,250/48,000 x
+    (1 + 1e-4)), and the session's default block (1 x 1,024 at 125/96,
+    timed for a later gate)."""
+    flagship = 62_500.0 / 48_000.0
+    cases = [("", 1, N_DEMOD, flagship * (1 + 50e-6), flagship, False, True),
+             (" interp=False", 1, N_DEMOD, flagship * (1 + 50e-6), flagship,
+              False, False),
+             (" bank 64x1024", 64, 1024, 78_125.0 / 48_000.0,
+              78_125.0 / 48_000.0, False, True),
+             (" stereo 4x32768", 4, 32_768, 31_250.0 / 48_000.0 * (1 + 1e-4),
+              31_250.0 / 48_000.0, True, True),
+             (" 1x1024", 1, 1024, flagship, flagship, False, True)]
+    periods = resampler.SINC_PERIODS
+    for label, n_st, n, ratio, nominal, cplx, interp in cases:
+        z, t_int, t_frac, M, valid = resamp_case(gen, n_st, n, ratio,
+                                                 nominal, cplx)
+        run_k = lambda: resamp.resample_band(z, t_int, t_frac, M, periods,
+                                             interp)
+        run_p = lambda: resamp.resample_band_plain(z, t_int, t_frac, M,
+                                                   periods, interp)
+        zero = torch.zeros((), dtype=z.dtype, device="cuda")
+        yk, yp = (torch.where(valid, y, zero) for y in (run_k(), run_p()))
+        planes = lambda y: [y.real, y.imag] if cplx else [y]
+        # bytes: z and the times in, y out; operations: per valid output
+        # the per-output terms (~40) and per tap the window (12), position
+        # and sinc (6) and one multiply-add per plane
+        n_planes = 2 if cplx else 1
+        work = (4 * z.numel() * n_planes + 8 * t_int.numel()
+                + 4 * t_int.numel() * n_planes,
+                int(valid.sum()) * (periods * (18 + 2 * n_planes) + 40))
+        compare("resamp", planes(yk), planes(yp),
+                RESAMP_TOL * float(yp.abs().max()), results, run_k, run_p,
+                label, work=work)
+        phase(f"  ({n_st} x {n}, {t_int.shape[-1]} outputs a stream, "
+              f"M = {M}, ratio {ratio:.9f}, "
+              f"{'complex' if cplx else 'real'}, interp={interp}, "
+              f"bound {bound(*work)['bound_ms']:.4f} ms)")
 
 
 def time_once(fn) -> float:
@@ -388,8 +553,13 @@ def check_seqloops(gen, results):
                   f"kernel {ms:.4f} ms (median of 5x20 calls), plain "
                   f"{plain_ms:.1f} ms (1 call)")
             if n == N_DEMOD:
+                # bytes: theta in, the series out (FM two, SAM one);
+                # operations: the dozen of the per-sample chain
+                series = 2 if name == "seqloop_fm" else 1
                 results[name] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms}
+                                 "plain_ms": plain_ms,
+                                 **bound(4 * n * (1 + series), 12 * n),
+                                 "library_ms": None}
                 if name == "seqloop_fm":
                     check_fm_chunked(fm_p, fm_c, phase0, freq0, th, got, ms)
     for n1, n2 in ((256, 256), (32_768 - 1000, 777)):
@@ -453,10 +623,11 @@ def check_other_shapes(gen):
     phase(f"kernel scan_plain n={n}: max_abs_err {err:.3e}")
 
 
-def snr_db(want, got, skip):
+def snr_db(want, got, skip=0):
+    """SNR of ``got`` against ``want`` (real or complex) from ``skip``."""
     n = min(len(want), len(got))
-    err = got[skip:n] - want[skip:n]
-    return 10 * np.log10(np.mean(want[skip:n] ** 2)
+    err = np.abs(got[skip:n] - want[skip:n])
+    return 10 * np.log10(np.mean(np.abs(want[skip:n]) ** 2)
                          / max(np.mean(err ** 2), 1e-30))
 
 
@@ -508,6 +679,81 @@ def check_fixtures():
         raise AssertionError("fixture sam_stereo below its pinned bound")
 
 
+def check_refgold_extras():
+    """The resampler, noise blanker and display fixtures through the port
+    on the card, at the bars of tests/test_refgold_fixtures.py: the
+    reference-exact banded resampler (through K9) with identical output
+    counts and >= 110 dB; identical blanked-sample sets and >= 140 dB;
+    the display's pixel map within 1 pixel."""
+    d = np.load(os.path.join(FIXDIR, "refgold_resampler.npz"))
+    meta = json.loads(str(d["meta"]))
+    x = torch.complex(torch.from_numpy(d["iq_re"].astype(np.float32)),
+                      torch.from_numpy(d["iq_im"].astype(np.float32))).cuda()
+    ref = d["out_re"] + 1j * d["out_im"]
+    chunk = meta["chunk"]
+    params, carry = resampler.init(meta["rate"], "cuda", complex_input=True)
+    before = kernels.LAUNCHES["resamp"]
+    got = []
+    for pos in range(0, x.numel(), chunk):
+        cap = resampler.max_out_for(chunk, meta["rate"])
+        carry, y, nv = resampler.process(params, carry, x[pos:pos + chunk],
+                                         cap, interp=False)
+        got.append(y[:int(nv)].cpu().numpy())
+    got = np.concatenate(got)
+    skip = meta["skip"]
+    snr = snr_db(ref, got, skip) if len(got) == len(ref) else float("nan")
+    launched = kernels.LAUNCHES["resamp"] - before
+    phase(f"fixture resampler: {len(got)} outputs (reference {len(ref)}), "
+          f"{snr:.2f} dB (bound 110), {launched} resamp launches")
+    if not (len(got) == len(ref) and snr > 110.0 and launched > 0):
+        raise AssertionError("fixture resampler below its bar")
+
+    d = np.load(os.path.join(FIXDIR, "refgold_blanker.npz"))
+    meta = json.loads(str(d["meta"]))
+    x = torch.complex(torch.from_numpy(d["iq_re"].astype(np.float32)),
+                      torch.from_numpy(d["iq_im"].astype(np.float32))).cuda()
+    ref = d["out_re"] + 1j * d["out_im"]
+    cfg = noiseblanker.BlankerConfig(True, meta["threshold"],
+                                     meta["width_us"], meta["fs"])
+    carry = noiseblanker.init_carry(cfg, "cuda")
+    got = []
+    for pos in range(0, x.numel(), meta["chunk"]):
+        carry, y = noiseblanker.process(cfg, carry,
+                                        x[pos:pos + meta["chunk"]])
+        got.append(y.cpu().numpy())
+    got, skip = np.concatenate(got), meta["skip"]
+    same = np.array_equal(np.abs(got[skip:]) == 0, np.abs(ref[skip:]) == 0)
+    snr = snr_db(ref, got, skip)
+    phase(f"fixture blanker: {int((got[skip:] == 0).sum())} blanked, sets "
+          f"{'identical' if same else 'DIFFER'}, {snr:.2f} dB (bound 140)")
+    if not (same and snr > 140.0):
+        raise AssertionError("fixture blanker below its bar")
+
+    d = np.load(os.path.join(FIXDIR, "refgold_fftdisp.npz"))
+    meta = json.loads(str(d["meta"]))
+    N = meta["fft_size"]
+    x = torch.from_numpy((d["iq_re"].astype(np.float64)
+                          + 1j * d["iq_im"].astype(np.float64))
+                         .astype(np.complex64)).cuda()
+    cfg = spectrum.SpectrumConfig(fft_size=N, ave_size=meta["ave_size"],
+                                  sample_rate=meta["sample_rate"],
+                                  db_compensation=20 * np.log10(2.0))
+    st = spectrum.init(cfg, "cuda")
+    for fr in range(meta["frames"]):
+        st, _ = spectrum.accumulate(cfg, st, x[fr * N:(fr + 1) * N])
+    pix = spectrum.screen_map(
+        cfg, spectrum.db_spectrum(cfg, st), meta["height"], meta["width"],
+        meta["max_db"], meta["min_db"], -meta["sample_rate"] / 2,
+        meta["sample_rate"] / 2).cpu().numpy()
+    ref = d["pix"].astype(int)
+    m = min(len(ref), len(pix))
+    diff = np.abs(ref[:m] - pix[:m].astype(int))
+    phase(f"fixture fftdisp: pixels within {diff.max()} of the reference "
+          f"(bound 1), top {pix[:m].min()} of {meta['height']}")
+    if not (diff.max() <= 1 and pix[:m].min() < meta["height"] // 4):
+        raise AssertionError("fixture fftdisp beyond 1 pixel")
+
+
 def stimulus(cfg, n_blocks: int, gen, carriers=({},),
              noise_db: float = -90.0) -> list[torch.Tensor]:
     """Seeded noise (``noise_db`` dBFS) plus one carrier per dict of
@@ -540,12 +786,29 @@ def stimulus(cfg, n_blocks: int, gen, carriers=({},),
     return out
 
 
-def routed_kernels(cfg, bank: bool) -> set[str]:
+def banded_tail(cfg, bank: bool, params) -> bool:
+    """Whether the resampler takes the banded path (the resamp kernel):
+    every bank, blocks below the rational gate, and a ratio off the
+    nominal p/q (the audio rate lock's correction)."""
+    if cfg.audio_rate is None:
+        return False
+    rational = resampler.rational_for(cfg.output_rate, cfg.audio_rate)
+    n = cfg.fastfir_valid * cfg.frames_per_block
+    if bank or n < rx.RATIONAL_MIN_SAMPLES or rational is None:
+        return True
+    p, q = rational
+    return ((params.resamp.dt_hi, params.resamp.dt_lo)
+            != resampler.split_rate(p / q))
+
+
+def routed_kernels(cfg, bank: bool, params) -> set[str]:
     """The kernels a configuration's path routes to, by the port's gates
     (the seqloops by the tiers the demods report as taken).  A bank never
     takes the single-stream scan and S-meter kernels."""
     n = cfg.fastfir_valid * cfg.frames_per_block
     want = {"mixdec", "fastfir_batch" if bank else "fastfir"}
+    if banded_tail(cfg, bank, params):
+        want.add("resamp")
     if not bank and cfg.agc_on and scan.supported(n):
         want |= {"scan_plain", "scan_round"}
     if not bank and scan.smeter_supported(n):
@@ -576,13 +839,21 @@ def tone_ratio(audio: np.ndarray, rate: float, tone_hz: float,
     return ratio
 
 
-def make_receiver(kind: str, cfg, freqs):
+def make_receiver(kind: str, cfg, freqs, ratio_ppm: float = 0.0):
     """The entry point a user calls: a Receiver, or a bank of channels
-    tuned to ``freqs`` over one shared stream or one stream each."""
+    tuned to ``freqs`` over one shared stream or one stream each; with
+    ``ratio_ppm`` the resample ratio that far off nominal, as the audio
+    rate lock sets it."""
     if kind == "single":
-        return rx.Receiver(cfg, "cuda")
-    bank = channels.ChannelBank if kind == "bank" else channels.StackedReceiver
-    return bank(cfg, freqs, "cuda")
+        r = rx.Receiver(cfg)
+    else:
+        bank = (channels.ChannelBank if kind == "bank"
+                else channels.StackedReceiver)
+        r = bank(cfg, freqs)
+    if ratio_ppm:
+        r.set_resample_ratio(cfg.output_rate / cfg.audio_rate
+                             * (1 + ratio_ppm * 1e-6))
+    return r
 
 
 def path_blocks(kind: str, cfg, gen, stim, n_blocks: int):
@@ -604,7 +875,8 @@ def channel_audio(out) -> list[np.ndarray]:
 
 
 def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
-               skip=1, need=(), may_fall_back=True, check=None):
+               skip=1, need=(), may_fall_back=True, check=None,
+               ratio_ppm=0.0):
     """Drive one receiver path over ``blocks`` with the counts zeroed just
     before and read just after; check the routed kernels (and ``need``)
     launched and no other; check each (channel, tone) of ``tones`` on the
@@ -613,7 +885,7 @@ def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
     continue the same signal.  The AGC may take its sequential fallback
     while it settles, except where ``may_fall_back`` is False.
     ``check(launches, tiers, n_blocks)`` adds a path's own conditions."""
-    r = make_receiver(kind, cfg, freqs)
+    r = make_receiver(kind, cfg, freqs, ratio_ppm)
     torch.cuda.synchronize()
     kernels.reset_launches()
     agc.STATS["scan_fallbacks"] = 0
@@ -628,7 +900,7 @@ def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
     if fallbacks and not may_fall_back:
         raise AssertionError(f"{label}: the AGC fell back to the "
                              "sequential scan")
-    want = routed_kernels(cfg, kind != "single") | set(need)
+    want = routed_kernels(cfg, kind != "single", r.params) | set(need)
     wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
     if wrong:
         raise AssertionError(f"{label}: launches {wrong} do not match the "
@@ -718,6 +990,9 @@ def path_specs() -> list:
                                                  **full),
          None, tone(offset_hz=1000.0), 3,
          dict(tones=((0, 1000.0),), steps=4, may_fall_back=False)),
+        ("usb ratelock", "single", usb_cfg, None, tone(offset_hz=1000.0), 3,
+         dict(tones=((0, 1000.0),), steps=4, may_fall_back=False,
+              ratio_ppm=50.0)),
         ("bank usb 64ch", "bank",
          rx.ReceiverConfig(input_rate=10e6, mode="usb"), grid,
          dict(carriers=(dict(freq_hz=grid[0] + 1000.0),
@@ -771,7 +1046,7 @@ def profile_paths(gen, gpu_label) -> None:
     tensor).  Prints one JSON line per path."""
     from torch.profiler import ProfilerActivity, profile
     for label, kind, cfg, freqs, stim, n_blocks, kw in path_specs():
-        r = make_receiver(kind, cfg, freqs)
+        r = make_receiver(kind, cfg, freqs, kw.get("ratio_ppm", 0.0))
         steps = kw["steps"]
         blocks = path_blocks(kind, cfg, gen, stim, n_blocks + 2 * steps)
 
@@ -789,22 +1064,213 @@ def profile_paths(gen, gpu_label) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run_steps(n_blocks + steps)
-        events = prof.key_averages()
-        device = {e.key: e.self_device_time_total / 1e3 / steps
-                  for e in events if "CUDA" in str(e.device_type)}
-        count = {e.key: e.count / steps for e in events}
-        busy = sum(device.values())
-        top = sorted(((t, k[:70]) for k, t in device.items() if t > 0),
-                     reverse=True)[:8]
-        print(json.dumps({
-            "path": label, "ms_per_step": ms, "device_busy_ms": busy,
-            "busy_share": busy / ms,
-            "launches_per_step": count.get("cudaLaunchKernel", 0.0),
-            "host_reads_per_step": count.get("aten::_local_scalar_dense",
-                                             0.0),
-            "top_device_ms": [[round(t, 4), k] for t, k in top],
-            "gpu": gpu_label}), flush=True)
+        profile_report(label, ms, prof, steps, gpu_label)
         del blocks
+    profile_session(gpu_label)
+
+
+def profile_report(label: str, ms: float, prof, steps: int,
+                   gpu_label: str) -> None:
+    """One JSON line of a profiled window of ``steps`` steps: device busy
+    time (the device-side events' self time), the largest device items by
+    kernel name and by the aten op that launched them (an op's self
+    device time), launches and host reads per step."""
+    events = prof.key_averages()
+    device = {e.key: e.self_device_time_total / 1e3 / steps
+              for e in events if "CUDA" in str(e.device_type)}
+    by_op = {e.key: e.self_device_time_total / 1e3 / steps
+             for e in events if "CUDA" not in str(e.device_type)
+             and e.key.startswith("aten::")}
+    count = {e.key: e.count / steps for e in events}
+    busy = sum(device.values())
+    top = lambda d: [[round(t, 4), k[:70]] for t, k in sorted(
+        ((t, k) for k, t in d.items() if t > 0), reverse=True)[:8]]
+    print(json.dumps({
+        "path": label, "ms_per_step": ms, "device_busy_ms": busy,
+        "busy_share": busy / ms,
+        "launches_per_step": count.get("cudaLaunchKernel", 0.0),
+        "host_reads_per_step": count.get("aten::_local_scalar_dense", 0.0),
+        "top_device_ms": top(device), "top_ops_ms": top(by_op),
+        "gpu": gpu_label}), flush=True)
+
+
+class RecordingQueue(RateLockedQueue):
+    """The session's audio queue, keeping a copy of every block the
+    session puts into it (the audio the script checks)."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.blocks: list[np.ndarray] = []
+
+    def put_block(self, samples: np.ndarray) -> None:
+        self.blocks.append(np.array(samples))
+        super().put_block(samples)
+
+
+SESSION_WALK = (("usb", 1000.0), ("am", 400.0), ("fm", 1000.0),
+                ("usb", 1000.0))   # mode, the tone its audio carries
+
+
+def session_planes(cfg, n: int, seed: int):
+    """int16 wire planes of n samples: a -20 dBFS carrier 1 kHz above the
+    tune, amplitude-modulated (400 Hz, 50 %) and frequency-modulated
+    (1 kHz, 300 Hz deviation), so USB hears the carrier, AM the 400 Hz
+    and FM the 1 kHz tone; -60 dBFS noise; a 3-sample impulse near full
+    scale every 20 ms.  Returns (re, im, impulse indices)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / cfg.input_rate
+    amp = 32767.0 * 10 ** (-20 / 20)
+    x = amp * (1 + 0.5 * np.cos(2 * np.pi * 400.0 * t)) * np.exp(1j * (
+        2 * np.pi * (cfg.tune_freq + 1000.0) * t
+        + 0.3 * np.sin(2 * np.pi * 1000.0 * t)))
+    x += 32767.0 * 10 ** (-60 / 20) / np.sqrt(2) * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    period = int(0.02 * cfg.input_rate)
+    starts = np.arange(period // 2, n - 3, period)
+    hits = (starts[:, None] + np.arange(3)).reshape(-1)
+    x[hits] = 30000.0 + 30000.0j
+    return (np.round(x.real).astype(np.int16),
+            np.round(x.imag).astype(np.int16), hits)
+
+
+def session_cfg():
+    """The session's configuration: the default block (one frame), 2 MSPS
+    USB tuned 100 kHz up, the noise blanker on."""
+    return rx.ReceiverConfig(input_rate=2e6, mode="usb", tune_freq=100e3,
+                             nb_on=True)
+
+
+def check_session(gpu_label: str) -> dict:
+    """``session usb nb``: a ReceiverSession at the default configuration
+    with the noise blanker and the spectrum display, fed int16 planes of
+    ``session_planes`` (8.4 s of signal) through ``pump_planes`` in
+    131 ms packets while an audio consumer drains ``audio_queue`` 100 ppm
+    fast, walking the modes of ``SESSION_WALK``.  Checks: no input sample
+    dropped, the rate lock moved the ratio, each mode's tone in its audio
+    after a 0.5 s transient, the spectrum peak at the tone, the impulses
+    blanked, every tensor on the card, the launches the path routes to.
+    Prints the real-time factor (signal seconds over wall seconds).
+    Returns the launch counts."""
+    cfg = session_cfg()
+    bs = cfg.block_size
+    n = bs * 512
+    re, im, hits = session_planes(cfg, n, SEED)
+    packet = bs * 8
+    n_packets = n // packet
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for stats in (fm.STATS, sam.STATS):
+        stats.update(dict.fromkeys(stats, 0))
+    sess = ReceiverSession(cfg)
+    sess.audio_queue = RecordingQueue(stereo=cfg.stereo)
+    sess.precompile([m for m, _ in SESSION_WALK])
+    sess.start()
+    t0 = time.perf_counter()
+    marks, consumed = [], 0
+    seg = -(-n_packets // len(SESSION_WALK))
+    for i in range(n_packets):
+        if i % seg == 0:
+            sess.set_mode(SESSION_WALK[i // seg][0])
+            marks.append(len(sess.audio_queue.blocks))
+        sl = slice(i * packet, (i + 1) * packet)
+        sess.pump_planes(re[sl], im[sl])
+        want = int((i + 1) * packet / cfg.input_rate * 48_000 * (1 + 100e-6))
+        sess.audio_queue.get(want - consumed)
+        consumed = want
+    sess.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    signal_s = n / cfg.input_rate
+    m = sess.metrics
+    ratio = sess.receiver.params.resamp
+    phase(f"session usb nb: {signal_s:.2f} s of signal in {wall:.2f} s wall,"
+          f" {signal_s / wall:.3f}x real time; samples_in {m.samples_in} of "
+          f"{n}, blocks {m.blocks}, audio out {m.audio_samples_out}, ppm "
+          f"{m.ppm_error:+d}, correction {sess._last_correction:.3e}, "
+          f"ratio {float(ratio.dt_hi) + float(ratio.dt_lo):.9f}, overflows "
+          f"{m.audio_overflows}, underflows {m.audio_underflows}; launches "
+          f"{launches}, fm tiers {dict(fm.STATS)} ({gpu_label})")
+    if m.samples_in != n:
+        raise AssertionError(f"session dropped input: {m.samples_in} of {n}")
+    if sess._last_correction == 0.0:
+        raise AssertionError("session: the rate lock never moved the ratio")
+
+    blocks = sess.audio_queue.blocks
+    for k, (mode, tone_hz) in enumerate(SESSION_WALK):
+        end = marks[k + 1] if k + 1 < len(marks) else len(blocks)
+        audio = np.concatenate(blocks[marks[k]:end]).astype(np.float64)
+        tone_ratio(audio[24_000:], 48_000.0, tone_hz,
+                   f"session segment {k} ({mode})")
+
+    db = sess.analyzer.spectrum_db()
+    nfft = sess.spectrum_cfg.fft_size
+    f_peak = (int(np.argmax(db)) - nfft // 2) * cfg.input_rate / nfft
+    phase(f"session spectrum: peak {db.max():.1f} dB at {f_peak:.0f} Hz "
+          f"(tone {cfg.tune_freq + 1000.0:.0f} Hz)")
+    if abs(f_peak - (cfg.tune_freq + 1000.0)) > 2 * cfg.input_rate / nfft:
+        raise AssertionError("session: the spectrum peak is not the tone")
+
+    # the blanker of the session's configuration on the first blocks: every
+    # impulse sample is zero at its delayed position
+    nb = rx._nb_cfg(cfg)
+    span = bs * 16
+    _, br, bi = noiseblanker.process_planes(
+        nb, noiseblanker.init_carry(nb, "cuda"),
+        torch.from_numpy(re[:span]).cuda().float(),
+        torch.from_numpy(im[:span]).cuda().float())
+    pos = hits[hits < span - nb.delay_samples - 1] + nb.delay_samples + 1
+    blanked = int(((br[pos] == 0) & (bi[pos] == 0)).sum())
+    phase(f"session blanker: {blanked} of {len(pos)} impulse samples "
+          f"zeroed in the first {span} samples")
+    if blanked != len(pos):
+        raise AssertionError("session: impulses not blanked")
+
+    def tensors(tree):
+        if isinstance(tree, torch.Tensor):
+            yield tree
+        elif isinstance(tree, tuple):
+            for sub in tree:
+                yield from tensors(sub)
+    devices = {t.device.type for t in tensors(
+        (sess.receiver.state, sess.receiver.params, sess.analyzer.state))}
+    if devices != {"cuda"}:
+        raise AssertionError(f"session tensors on {devices}")
+    want = routed_kernels(cfg, False, sess.receiver.params)
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
+    if wrong:
+        raise AssertionError(f"session: launches {wrong} do not match the "
+                             f"kernels its configuration routes to {want}")
+    return launches
+
+
+def profile_session(gpu_label: str) -> None:
+    """``--profile`` of the session: 2 s of ``session_planes`` through
+    pump_planes in USB, then one packet of 8 blocks under the profiler
+    (the per-step numbers are per receiver block)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = session_cfg()
+    packet = cfg.block_size * 8
+    re, im, _ = session_planes(cfg, packet * 32, SEED)
+    sess = ReceiverSession(cfg)
+    sess.start()
+    for i in range(30):
+        sess.pump_planes(re[i * packet:(i + 1) * packet],
+                         im[i * packet:(i + 1) * packet])
+    sess.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.pump_planes(re[30 * packet:31 * packet], im[30 * packet:31 * packet])
+    sess.flush()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.pump_planes(re[31 * packet:], im[31 * packet:])
+        sess.flush()
+        torch.cuda.synchronize()
+    sess.stop()
+    profile_report("session usb nb", ms, prof, 8, gpu_label)
 
 
 def main() -> int:
@@ -838,9 +1304,13 @@ def main() -> int:
     check_scans(gen, results)
     check_seqloops(gen, results)
     check_seqloops_bank(gen)
+    check_resamp(gen, results)
     check_other_shapes(gen)
     check_fixtures()
+    check_refgold_extras()
     launches = check_paths(gen, smi)
+    for k, v in check_session(smi).items():
+        launches[k] += v
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise AssertionError(f"kernels never launched on a path: {never}")

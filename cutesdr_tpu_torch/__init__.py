@@ -3,13 +3,15 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; module names follow it so each
 counterpart is easy to find.  This package imports ``torch`` and never
-``jax``; it reuses only the numpy layers of ``cutesdr_tpu`` (types,
-coefficients, design, the demod mode table, the test-signal generators).
+``jax`` or any module of ``cutesdr_tpu``: the numpy design code it needs
+has its own copies under ``design/``.
 
 Ported so far: the receiver chain (``pipeline.receiver``) in all seven
-demod modes, mono and stereo, with its kernels ``mixdec``, ``fastfir``,
-``scan`` (two modes), ``smeter`` and ``seqloop`` (the FM and SAM PLL
-loops).
+demod modes, mono and stereo, with the noise blanker, migrated state
+across mode and rate changes, the channel banks, the spectrum display and
+the live session (``session.ReceiverSession``), with the kernels
+``mixdec``, ``fastfir``, ``scan`` (two modes), ``smeter``, ``seqloop``
+(the FM and SAM PLL loops) and ``resamp`` (the banded resampler).
 """
 
 __version__ = "0.1.0"

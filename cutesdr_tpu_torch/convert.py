@@ -14,8 +14,8 @@ can continue on the port mid-way.  Both JAX decimator layouts are taken:
 The Pallas four-step filter's pre-permuted ``h2`` is mapped back to
 natural-order H.  The AGC, S-meter, resampler and demodulator params and
 carries (for AM, SAM and FM: FIR tails, IIR state, PLL state, squelch
-flag, de-emphasis) map field by field onto the port's NamedTuples of the
-same names.
+flag, de-emphasis) and the noise blanker's carry map field by field onto
+the port's NamedTuples of the same names.
 
 ``from_jax_bank`` does the same for a JAX channel bank (every leaf with a
 leading channel axis): channel by channel through ``from_jax``, then
@@ -104,7 +104,7 @@ def from_jax(cfg: rx.ReceiverConfig, params, state, device):
     like_p = {k: _like(getattr(base_p, k), getattr(params, k), dev)
               for k in ("agc", "smeter", "demod", "resamp")}
     like_s = {k: _like(getattr(base_s, k), getattr(state, k), dev)
-              for k in ("agc", "smeter", "demod", "resamp")}
+              for k in ("blanker", "agc", "smeter", "demod", "resamp")}
     out_p = rx.ReceiverParams(
         dec=dec_p, chan_filter=ff_p, **like_p,
         dc_offset=torch.tensor(dc, dtype=CDTYPE, device=dev),

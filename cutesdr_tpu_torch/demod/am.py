@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from cutesdr_tpu.design.fir_kaiser import design_lowpass
+from cutesdr_tpu_torch.design.fir_kaiser import design_lowpass
 from cutesdr_tpu_torch.ops import fir
 from cutesdr_tpu_torch.ops.util import first_order_recurrence
 from cutesdr_tpu_torch.types import real_scalar

@@ -33,14 +33,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.design.fir_kaiser import design_highpass
-from cutesdr_tpu.design.iir_biquad import biquad_lowpass
-from cutesdr_tpu.types import K_2PI
+from cutesdr_tpu_torch.design.fir_kaiser import design_highpass
+from cutesdr_tpu_torch.design.iir_biquad import biquad_lowpass
 from cutesdr_tpu_torch.kernels import seqloop
 from cutesdr_tpu_torch.ops import fir, iir, pll
 from cutesdr_tpu_torch.ops.pll import TWO_PI, wrap_pi
 from cutesdr_tpu_torch.ops.util import ema
-from cutesdr_tpu_torch.types import real_scalar
+from cutesdr_tpu_torch.types import K_2PI, real_scalar
 
 FMPLL_RANGE = 6000.0
 VOICE_BANDWIDTH = 3000.0

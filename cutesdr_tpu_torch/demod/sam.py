@@ -29,13 +29,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.design.fir_kaiser import design_lowpass, hilbert_bandpass
-from cutesdr_tpu.types import K_2PI
 from cutesdr_tpu_torch.demod.am import dc_block
+from cutesdr_tpu_torch.design.fir_kaiser import (design_lowpass,
+                                                 hilbert_bandpass)
 from cutesdr_tpu_torch.kernels import seqloop
 from cutesdr_tpu_torch.ops import fir, pll
 from cutesdr_tpu_torch.ops.pll import TWO_PI, wrap_pi
-from cutesdr_tpu_torch.types import real_scalar
+from cutesdr_tpu_torch.types import K_2PI, real_scalar
 
 PLL_BW = 100.0
 PLL_ZETA = 0.707

@@ -57,6 +57,10 @@ SIGNATURES = {
     "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, P, P, P, P, P],
     # theta, n, n_ch, alpha, beta, limit, state0, prev, state, stream
     "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, P, P, P, P],
+    # zr, zi, z_cstride, es, nz, t_int, t_frac, t_cstride, n_out, tables,
+    # M, periods, interp, span_cap, n_streams, yr, yi, y_cstride, ys, stream
+    "cutesdr_resamp": [P, P, I64, I32, I32, P, P, I64, I32, P, I32, I32, I32,
+                       I32, I32, P, P, I64, I32, P],
 }
 
 _lock = threading.Lock()

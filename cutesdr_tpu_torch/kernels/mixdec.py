@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from cutesdr_tpu.design.decimation_plan import DecimationPlan
+from cutesdr_tpu_torch.design.decimation_plan import DecimationPlan
 from cutesdr_tpu_torch.kernels import LAUNCHES, _build
 from cutesdr_tpu_torch.ops import decimator, nco
 from cutesdr_tpu_torch.types import CDTYPE, RDTYPE

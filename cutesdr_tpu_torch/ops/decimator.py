@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.design.decimation_plan import DecimationPlan
+from cutesdr_tpu_torch.design.decimation_plan import DecimationPlan
 from cutesdr_tpu_torch.ops.util import complex_strided_corr
 from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
 

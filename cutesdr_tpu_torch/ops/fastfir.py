@@ -19,8 +19,9 @@ from typing import NamedTuple
 
 import torch
 
-from cutesdr_tpu.design.fastfir_design import (CONV_FFT_SIZE, CONV_FIR_SIZE,
-                                               design_fastfir)
+from cutesdr_tpu_torch.design.fastfir_design import (CONV_FFT_SIZE,
+                                                     CONV_FIR_SIZE,
+                                                     design_fastfir)
 from cutesdr_tpu_torch.types import CDTYPE, complex_tensor
 
 

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.design.iir_biquad import Biquad
+from cutesdr_tpu_torch.design.iir_biquad import Biquad
 from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
 
 

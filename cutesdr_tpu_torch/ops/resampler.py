@@ -7,8 +7,9 @@ Two paths, chosen as the JAX package chooses them:
   (62500/48000 = 125/96 on the flagship), every output phase lies on the
   /q grid, the taps are static, and a block is one stride-p ``conv1d``
   with q output channels.
-* ``_banded_process``: any ratio; 64 consecutive outputs share one input
-  window and every tap weight is evaluated in closed form (``_sinc_band``).
+* ``_banded_process``: any ratio; every tap weight is evaluated in closed
+  form, and the weighted sum is the resamp kernel
+  (``kernels/resamp.resample_band``, its plain version on the CPU).
 
 Output timestamps t_k = t0 + k*dt use the exact two-level split of
 ``_times``: a single float32 product k*dt loses the fractional phase at
@@ -27,18 +28,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.types import K_PI
+from cutesdr_tpu_torch.kernels import resamp
+from cutesdr_tpu_torch.kernels.resamp import SINC_PERIOD_PTS  # noqa: F401
 from cutesdr_tpu_torch.types import RDTYPE
 
-SINC_PERIOD_PTS = 10000
 SINC_PERIODS = 28            # reference-exact default (fractresampler.cpp:50)
 
 _DT_SPLIT = 4096.0           # dt_hi quantum 2^-12
 _K_SPLIT = 2048.0            # two-level split of k (see _times)
-_CHUNK = 64                  # outputs per banded chunk
-
-# Blackman-Harris 4-term coefficients (design/windows.py)
-_BH_COEFS = (0.35875, 0.48829, 0.14128, 0.01168)
+_CHUNK = resamp.CHUNK        # outputs per banded chunk
+_BH_COEFS = resamp.BH_COEFS  # Blackman-Harris 4-term coefficients
 
 
 class ResamplerParams(NamedTuple):
@@ -176,48 +175,6 @@ def _rational_process(p: int, q: int, params: ResamplerParams,
                            t0=t0_new), y, n_valid)
 
 
-def _sinc_band(Ti: torch.Tensor, tf: torch.Tensor, m: np.ndarray,
-               periods: int) -> torch.Tensor:
-    """Windowed-sinc weights over a band, sv[..., m] = f(m - T[...]) with
-    T = Ti + tf, evaluated separably: the Blackman-Harris terms split into
-    static per-m factors times per-output cos/sin, and the sinc numerator
-    is one well-reduced sine per output times a parity sign.  The position
-    arrives exactly decomposed (int Ti, fractional tf) and is never
-    reassembled into one float."""
-    dev = tf.device
-    mf = m.astype(np.float64)
-    TP = (Ti % periods).to(RDTYPE) + tf                 # T mod P, exact
-    w = torch.full(tf.shape + (len(m),), _BH_COEFS[0], dtype=RDTYPE,
-                   device=dev)
-    for kk in (1, 2, 3):
-        a = ((-1.0) ** kk) * _BH_COEFS[kk]
-        ang_m = 2.0 * np.pi * kk * mf / periods
-        cm = torch.tensor((a * np.cos(ang_m)).astype(np.float32), device=dev)
-        sm = torch.tensor((a * np.sin(ang_m)).astype(np.float32), device=dev)
-        ang_T = TP * np.float32(2.0 * np.pi * kk / periods)
-        w = w + (torch.cos(ang_T)[..., None] * cm
-                 + torch.sin(ang_T)[..., None] * sm)
-
-    im = torch.tensor(m - periods // 2, dtype=torch.int32,
-                      device=dev) - Ti[..., None]
-    vc = im.to(RDTYPE) - tf[..., None]
-    fi = vc * np.float32(K_PI)
-    inside = (vc > -(periods / 2)) & (vc <= periods / 2)
-
-    rf = torch.round(tf)
-    r = tf - rf                                          # [-0.5, 0.5], exact
-    sin_r = torch.sin(r * np.float32(K_PI))
-    n_round = Ti + rf.to(torch.int32)
-    par_T = (1 - 2 * (n_round % 2)).to(RDTYPE)           # (-1)^round(T)
-    sign_m = torch.tensor(np.where((m + periods // 2) % 2 == 0, -1.0, 1.0),
-                          dtype=RDTYPE, device=dev)
-    numer = (par_T * sin_r)[..., None] * sign_m
-
-    small = fi.abs() < 1e-4                              # sin(fi)/fi -> 1
-    s = torch.where(small, w, w * numer / torch.where(small, 1.0, fi))
-    return torch.where(inside, s, torch.zeros((), dtype=RDTYPE, device=dev))
-
-
 def _times(params: ResamplerParams, t0: torch.Tensor, k: torch.Tensor):
     """(t_int, t_frac) of t_k = t0 + k*dt, exact to ~1e-7 of a sample.
 
@@ -236,13 +193,25 @@ def _times(params: ResamplerParams, t0: torch.Tensor, k: torch.Tensor):
     return (i1 + i2 + f_int).to(torch.int32), ftot - f_int
 
 
+def band_size(n: int, max_out: int, periods: int) -> tuple[int, int]:
+    """(outputs rounded up to whole chunks, window M) of a banded block of
+    n inputs and max_out outputs: M covers a chunk's span at the ratio
+    implied by (n, max_out) plus the rate lock's swing, the taps and the
+    128-sample alignment slack."""
+    C = _CHUNK
+    dt_max = 1.0062 * n / max(1.0, max_out - 5.0)
+    M = int(np.ceil(C * dt_max)) + periods + 4 + 128
+    return -(-max_out // C) * C, -(-M // 128) * 128
+
+
 def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
                     x: torch.Tensor, max_out: int, interp: bool = False):
     """Arbitrary-ratio banded evaluator.  Returns (carry', y[..., max_out],
     n_valid); y[k] for k >= n_valid is zero.  C consecutive outputs share
     one M-sample window (chunk bases rounded down to 128 samples, as in
-    the JAX package, so the two compute the same sums).  A leading axis
-    of x is a bank of independent streams."""
+    the JAX package, so the two compute the same sums); the weighted sum
+    is ``kernels/resamp.resample_band``.  A leading axis of x is a bank of
+    independent streams."""
     if x.dim() == 1:
         c, y, n_valid = _banded_process(
             params, ResamplerCarry(carry.tail[None], carry.t0[None]),
@@ -254,43 +223,15 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
     if periods % 2:
         raise NotImplementedError("odd sinc lengths are not ported yet")
     dev = x.device
-    C = _CHUNK
-    max_out_p = -(-max_out // C) * C
-    n_chunks = max_out_p // C
-    dt_max = 1.0062 * n / max(1.0, max_out - 5.0)
-    M = int(np.ceil(C * dt_max)) + periods + 4 + 128
-    M = -(-M // 128) * 128
+    max_out_p, M = band_size(n, max_out, periods)
 
     k = torch.arange(max_out_p, dtype=RDTYPE, device=dev)
     t_int, t_frac = _times(params, carry.t0[:, None], k)      # [B, max_out_p]
     valid = t_int[:, :max_out] < n
 
     z = torch.cat([carry.tail, x], -1)                   # z[m] = x[m-P]
-    nrows = -(-z.shape[-1] // 128)
-    zpad = torch.cat([z, z[:, -1:].expand(B, nrows * 128 - z.shape[-1])], -1)
-    first = t_int[:, ::C].clamp(min=0)                   # [B, n_chunks]
-    b0 = torch.div(first, 128, rounding_mode="floor") * 128
-    rows = (b0[..., None] // 128 + torch.arange(M // 128, device=dev)).clamp(
-        max=nrows - 1)                                   # whole-row gather
-    zc = zpad.reshape(B, nrows, 128)[
-        torch.arange(B, device=dev)[:, None, None], rows].reshape(
-            B, n_chunks, M)
-
-    idx_local = t_int.reshape(B, n_chunks, C) - b0[..., None]
-    tf = t_frac.reshape(B, n_chunks, C)
-    if not interp:
-        # truncating-table semantics, decided at the chunk-local offset
-        offs = (t_int.reshape(B, n_chunks, C) - first[..., None]).to(RDTYPE)
-        qg = torch.ceil((offs + tf) * SINC_PERIOD_PTS)
-        tf = (qg - offs * SINC_PERIOD_PTS) / SINC_PERIOD_PTS
-    sv = _sinc_band(idx_local, tf, np.arange(M), periods)  # [B, nc, C, M]
-
-    if z.is_complex():
-        y = torch.complex((sv * zc.real[..., None, :]).sum(-1),
-                          (sv * zc.imag[..., None, :]).sum(-1))
-    else:
-        y = (sv * zc[..., None, :]).sum(-1)
-    y = y.reshape(B, max_out_p)[:, :max_out]
+    y = resamp.resample_band(z, t_int, t_frac, M, periods,
+                             interp)[:, :max_out]
     y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=dev))
     n_valid = valid.sum(-1).to(torch.int32)
 

@@ -128,3 +128,14 @@ def sliding_window_max(x: torch.Tensor, window: int,
     # window [i, i+w-1] spans at most two blocks: a suffix, then a prefix
     y = torch.maximum(suf[..., :n], pre[..., w - 1:w - 1 + n])
     return y, new_tail
+
+
+def moving_sum(x: torch.Tensor, window: int, init_tail: torch.Tensor):
+    """Sum over the trailing ``window`` samples (current one included) for
+    every position of ``x``, by cumulative-sum difference; ``init_tail``
+    is the window-1 history.  Returns (per-sample sums, new tail)."""
+    z = torch.cat([init_tail, x], -1)
+    c = torch.cumsum(z, -1)
+    c = torch.cat([c.new_zeros(z.shape[:-1] + (1,)), c], -1)
+    n, w = x.shape[-1], int(window)
+    return c[..., w:w + n] - c[..., :n], z[..., z.shape[-1] - (w - 1):].clone()

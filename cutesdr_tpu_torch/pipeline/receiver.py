@@ -1,11 +1,12 @@
 """The receiver chain as one streaming step (port of
 ``cutesdr_tpu/pipeline/receiver.py``).
 
-DC cal + NCO mix + polyphase decimation (mixdec kernel) -> overlap-save
+Noise blanker (optional) -> DC cal + NCO mix + polyphase decimation
+(mixdec kernel) -> overlap-save
 channel filter (fastfir kernel) -> S-meter (smeter kernel) -> AGC (scan
 kernels) -> demod (AM, SAM with the seqloop_sam kernel, FM with the
 seqloop_fm kernel, or SSB/CW; mono or stereo) -> exact-rational or banded
-resample -> gain.
+resample (banded: the resamp kernel) -> gain.
 
 Numeric knobs (tune frequency, filter H, AGC constants, resample ratio,
 volume, DC cal) are plain values in ``ReceiverParams``, swapped between
@@ -13,7 +14,9 @@ blocks; the stream state is one ``ReceiverState`` handed across blocks.
 The path choices are the JAX package's: the rational resampler from
 131,072 demodulated samples up, the scan kernels from 65,536, the S-meter
 kernel for whole 32,768-sample blocks.  Tensors on the CPU run every
-kernel's plain version; CUDA tensors launch the kernels.
+kernel's plain version; CUDA tensors launch the kernels.  A mode, rate or
+filter-size change keeps the stream: ``migrate_state`` carries the state
+into the new configuration's (``Receiver.reconfigure``).
 
 ``bank_receiver_step`` runs C channels of one configuration at once (a
 leading channel axis on the state and on the per-channel params): one
@@ -31,16 +34,18 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu.demod import DEMOD_AM, DEMOD_FM, DEMOD_SAM, MODE_IDS
-from cutesdr_tpu.design.decimation_plan import DecimationPlan, plan_decimation
+from cutesdr_tpu_torch.demod import DEMOD_AM, DEMOD_FM, DEMOD_SAM, MODE_IDS
 from cutesdr_tpu_torch.demod import am as am_demod
 from cutesdr_tpu_torch.demod import fm as fm_demod
 from cutesdr_tpu_torch.demod import sam as sam_demod
 from cutesdr_tpu_torch.demod import ssb as ssb_demod
+from cutesdr_tpu_torch.design.decimation_plan import (DecimationPlan,
+                                                      plan_decimation)
 from cutesdr_tpu_torch.kernels import fastfir as fastfir_k
 from cutesdr_tpu_torch.kernels import mixdec
-from cutesdr_tpu_torch.ops import agc, fastfir, nco, resampler, smeter
-from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
+from cutesdr_tpu_torch.ops import (agc, fastfir, nco, noiseblanker,
+                                   resampler, smeter)
+from cutesdr_tpu_torch.types import CDTYPE, RDTYPE, resolve_device
 
 SOUNDCARD_RATE = 48000.0
 
@@ -148,13 +153,9 @@ class ReceiverConfig:
 def check_supported(cfg: ReceiverConfig) -> None:
     """Raise NotImplementedError for what this slice of the port lacks,
     naming the ROADMAP item that brings it."""
-    missing = []
-    if cfg.nb_on:
-        missing.append("nb_on (ROADMAP Queue 1: noise blanker)")
     if cfg.probes:
-        missing.append("probes (ROADMAP Queue 1: probe taps)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        raise NotImplementedError("not ported yet: probes (ROADMAP Queue 1: "
+                                  "probe taps)")
 
 
 class ReceiverParams(NamedTuple):
@@ -172,6 +173,7 @@ class ReceiverParams(NamedTuple):
 
 class ReceiverState(NamedTuple):
     """A bank has a leading channel axis on every tensor."""
+    blanker: Any                     # BlankerCarry, or None with nb_on off
     dec: mixdec.MixDecCarry          # raw input tail + DDS phase
     chan_filter: fastfir.FastFirCarry
     agc: agc.AgcCarry
@@ -192,6 +194,11 @@ class StepOutput(NamedTuple):
 
 def _agc_cfg(cfg: ReceiverConfig) -> agc.AgcConfig:
     return agc.AgcConfig(cfg.agc_on, cfg.agc_hang, cfg.plan.out_rate)
+
+
+def _nb_cfg(cfg: ReceiverConfig) -> noiseblanker.BlankerConfig:
+    return noiseblanker.BlankerConfig(cfg.nb_on, cfg.nb_threshold,
+                                      cfg.nb_width_us, cfg.input_rate)
 
 
 def _demod_init(cfg: ReceiverConfig, device):
@@ -243,21 +250,108 @@ def init(cfg: ReceiverConfig, device) -> tuple[ReceiverParams, ReceiverState]:
                                     periods=cfg.resampler_periods)
     else:
         rs_p, rs_c = None, None
+    nb_c = (noiseblanker.init_carry(_nb_cfg(cfg), device) if cfg.nb_on
+            else None)
     params = ReceiverParams(
         dec=dec_p, chan_filter=ff_p, agc=agc_p, smeter=sm_p, demod=dm_p,
         resamp=rs_p, dc_offset=torch.zeros((), dtype=CDTYPE, device=device),
         audio_gain=1.0)
-    state = ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c,
-                          smeter=sm_c, demod=dm_c, resamp=rs_c)
+    state = ReceiverState(blanker=nb_c, dec=dec_c, chan_filter=ff_c,
+                          agc=agc_c, smeter=sm_c, demod=dm_c, resamp=rs_c)
     return params, state
+
+
+def _fit_leaf(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Carry an old state tensor into a new template: identical shape and
+    dtype pass through; 1-D histories keep their most recent samples at
+    the end (delay lines and filter tails store newest last); anything
+    else takes the fresh template."""
+    if old.shape == new.shape and old.dtype == new.dtype:
+        return old
+    if old.dim() == 1 and new.dim() == 1 and old.dtype == new.dtype:
+        n = min(old.shape[0], new.shape[0])
+        if n == 0:
+            return new
+        out = new.clone()
+        out[new.shape[0] - n:] = old[old.shape[0] - n:]
+        return out
+    return new
+
+
+def _fit_tree(old, new):
+    """``_fit_leaf`` over NamedTuples of tensors; where the two structures
+    differ, the fresh template."""
+    if isinstance(old, torch.Tensor) and isinstance(new, torch.Tensor):
+        return _fit_leaf(old, new)
+    if isinstance(new, tuple) and type(old) is type(new):
+        return type(new)(*(_fit_tree(o, f) for o, f in zip(old, new)))
+    return new
+
+
+def migrate_state(old_cfg: ReceiverConfig, old: ReceiverState,
+                  new_cfg: ReceiverConfig,
+                  fresh: ReceiverState) -> ReceiverState:
+    """Carry stream state across a mode / rate / filter-size change, by the
+    JAX package's rules (the reference rebuilds the decimation chain and
+    the demodulator on a mode change, dsp/demodulator.cpp:107-157, while
+    the stream position and the oscillator phase roll on):
+
+    * input-rate histories keep their most recent samples when the input
+      rate is unchanged, else start fresh: the blanker (when on in both),
+      and the decimator carry (raw input tail and DDS phase, the layout of
+      JAX's Pallas mixdec carry);
+    * output-rate histories (channel filter tail, AGC delay and magnitude
+      windows, demodulator state, resampler tail) carry only when the
+      decimated rate is unchanged, the demodulator only within one mode;
+    * level trackers always carry: the AGC averages, the S-meter, the
+      resampler's fractional time."""
+    same_in = old_cfg.input_rate == new_cfg.input_rate
+    same_out = old_cfg.output_rate == new_cfg.output_rate
+    nb_c = (_fit_tree(old.blanker, fresh.blanker)
+            if old_cfg.nb_on and new_cfg.nb_on and same_in else fresh.blanker)
+    dec_c = _fit_tree(old.dec, fresh.dec) if same_in else fresh.dec
+    chan_c = (_fit_tree(old.chan_filter, fresh.chan_filter) if same_out
+              else fresh.chan_filter)
+    if same_out:
+        agc_c = _fit_tree(old.agc, fresh.agc)
+    else:   # keep the level trackers, restart the rate-sized windows
+        agc_c = fresh.agc._replace(attack_ave=old.agc.attack_ave,
+                                   decay_ave=old.agc.decay_ave)
+    dm_c = (_fit_tree(old.demod, fresh.demod)
+            if old_cfg.mode == new_cfg.mode else fresh.demod)
+    if old.resamp is not None and fresh.resamp is not None:
+        rs_c = (_fit_tree(old.resamp, fresh.resamp) if same_out
+                else fresh.resamp._replace(t0=old.resamp.t0))
+    else:
+        rs_c = fresh.resamp
+    return ReceiverState(blanker=nb_c, dec=dec_c, chan_filter=chan_c,
+                         agc=agc_c, smeter=old.smeter, demod=dm_c,
+                         resamp=rs_c)
 
 
 def _front_prefilter(cfg: ReceiverConfig, params: ReceiverParams,
                      state: ReceiverState, re: torch.Tensor,
                      im: torch.Tensor):
-    """DC cal -> mix + decimate (everything before the channel filter)."""
-    return mixdec.process_planes(cfg.plan, params.dec, state.dec, re, im,
-                                 params.dc_offset)
+    """Blanker -> DC cal -> mix + decimate (everything before the channel
+    filter).  A bank's blanker carry has a channel axis, as the JAX bank's
+    vmapped one does; over a block shared by the channels the blanker runs
+    once, on the first channel's carry, and every channel takes its
+    result."""
+    nb_c = state.blanker
+    if cfg.nb_on:
+        nb = _nb_cfg(cfg)
+        shared = re.dim() == 1 and nb_c.mag_tail.dim() == 2
+        if shared:
+            c0 = noiseblanker.BlankerCarry(*(t[0] for t in nb_c))
+            c0, re, im = noiseblanker.process_planes(nb, c0, re, im)
+            nb_c = noiseblanker.BlankerCarry(*(
+                t.expand((nb_c.mag_tail.shape[0],) + t.shape).clone()
+                for t in c0))
+        else:
+            nb_c, re, im = noiseblanker.process_planes(nb, nb_c, re, im)
+    dec_c, base = mixdec.process_planes(cfg.plan, params.dec, state.dec, re,
+                                        im, params.dc_offset)
+    return nb_c, dec_c, base
 
 
 def _levels(cfg: ReceiverConfig, params: ReceiverParams,
@@ -300,14 +394,15 @@ def receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
                          im: torch.Tensor
                          ) -> tuple[ReceiverState, StepOutput]:
     """One block of cfg.block_size samples given as float32 re/im planes."""
-    dec_c, base = _front_prefilter(cfg, params, state, re, im)
+    nb_c, dec_c, base = _front_prefilter(cfg, params, state, re, im)
     ff_c, filt = fastfir_k.process(params.chan_filter, state.chan_filter,
                                    base)
     sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=True)
     dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
     sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=True)
-    return ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c, smeter=sm_c,
-                         demod=dm_c, resamp=rs_c), out
+    return ReceiverState(blanker=nb_c, dec=dec_c, chan_filter=ff_c,
+                         agc=agc_c, smeter=sm_c, demod=dm_c,
+                         resamp=rs_c), out
 
 
 def receiver_step(cfg: ReceiverConfig, params: ReceiverParams,
@@ -341,14 +436,15 @@ def bank_receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
     if tuple(re.shape) != want or tuple(im.shape) != want:
         raise ValueError(f"bank input: expected planes of {want}, got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
-    dec_c, base = _front_prefilter(cfg, params, state, re, im)
+    nb_c, dec_c, base = _front_prefilter(cfg, params, state, re, im)
     ff_c, filt = fastfir_k.batch_call(params.chan_filter, state.chan_filter,
                                       base)
     sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=False)
     dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
     sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=False)
-    return ReceiverState(dec=dec_c, chan_filter=ff_c, agc=agc_c, smeter=sm_c,
-                         demod=dm_c, resamp=rs_c), out
+    return ReceiverState(blanker=nb_c, dec=dec_c, chan_filter=ff_c,
+                         agc=agc_c, smeter=sm_c, demod=dm_c,
+                         resamp=rs_c), out
 
 
 def bank_receiver_step(cfg: ReceiverConfig, params: ReceiverParams,
@@ -392,15 +488,16 @@ def volume_params(params: ReceiverParams, vol_0_99: int) -> ReceiverParams:
 
 
 class Receiver:
-    """Stateful wrapper: owns params and state on one device.
+    """Stateful wrapper: owns params and state on one device, the card
+    unless ``device`` says otherwise (no CUDA device raises).
 
     ``process(iq)`` takes a complex64 block, ``process_planes(re, im)`` the
     block as float32 or int16 planes (the radio's 16-bit wire format, cast
     on the device).  Host numpy input is moved to the receiver's device."""
 
-    def __init__(self, cfg: ReceiverConfig, device):
+    def __init__(self, cfg: ReceiverConfig, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params, self.state = init(cfg, self.device)
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
@@ -448,3 +545,18 @@ class Receiver:
         self.params = self.params._replace(dc_offset=torch.tensor(
             complex(np.float32(i_off), np.float32(q_off)), dtype=CDTYPE,
             device=self.device))
+
+    # --- structural reconfiguration (migrated stream state) ---
+    def reconfigure(self, new_cfg: ReceiverConfig,
+                    preserve_gain: bool = True) -> None:
+        """Switch to a new configuration (mode / rate / filter sizes)
+        without dropping the stream: the state migrates through
+        ``migrate_state``; with ``preserve_gain`` the volume and the DC cal
+        carry over."""
+        old_cfg, old_state = self.cfg, self.state
+        gain, dc = self.params.audio_gain, self.params.dc_offset
+        self.cfg = new_cfg
+        self.params, fresh = init(new_cfg, self.device)
+        if preserve_gain:
+            self.params = self.params._replace(audio_gain=gain, dc_offset=dc)
+        self.state = migrate_state(old_cfg, old_state, new_cfg, fresh)

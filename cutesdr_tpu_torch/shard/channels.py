@@ -26,7 +26,7 @@ import torch
 
 from cutesdr_tpu_torch.ops import nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
-from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
+from cutesdr_tpu_torch.types import CDTYPE, RDTYPE, resolve_device
 
 PER_CHANNEL = {("dec", "phase_inc"), ("chan_filter", "h_freq"),
                ("dc_offset",)}
@@ -80,15 +80,16 @@ def bank_init(cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
 
 
 class _Bank:
-    """The bank entry points over ``bank_receiver_step``; host numpy input
-    is moved to the bank's device."""
+    """The bank entry points over ``bank_receiver_step``, on the card
+    unless ``device`` says otherwise; host numpy input is moved to the
+    bank's device."""
 
     shared_input: bool
 
     def __init__(self, cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
-                 device):
+                 device="cuda"):
         self.cfg = rx.bank_safe_config(cfg)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params, self.state = bank_init(self.cfg, tune_freqs,
                                             self.device)
 

@@ -13,24 +13,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port, and chip_smoke, imported in a fresh
+    process: neither jax nor any module of the JAX package is loaded."""
     code = (
-        "import sys\n"
-        "import cutesdr_tpu_torch, cutesdr_tpu_torch.convert\n"
-        "import cutesdr_tpu_torch.pipeline.receiver\n"
-        "import cutesdr_tpu_torch.kernels.mixdec\n"
-        "import cutesdr_tpu_torch.kernels.fastfir\n"
-        "import cutesdr_tpu_torch.kernels.scan\n"
-        "import cutesdr_tpu_torch.kernels.seqloop\n"
-        "import cutesdr_tpu_torch.demod.am, cutesdr_tpu_torch.demod.fm\n"
-        "import cutesdr_tpu_torch.demod.sam, cutesdr_tpu_torch.ops.iir\n"
-        "import cutesdr_tpu_torch.ops.resampler\n"
-        "import cutesdr_tpu_torch.shard.channels\n"
+        "import importlib, pkgutil, sys\n"
+        "import cutesdr_tpu_torch\n"
+        "for m in pkgutil.walk_packages(cutesdr_tpu_torch.__path__,\n"
+        "                               'cutesdr_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    cutesdr_tpu_torch.__path__, 'cutesdr_tpu_torch.')]\n"
+        "assert 'cutesdr_tpu_torch.session' in names, names\n"
+        "assert len(names) >= 40, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m.startswith('cutesdr_tpu.pipeline')\n"
-        "       or m.startswith('cutesdr_tpu.ops')\n"
-        "       or m.startswith('cutesdr_tpu.kernels')\n"
-        "       or m.startswith('cutesdr_tpu.shard')]\n"
+        "       or m == 'cutesdr_tpu' or m.startswith('cutesdr_tpu.')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -68,6 +65,31 @@ def test_redeclared_constants_match_reference():
     for name in ("SINC_PERIODS", "SINC_PERIOD_PTS", "_DT_SPLIT", "_K_SPLIT",
                  "_CHUNK", "_BH_COEFS"):
         assert getattr(t_rs, name) == getattr(j_rs, name), name
+    from cutesdr_tpu import demod as j_demod
+    from cutesdr_tpu import types as j_types
+    from cutesdr_tpu.io import audio_sink as j_sink
+    from cutesdr_tpu.ops import noiseblanker as j_nb
+    from cutesdr_tpu.pipeline import spectrum as j_sp
+    from cutesdr_tpu_torch import demod as t_demod
+    from cutesdr_tpu_torch import types as t_types
+    from cutesdr_tpu_torch.io import audio_sink as t_sink
+    from cutesdr_tpu_torch.ops import noiseblanker as t_nb
+    from cutesdr_tpu_torch.pipeline import spectrum as t_sp
+
+    for name in ("K_PI", "K_2PI", "MAX_AMPLITUDE"):
+        assert getattr(t_types, name) == getattr(j_types, name), name
+    assert t_demod.MODE_IDS == j_demod.MODE_IDS
+    assert t_demod.MODE_NAMES == j_demod.MODE_NAMES
+    for name in t_demod.MODE_IDS:
+        tag = "DEMOD_" + name.upper()
+        assert getattr(t_demod, tag) == getattr(j_demod, tag)
+    assert (t_nb.MAX_WIDTH, t_nb.MAGAVE_TIME) == (j_nb.MAX_WIDTH,
+                                                  j_nb.MAGAVE_TIME)
+    for name in ("MIN_FFT_SIZE", "MAX_FFT_SIZE", "K_MAXDB", "K_MINDB",
+                 "OVER_LIMIT"):
+        assert getattr(t_sp, name) == getattr(j_sp, name), name
+    for name in ("OUTQSIZE", "FILTERQLEVEL_ALPHA", "P_GAIN", "PPM_ALARM"):
+        assert getattr(t_sink, name) == getattr(j_sink, name), name
     from cutesdr_tpu.demod import am as j_am
     from cutesdr_tpu.demod import fm as j_fm
     from cutesdr_tpu.demod import sam as j_sam
@@ -114,9 +136,59 @@ def test_kernel_library_is_built_from_the_checkout():
     from cutesdr_tpu_torch.kernels import _build
 
     names = sorted(p.name for p in _build._sources())
-    assert names == ["common.cuh", "fastfir.cu", "mixdec.cu", "scan.cu",
-                     "scan_common.cuh", "seqloop.cu", "smeter.cu"]
+    assert names == ["common.cuh", "fastfir.cu", "mixdec.cu", "resamp.cu",
+                     "scan.cu", "scan_common.cuh", "seqloop.cu", "smeter.cu"]
     assert str(_build.BUILD_ROOT.parent) == os.path.join(ROOT, "build")
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "build/" in f.read().split()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_design_copies_match_reference():
+    """The port's own copies of the JAX package's numpy design functions
+    give bitwise the same results for a few parameter sets each."""
+    import dataclasses
+
+    import numpy as np
+
+    from cutesdr_tpu.design import decimation_plan as j_dp
+    from cutesdr_tpu.design import fastfir_design as j_ffd
+    from cutesdr_tpu.design import fir_kaiser as j_fk
+    from cutesdr_tpu.design import iir_biquad as j_iir
+    from cutesdr_tpu.design import windows as j_win
+    from cutesdr_tpu_torch.design import decimation_plan as t_dp
+    from cutesdr_tpu_torch.design import fastfir_design as t_ffd
+    from cutesdr_tpu_torch.design import fir_kaiser as t_fk
+    from cutesdr_tpu_torch.design import iir_biquad as t_iir
+    from cutesdr_tpu_torch.design import windows as t_win
+
+    eq = np.testing.assert_array_equal
+    for rate, bw in ((2e6, 20_000.0), (250e3, 10_000.0), (20e6, 1000.0),
+                     (10e6, 15_000.0), (62_500.0, 20_000.0)):
+        tp, jp = t_dp.plan_decimation(rate, bw), j_dp.plan_decimation(rate, bw)
+        assert dataclasses.astuple(tp) == dataclasses.astuple(jp)
+        eq(tp.composed_taps(), jp.composed_taps())
+        for name in tp.stages:
+            eq(tp.stage_taps(name), jp.stage_taps(name))
+    for args, kw in (((100.0, 2800.0, 0.0, 62_500.0), {}),
+                     ((-250.0, 250.0, 600.0, 15_625.0), {}),
+                     ((-5000.0, 5000.0, 0.0, 31_250.0),
+                      dict(fft_size=4096, fir_size=3073))):
+        eq(t_ffd.design_fastfir(*args, **kw), j_ffd.design_fastfir(*args, **kw))
+    assert (t_ffd.CONV_FFT_SIZE, t_ffd.CONV_FIR_SIZE) == (
+        j_ffd.CONV_FFT_SIZE, j_ffd.CONV_FIR_SIZE)
+    for args in ((1.0, 50.0, 5000.0, 9000.0, 31_250.0),
+                 (1.0, 40.0, 4500.0, 5500.0, 62_500.0)):
+        eq(t_fk.design_lowpass(*args), j_fk.design_lowpass(*args))
+    eq(t_fk.design_highpass(1.0, 50.0, 7500.0, 4500.0, 62_500.0),
+       j_fk.design_highpass(1.0, 50.0, 7500.0, 4500.0, 62_500.0))
+    lp = j_fk.design_lowpass(1.0, 40.0, 4500.0, 5500.0, 31_250.0)
+    for a, b in zip(t_fk.hilbert_bandpass(lp, 5000.0, 31_250.0),
+                    j_fk.hilbert_bandpass(lp, 5000.0, 31_250.0)):
+        eq(a, b)
+    for args in ((3000.0, 1.0, 62_500.0), (3000.0, 0.707, 15_625.0)):
+        assert t_iir.biquad_lowpass(*args) == j_iir.biquad_lowpass(*args)
+    for name in ("hann", "blackman_harris", "blackman_nuttall", "flattop"):
+        for n, gain in ((4096, True), (1025, False)):
+            eq(t_win.window_table(name, n, with_gain=gain),
+               j_win.window_table(name, n, with_gain=gain))

@@ -5,8 +5,9 @@ its plain version; the CUDA kernels themselves are held against these
 plain versions on the card by chip_smoke.py.
 
 Tolerances are the JAX kernel tests': 5e-5 x scale for mixdec and
-fastfir, 1e-5 for the scans, 1e-3 dB for the S-meter; for the sequential
-PLL loops the FMA rounding bounds stated at their test."""
+fastfir, 1e-5 for the scans, 1e-3 dB for the S-meter, 1e-4 for the banded
+resampler; for the sequential PLL loops the FMA rounding bounds stated at
+their test."""
 
 import jax
 import jax.numpy as jnp
@@ -17,17 +18,19 @@ import torch
 from cutesdr_tpu.design.decimation_plan import plan_decimation
 from cutesdr_tpu.demod import fm as j_fm
 from cutesdr_tpu.demod import sam as j_sam
-from cutesdr_tpu.kernels import scan1
+from cutesdr_tpu.kernels import resamp1, scan1
 from cutesdr_tpu.kernels import seqloop as j_seq
 from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
 from cutesdr_tpu.kernels.mixdec import MixDecimate
+from cutesdr_tpu.ops import resampler as j_rs
 from cutesdr_tpu_torch import convert, kernels
 from cutesdr_tpu_torch.demod import fm as t_fm
 from cutesdr_tpu_torch.demod import sam as t_sam
-from cutesdr_tpu_torch.kernels import fastfir, mixdec, scan
+from cutesdr_tpu_torch.kernels import fastfir, mixdec, resamp, scan
 from cutesdr_tpu_torch.kernels import seqloop as t_seq
 from cutesdr_tpu_torch.ops import decimator
 from cutesdr_tpu_torch.ops import fastfir as ff_ops
+from cutesdr_tpu_torch.ops import resampler as t_rs
 
 torch.set_num_threads(1)
 
@@ -186,3 +189,58 @@ def test_seqloop_plain_matches_pallas(mode):
         assert _ang(float(tph), float(jph)) < 1e-5
         assert abs(float(tfr) - float(jfr)) < 1e-6
     assert not any(kernels.LAUNCHES.values())       # CPU: plain versions
+
+
+@pytest.mark.parametrize("interp", [True, False])
+def test_resample_band_plain_matches_pallas(interp):
+    """K9's plain version against kernels/resamp1.resample_band in
+    interpret mode, as tests/test_kernels.py runs it (complex planes at
+    125/96, here n = 4,096 to keep interpret mode short): the output times
+    are the same numbers, and the valid outputs agree within 1e-4 (the
+    Pallas kernel's own bar against the banded form) in both the
+    exact-position and the truncating-table mode."""
+    rate = 62500.0 / 48000.0
+    rng = np.random.default_rng(0)
+    n = 4096
+    x = _cplx(rng, n, 1.0)
+    p, c = j_rs.init(rate, complex_input=True)
+    cap = j_rs.max_out_for(n, rate)
+    t_int, t_frac = j_rs._times(p, c.t0, jnp.arange(cap, dtype=jnp.float32))
+    z = jnp.concatenate([c.tail, jnp.asarray(x)])
+    yr, yi = resamp1.resample_band(z.real, z.imag, t_int, t_frac, cap, 28,
+                                   rate, interp, interpret=True)
+    want = np.asarray(yr + 1j * yi)
+
+    tp, tc = t_rs.init(rate, "cpu", complex_input=True)
+    K, M = t_rs.band_size(n, cap, 28)
+    ti, tf = t_rs._times(tp, tc.t0[None, None],
+                         torch.arange(K, dtype=torch.float32))
+    np.testing.assert_array_equal(ti[0, :cap].numpy(), np.asarray(t_int))
+    np.testing.assert_array_equal(tf[0, :cap].numpy(), np.asarray(t_frac))
+    kernels.reset_launches()
+    zt = torch.cat([tc.tail, torch.from_numpy(x)])[None]
+    got = resamp.resample_band(zt, ti, tf, M, 28, interp)[0, :cap].numpy()
+    assert kernels.LAUNCHES["resamp"] == 0          # CPU: plain version
+    nv = int((ti[0, :cap] < n).sum())
+    assert nv > 3000
+    assert np.abs(got[:nv] - want[:nv]).max() < 1e-4
+
+
+def test_resample_band_real_and_bank_rows():
+    """A real input takes the same weights as a complex one's real plane,
+    and each row of a bank equals its single-stream evaluation, bitwise."""
+    rng = np.random.default_rng(1)
+    rate = 78125.0 / 48000.0
+    n = 2048
+    p, _ = t_rs.init(rate, "cpu")
+    K, M = t_rs.band_size(n, t_rs.max_out_for(n, rate), 28)
+    t0 = torch.tensor([[0.0], [0.7], [1.3]])
+    ti, tf = t_rs._times(p, t0, torch.arange(K, dtype=torch.float32))
+    z = torch.from_numpy(_cplx(rng, 3 * (n + 28), 100.0).reshape(3, -1))
+    yc = resamp.resample_band(z, ti, tf, M, 28, True)
+    yr = resamp.resample_band(z.real.contiguous(), ti, tf, M, 28, True)
+    assert torch.equal(yr, yc.real)
+    for b in range(3):
+        assert torch.equal(resamp.resample_band(z[b:b + 1], ti[b:b + 1],
+                                                tf[b:b + 1], M, 28, True),
+                           yc[b:b + 1])

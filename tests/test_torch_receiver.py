@@ -3,6 +3,7 @@ fixtures at their pinned bounds (SSB/CW, AM, SAM mono and stereo, FM),
 parity with the JAX Receiver, the live setters, and carrying a JAX stream
 into the port."""
 
+import dataclasses
 import json
 import os
 
@@ -293,7 +294,8 @@ def test_port_matches_jax_receiver_hang_agc():
     assert agc.STATS["scan_fallbacks"] == before
 
 
-@pytest.mark.parametrize("kw", [dict(nb_on=True), dict(probes=True)])
+@pytest.mark.parametrize("kw", [dict(probes=True),
+                                dict(probes=True, nb_on=True)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
@@ -307,8 +309,11 @@ def test_config_geometry_matches_jax():
                dict(mode="cwl", input_rate=20_000_000.0, frames_per_block=4),
                dict(audio_rate=None, frames_per_block=256)):
         j, t = jrx.ReceiverConfig(**kw), trx.ReceiverConfig(**kw)
-        assert (t.plan, t.block_size, t.output_rate, t.audio_block_cap,
+        assert dataclasses.astuple(t.plan) == dataclasses.astuple(j.plan)
+        np.testing.assert_array_equal(t.plan.composed_taps(),
+                                      j.plan.composed_taps())
+        assert (t.block_size, t.output_rate, t.audio_block_cap,
                 t.low_cut, t.hi_cut, t.mode_id) == \
-            (j.plan, j.block_size, j.output_rate, j.audio_block_cap,
+            (j.block_size, j.output_rate, j.audio_block_cap,
              j.low_cut, j.hi_cut, j.mode_id)
     assert agc.STATS["scan_fallbacks"] >= 0
