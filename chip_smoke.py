@@ -4,9 +4,12 @@
 
 Builds the port's CUDA kernels from ``cutesdr_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main paths' shapes (and
-times both, one PyTorch call that computes the same function where there
-is one, and the kernel's bound from the bytes and operations of its
-inputs), replays the golden / reference-binary fixtures (usb2m, usb, lsb,
+times both: the kernel's call time back to back and its own device time
+from torch.profiler (``chip_kernel_times.device_ms``; ``device_by`` in
+the ``kernels`` line names CUDA events instead where the profiler
+returned no event), one PyTorch call
+that computes the same function where there is one, and the kernel's
+bound from the bytes and operations of its inputs), replays the golden / reference-binary fixtures (usb2m, usb, lsb,
 cwu, am, sam, fm, stereo sam; the resampler, noise blanker and display
 fixtures) through the port on the card, then drives the receiver paths
 with the input resident on the card, each over chained steps, 48 kHz
@@ -62,6 +65,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from chip_kernel_times import device_ms, warm_up  # noqa: E402
 from cutesdr_tpu_torch import kernels  # noqa: E402
 from cutesdr_tpu_torch.demod import fm, sam  # noqa: E402
 from cutesdr_tpu_torch.design.decimation_plan import (  # noqa: E402
@@ -73,6 +77,7 @@ from cutesdr_tpu_torch.kernels import (  # noqa: E402
     _build, fastfir, mixdec, resamp, scan, seqloop)
 from cutesdr_tpu_torch.ops import (  # noqa: E402
     agc, nco, noiseblanker, resampler)
+from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
 from cutesdr_tpu_torch.pipeline import spectrum  # noqa: E402
 from cutesdr_tpu_torch.session import ReceiverSession  # noqa: E402
@@ -202,31 +207,48 @@ def library_time(label: str, fn, want) -> float | None:
 def compare(name: str, got, want, tol: float, results: dict,
             kernel_fn, plain_fn, label: str = "", work=None,
             library=None) -> None:
-    """Check a kernel against its plain version and time both; for the
-    main shape (no ``label``) also record its bound from ``work`` =
-    (bytes, operations) and the time of ``library`` = (one PyTorch call
+    """Check a kernel against its plain version and time both (the
+    kernel's call time back to back and its own device time per call);
+    for the main shape (no ``label``) also record its bound from ``work``
+    = (bytes, operations) and the time of ``library`` = (one PyTorch call
     computing the same function, the kernel's result), or None."""
     err = max_err(name + label, got, want, tol)
-    ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+    warm_up(kernel_fn)
+    ms, (dev, dev_by) = time_ms(kernel_fn), device_ms(kernel_fn)
+    plain_ms = time_ms(plain_fn)
     b = bound(*work) if work else {}
     phase(f"kernel {name}{label}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f"kernel {ms:.4f} ms (device {dev:.4f} ms, {dev_by})  plain "
+          f"{plain_ms:.4f} ms"
           + (f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']})" if b
              else ""))
     lib = library_time(name + label, *library) if library else None
     if not label:
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         **b, "library_ms": lib}
+        results[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                         "device_by": dev_by, "plain_ms": plain_ms, **b,
+                         "library_ms": lib}
 
 
-def check_mixdec(gen, results, input_rate, label):
+def mixdec_planes(gen, n: int, layout: str):
+    """re, im planes of n samples: views of one complex tensor ("iq", as
+    the receiver passes them: the kernel's float2 path) or every third
+    float of one buffer ("strided": the general-stride path)."""
+    if layout == "iq":
+        x = torch.complex(randn(n, gen, 1000.0), randn(n, gen, 1000.0))
+        return x.real, x.imag
+    buf = randn(3 * n, gen, 1000.0)
+    return buf[0::3], buf[1::3]
+
+
+def check_mixdec(gen, results, input_rate, label, n=N_IN, layout="iq"):
+    """K1 on one stream of n samples at the plan for ``input_rate``."""
     plan = plan_decimation(input_rate, 20_000.0)
     params, carry = mixdec.init(plan, input_rate / 17.0, "cuda")
     carry = carry._replace(
         raw_tail=torch.complex(randn(carry.raw_tail.numel(), gen, 1000.0),
                                randn(carry.raw_tail.numel(), gen, 1000.0)),
         phase=torch.tensor(2**32 - 12345, dtype=torch.int64, device="cuda"))
-    re, im = randn(N_IN, gen, 1000.0), randn(N_IN, gen, 1000.0)
+    re, im = mixdec_planes(gen, n, layout)
     dc = torch.tensor(0.37 - 0.21j, dtype=torch.complex64, device="cuda")
     run_k = lambda: mixdec.process_planes(plan, params, carry, re, im, dc)
     run_p = lambda: mixdec.process_planes_plain(plan, params, carry, re, im,
@@ -241,25 +263,32 @@ def check_mixdec(gen, results, input_rate, label):
     # bytes: the two input planes, tail, taps, output; operations: the DC
     # cal (2), oscillator phase and sincos (counted 2) and complex mix (6)
     # per input sample, a complex-by-real tap (4) per tap and output
-    work = (8 * N_IN + 8 * carry.raw_tail.numel() + 4 * L + 8 * N_IN // D,
-            10 * N_IN + 4 * L * N_IN // D)
+    work = (8 * n + 8 * carry.raw_tail.numel() + 4 * L + 8 * n // D,
+            10 * n + 4 * L * n // D)
     compare("mixdec", [yk.real, yk.imag], [yp.real, yp.imag], 5e-5 * scale,
             results, run_k, run_p, label, work=work)
-    phase(f"  (D={D}, {L} taps, {N_IN} samples)")
+    lp = mixdec.launch_plan(n // D, 1, D, L, _build.sm_count(re.device))
+    phase(f"  (D={D}, {L} taps, {n} samples, {layout} planes; "
+          f"{lp.n_tiles} blocks of {lp.tile_out} outputs, {lp.threads} "
+          f"threads, {lp.smem_bytes} B shared)")
 
 
 def check_fastfir(gen, results):
+    """K2 at the flagship's 256 frames and the session's one frame."""
     h = design_fastfir(100.0, 2800.0, 0.0, 62_500.0)
     hf = torch.from_numpy(h.astype(np.complex64)).cuda()
-    z = torch.complex(randn(1024 + N_DEMOD, gen, 100.0),
-                      randn(1024 + N_DEMOD, gen, 100.0))
-    run_k = lambda: fastfir.filter_frames(hf, z, 1025)
-    run_p = lambda: fastfir.filter_frames_plain(hf, z, 1025)
-    yk, yp = run_k(), run_p()
-    scale = float(yp.abs().max())
-    compare("fastfir", [yk.real, yk.imag], [yp.real, yp.imag], 5e-5 * scale,
-            results, run_k, run_p, work=fastfir_work(1, N_DEMOD // 1024),
-            library=(fir_library(hf, z, 1025), yk))
+    for frames in (N_DEMOD // 1024, 1):
+        z = torch.complex(randn(1024 + 1024 * frames, gen, 100.0),
+                          randn(1024 + 1024 * frames, gen, 100.0))
+        run_k = lambda: fastfir.filter_frames(hf, z, 1025)
+        run_p = lambda: fastfir.filter_frames_plain(hf, z, 1025)
+        yk, yp = run_k(), run_p()
+        scale = float(yp.abs().max())
+        compare("fastfir", [yk.real, yk.imag], [yp.real, yp.imag],
+                5e-5 * scale, results, run_k, run_p,
+                "" if frames > 1 else " 1 frame",
+                work=fastfir_work(1, frames),
+                library=(fir_library(hf, z, 1025), yk))
 
 
 def fastfir_work(n_ch: int, frames: int, nfft: int = 2048,
@@ -538,6 +567,14 @@ def check_seqloops(gen, results):
                             seqloop.fm_pll_scan_plain),
              "seqloop_sam": (sam_p, 31_250.0, 100.0, seqloop.sam_pll_scan,
                              seqloop.sam_pll_scan_plain)}
+    # device times at 262,144 first: the plain loops below launch millions
+    # of small kernels, after which the profiler has lost kernel records
+    dev = {}
+    for name, (p, fs, off, kernel, _) in loops.items():
+        th = pll_theta("noise", N_DEMOD, fs, off, gen)
+        dev[name] = device_ms(lambda: kernel(p.pll_alpha, p.pll_beta,
+                                             p.nco_limit, phase0, freq0, th),
+                              calls=3)
     for n, kind in ((32_768, "noise"), (32_768, "tone"), (N_DEMOD, "noise")):
         for name, (p, fs, off, kernel, plain) in loops.items():
             th = pll_theta(kind, n, fs, off, gen)
@@ -557,6 +594,8 @@ def check_seqloops(gen, results):
                 # operations: the dozen of the per-sample chain
                 series = 2 if name == "seqloop_fm" else 1
                 results[name] = {"max_abs_err": err, "ms": ms,
+                                 "device_ms": dev[name][0],
+                                 "device_by": dev[name][1],
                                  "plain_ms": plain_ms,
                                  **bound(4 * n * (1 + series), 12 * n),
                                  "library_ms": None}
@@ -589,9 +628,10 @@ def check_fm_chunked(p, c, phase0, freq0, th, k_out, k_ms):
 
 def check_other_shapes(gen):
     """Correctness only, at shapes other configurations give the kernels:
-    a x128 plan with output offset d=3 on a short block, 4096- and
-    512-point filter frames (the first needs 64 KB of shared memory),
-    scans with a partial last chunk."""
+    a x128 plan with output offset d=3 on a short block across a carry;
+    4096-, 512- and 8192-point filter frames; 4096/3073 streamed in
+    1,024-sample blocks, shorter than the filter's history; scans with a
+    partial last chunk."""
     plan = plan_decimation(2e6, 1000.0)                  # 2 MSPS CW plan
     params, carry = mixdec.init(plan, 123_456.7, "cuda")
     re, im = randn(plan.decimation * 1024, gen, 1000.0), \
@@ -604,7 +644,7 @@ def check_other_shapes(gen):
                       5e-5 * float(yp.abs().max()))
         carry = ck
     phase(f"kernel mixdec D={plan.decimation} d=3: max_abs_err {err:.3e}")
-    for nfft, ntaps in ((4096, 3073), (512, 257)):
+    for nfft, ntaps in ((4096, 3073), (512, 257), (8192, 4097)):
         h = design_fastfir(100.0, 2800.0, 0.0, 62_500.0, fft_size=nfft,
                            fir_size=ntaps)
         hf = torch.from_numpy(h.astype(np.complex64)).cuda()
@@ -615,6 +655,22 @@ def check_other_shapes(gen):
         err = max_err(f"fastfir {nfft}", [yk.real, yk.imag],
                       [yp.real, yp.imag], 5e-5 * float(yp.abs().max()))
         phase(f"kernel fastfir {nfft}/{ntaps}: max_abs_err {err:.3e}")
+    # a block shorter than the tail (4096/3073: 1,024 new samples against
+    # a 3,072-sample history), streamed through the two-pointer read over
+    # chained calls, against the plain streaming form
+    pk, ck = ff_ops.init(100.0, 2800.0, 0.0, 62_500.0, "cuda", nfft=4096,
+                         ntaps=3073)
+    cp = ck
+    for _ in range(4):
+        x = torch.complex(randn(1024, gen, 100.0), randn(1024, gen, 100.0))
+        ck, yk = fastfir.process(pk, ck, x)
+        cp, yp = ff_ops.process(pk, cp, x)
+        err = max_err("fastfir short block", [yk.real, yk.imag],
+                      [yp.real, yp.imag], 5e-5 * float(yp.abs().max()))
+        if not torch.equal(ck.tail, cp.tail):
+            raise AssertionError("fastfir short block: tails differ")
+    phase(f"kernel fastfir 4096/3073, 1,024-sample blocks chained: "
+          f"max_abs_err {err:.3e}, tails equal")
     n = N_DEMOD - 1000
     a = 0.99 + 0.005 * torch.rand(n, generator=gen, device="cuda")
     b = randn(n, gen, 0.01)
@@ -1297,14 +1353,17 @@ def main() -> int:
         return 0
     results: dict = {}
     check_mixdec(gen, results, 2e6, "")
+    check_mixdec(gen, results, 2e6, " strided planes", layout="strided")
+    check_mixdec(gen, results, 2e6, " session block", n=32_768)
+    check_mixdec(gen, results, 250e3, " D=4", n=262_144)
     check_mixdec(gen, results, 20e6, " D=256")
     check_mixdec_bank(gen)
     check_fastfir(gen, results)
     check_fastfir_batch(gen, results)
     check_scans(gen, results)
+    check_resamp(gen, results)
     check_seqloops(gen, results)
     check_seqloops_bank(gen)
-    check_resamp(gen, results)
     check_other_shapes(gen)
     check_fixtures()
     check_refgold_extras()

@@ -14,6 +14,7 @@ returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,12 +40,15 @@ F32 = ctypes.c_float
 # C signatures: name -> argument types (every entry returns a cudaError_t)
 SIGNATURES = {
     # re, im, re_cstride, im_cstride, re_stride, im_stride, tail, tail_len,
-    # taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out, n_ch, y, stream
+    # taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out, n_ch,
+    # tile_out, threads, y, stream
     "cutesdr_mixdec": [P, P, I64, I64, I64, I64, P, I32, P, I32, P, P,
-                       P, U32, F32, I32, I32, I32, P, P],
-    # z, h, twiddles, y, nfft, ntaps, n_frames, n_ch, z_cstride,
-    # h_cstride, y_cstride, stream
-    "cutesdr_fastfir": [P, P, P, P, I32, I32, I32, I32, I64, I64, I64, P],
+                       P, U32, F32, I32, I32, I32, I32, I32, P, P],
+    # tail, block, h, twiddles, y, nfft, ntaps, n_frames, n_ch,
+    # frames_per_block, tail_cstride, block_cstride, h_cstride, y_cstride,
+    # stream
+    "cutesdr_fastfir": [P, P, P, P, P, I32, I32, I32, I32, I32, I64, I64,
+                        I64, I64, P],
     # a, b, x0, n, x, totals_a, totals_b, starts, stream
     "cutesdr_scan_plain": [P, P, P, I32, P, P, P, P, P],
     # peak, pattern, rise, fall, x0, n, x, newpat, count, totals_a,
@@ -129,6 +133,13 @@ def check(err: int, name: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (the kernels' plans
+    spread their blocks over them)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

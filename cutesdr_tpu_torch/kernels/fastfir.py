@@ -4,12 +4,16 @@
 ``filter_frames_batch`` / ``batch_call`` (K6, ``filter_frames_batch`` /
 ``batch_call``) for a channel bank with one H per channel.
 
-One CUDA block per (frame, channel) runs FFT -> *H -> unscaled IFFT in
-shared memory (``csrc/fastfir.cu``); one stream is the one-channel grid.
-H stays in natural order (the JAX kernel's pre-permuted ``h2`` answered
-the TPU's four-step layout) and already holds 1/NFFT, so the inverse is
-not scaled again.  CPU tensors take the plain version,
-``ops.fastfir.filter_frames``, which takes either shape.
+Each frame runs FFT -> *H -> unscaled IFFT as a register-resident
+mixed-radix Stockham transform (``csrc/fastfir.cu``; ``fft_plan`` gives
+its passes) with a CUDA block holding ``frames_per_block`` frames of one
+channel; one stream is the one-channel grid.  The kernel reads each frame
+from the carry's tail and the block through two pointers, so the CUDA
+path never concatenates them.  H stays in natural order (the JAX
+kernel's pre-permuted ``h2`` answered the TPU's four-step layout) and
+already holds 1/NFFT, so the inverse is not scaled again.  CPU tensors
+take the plain version, ``ops.fastfir.filter_frames``, which takes either
+shape.
 """
 
 from __future__ import annotations
@@ -26,35 +30,72 @@ from cutesdr_tpu_torch.types import CDTYPE
 filter_frames_plain = ff_ops.filter_frames
 
 
+EPT = 16           # complex points a thread holds (FF_EPT in the kernel)
+MAX_THREADS = 512  # threads of a block (FF_MAX_THREADS)
+
+
+@functools.lru_cache(maxsize=16)
+def fft_plan(nfft: int) -> tuple[int, tuple[int, ...]]:
+    """(points per thread, radices of the passes) of the kernel's FFT:
+    passes of radix 16 and a last one of radix nfft / 16^(passes-1)
+    (2048 = 16 * 16 * 8); below 16 points one pass of radix nfft."""
+    ept = min(nfft, EPT)
+    lg = nfft.bit_length() - 1
+    n_pass = -(-lg // 4)
+    return ept, (16,) * (n_pass - 1) + (nfft >> 4 * (n_pass - 1),)
+
+
+def frames_per_block(nfft: int, frames: int, n_sm: int) -> int:
+    """Frames a CUDA block holds: up to 256 threads' worth where the call
+    has frames to spare beyond one per SM, else one."""
+    tpf = nfft // min(nfft, EPT)
+    return max(1, min(256 // tpf, frames // n_sm))
+
+
 @functools.lru_cache(maxsize=8)
 def _twiddles(nfft: int, device: str) -> torch.Tensor:
-    """exp(-2 pi i k / nfft) for k < nfft/2, computed in float64 and
-    rounded once to complex64."""
-    w = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
+    """exp(-2 pi i k / nfft) for k < nfft/4, computed in float64 and
+    rounded once to complex64; the kernel rotates the other quadrants by
+    powers of -i, exactly."""
+    w = np.exp(-2j * np.pi * np.arange(max(nfft // 4, 1)) / nfft)
     return torch.from_numpy(w.astype(np.complex64)).to(device)
 
 
-def _launch(h_freq: torch.Tensor, z: torch.Tensor, ntaps: int,
+def _require_rows(t: torch.Tensor, name: str, numel: int,
+                  rows: int | None) -> None:
+    """A CUDA complex64 tensor [numel] (or [rows, numel]) whose last axis
+    is contiguous; its rows may sit at any stride."""
+    _build.require(t, name, CDTYPE, numel, contiguous=False, rows=rows)
+    if numel > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: expected a contiguous last axis")
+
+
+def _launch(h_freq: torch.Tensor, tail: torch.Tensor, x: torch.Tensor,
             rows: int | None, name: str) -> torch.Tensor:
-    """One launch over every frame of every row of z (rows None: 1-D)."""
+    """One launch over every frame of every row of [tail | x] (rows None:
+    1-D), read through the two pointers."""
     nfft = h_freq.shape[-1]
-    valid = nfft - (ntaps - 1)
-    n = z.shape[-1] - (ntaps - 1)
+    t = tail.shape[-1]
+    valid = nfft - t
+    n = x.shape[-1]
     if nfft & (nfft - 1) or not 4 <= nfft <= 8192:
         raise ValueError(f"fastfir kernel needs a power-of-2 nfft <= 8192, "
                          f"got {nfft}")
     if valid <= 0 or n % valid:
         raise ValueError(f"fastfir block length {n} not a multiple of {valid}")
-    _build.require(z, "z", CDTYPE, rows=rows)
+    _require_rows(tail, "tail", t, rows)
+    _require_rows(x, "x", n, rows)
     _build.require(h_freq, "h_freq", CDTYPE, nfft, rows=rows)
-    tw = _twiddles(nfft, str(z.device))
+    tw = _twiddles(nfft, str(x.device))
     C = 1 if rows is None else rows
-    y = torch.empty(z.shape[:-1] + (n,), dtype=CDTYPE, device=z.device)
+    frames = n // valid
+    fpb = frames_per_block(nfft, frames * C, _build.sm_count(x.device))
+    y = torch.empty(x.shape[:-1] + (n,), dtype=CDTYPE, device=x.device)
     cstride = lambda a: a.stride(0) if rows is not None else 0
     _build.check(_build.library().cutesdr_fastfir(
-        z.data_ptr(), h_freq.data_ptr(), tw.data_ptr(), y.data_ptr(), nfft,
-        ntaps, n // valid, C, cstride(z), cstride(h_freq), cstride(y),
-        _build.stream(z)), name)
+        tail.data_ptr(), x.data_ptr(), h_freq.data_ptr(), tw.data_ptr(),
+        y.data_ptr(), nfft, t + 1, frames, C, fpb, cstride(tail), cstride(x),
+        cstride(h_freq), cstride(y), _build.stream(x)), name)
     LAUNCHES[name] += 1
     return y
 
@@ -65,7 +106,8 @@ def filter_frames(h_freq: torch.Tensor, z: torch.Tensor,
     buffer; returns the n filtered samples."""
     if _build.on_cpu(h_freq, z):
         return filter_frames_plain(h_freq, z, ntaps)
-    return _launch(h_freq, z, ntaps, None, "fastfir")
+    return _launch(h_freq, z[..., :ntaps - 1], z[..., ntaps - 1:], None,
+                   "fastfir")
 
 
 def filter_frames_batch(h_freq: torch.Tensor, z: torch.Tensor,
@@ -74,26 +116,35 @@ def filter_frames_batch(h_freq: torch.Tensor, z: torch.Tensor,
     h_freq [C, nfft]; returns [C, n].  One launch for the bank."""
     if _build.on_cpu(h_freq, z):
         return filter_frames_plain(h_freq, z, ntaps)
-    return _launch(h_freq, z, ntaps, z.shape[0], "fastfir_batch")
+    return _launch(h_freq, z[..., :ntaps - 1], z[..., ntaps - 1:],
+                   z.shape[0], "fastfir_batch")
 
 
 def _stream(params: ff_ops.FastFirParams, carry: ff_ops.FastFirCarry,
-            x: torch.Tensor, core) -> tuple[ff_ops.FastFirCarry, torch.Tensor]:
-    ntaps = carry.tail.shape[-1] + 1
-    z = torch.cat([carry.tail, x], -1)
-    y = core(params.h_freq, z, ntaps)
-    return (ff_ops.FastFirCarry(tail=z[..., z.shape[-1] - (ntaps - 1):]
-                                .clone()), y)
+            x: torch.Tensor, name: str
+            ) -> tuple[ff_ops.FastFirCarry, torch.Tensor]:
+    """[tail | x] through the filter: on the card the kernel reads the two
+    directly; on the CPU the plain streaming form concatenates them."""
+    tail = carry.tail
+    t = tail.shape[-1]
+    if _build.on_cpu(params.h_freq, tail, x):
+        return ff_ops.process(params, carry, x)
+    rows = tail.shape[0] if tail.dim() == 2 else None
+    y = _launch(params.h_freq, tail, x, rows, name)
+    n = x.shape[-1]
+    new_tail = (x[..., n - t:].clone() if n >= t
+                else torch.cat([tail, x], -1)[..., n:])
+    return ff_ops.FastFirCarry(tail=new_tail), y
 
 
 def process(params: ff_ops.FastFirParams, carry: ff_ops.FastFirCarry,
             x: torch.Tensor) -> tuple[ff_ops.FastFirCarry, torch.Tensor]:
-    """Streaming form: [tail | x] through ``filter_frames``."""
-    return _stream(params, carry, x, filter_frames)
+    """Streaming form: [tail | x] through ``filter_frames``' kernel."""
+    return _stream(params, carry, x, "fastfir")
 
 
 def batch_call(params: ff_ops.FastFirParams, carry: ff_ops.FastFirCarry,
                x: torch.Tensor) -> tuple[ff_ops.FastFirCarry, torch.Tensor]:
     """Streaming bank form: a leading channel axis on params, carry and x,
-    through ``filter_frames_batch``."""
-    return _stream(params, carry, x, filter_frames_batch)
+    through ``filter_frames_batch``'s kernel."""
+    return _stream(params, carry, x, "fastfir_batch")

@@ -7,7 +7,9 @@ held as int64.  Tail samples take back-dated phases acc_0 - k*inc through
 unsigned wraparound, so the history is mixed with exactly the phases it
 would have had.  CUDA tensors run ``csrc/mixdec.cu``; CPU tensors the plain
 version, which rebuilds the mixed history and calls
-``ops.decimator.fused_process``.
+``ops.decimator.fused_process``.  ``launch_plan`` chooses each call's tile
+(outputs per CUDA block) and block size from the output count, D, the
+taps, the card's SM count and shared memory.
 
 A channel bank adds a leading channel axis to the carry, the DC cal and
 the increments (a [C] int64 tensor of uint32 values); the composed taps
@@ -17,6 +19,8 @@ per channel (stacked), and one launch serves the whole bank.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,6 +35,8 @@ class MixDecParams(NamedTuple):
     h_eq: torch.Tensor   # composed decimation taps, float32 [L]
     phase_inc: int | torch.Tensor   # uint32 DDS increment (round(-f/fs *
                                     # 2^32) mod 2^32); a bank: [C] int64
+    taps: torch.Tensor   # h_eq flipped to correlation order, contiguous
+                         # (the kernel's taps, made once at init)
 
 
 class MixDecCarry(NamedTuple):
@@ -47,8 +53,82 @@ def init(plan: DecimationPlan, tune_freq: float,
          device) -> tuple[MixDecParams, MixDecCarry]:
     fp, fc = decimator.fused_init(plan, device)
     np_, nc = nco.init(tune_freq, plan.in_rate, device)
-    return (MixDecParams(h_eq=fp.h_eq, phase_inc=np_.phase_inc),
+    return (MixDecParams(h_eq=fp.h_eq, phase_inc=np_.phase_inc,
+                         taps=fp.h_eq.flip(-1).contiguous()),
             MixDecCarry(raw_tail=fc.tail, phase=nc.phase_acc))
+
+
+# the kernel's work split (csrc/mixdec.cu)
+R = 8                   # outputs a thread keeps in registers (MIX_R)
+SMEM_MAX = 232_448      # shared memory a block may use (227 KB)
+SMEM_SOFT = 113 * 1024  # up to here two blocks fit on one SM
+HALO_WEIGHT = 0.4       # a window sample's staging (copy, sincos, mix)
+                        # against one output's share of the sum, per D
+
+
+class LaunchPlan(NamedTuple):
+    tile_out: int     # outputs of one channel per CUDA block
+    threads: int      # threads per block
+    smem_bytes: int   # dynamic shared memory per block
+    n_tiles: int      # blocks per channel
+
+
+def lanes(dec: int) -> int:
+    """P: the lanes that share one group of R outputs, one phase each."""
+    return min(dec, 32)
+
+
+def smem_bytes(tile_out: int, dec: int, ntaps: int) -> int:
+    """Shared memory of a block, as csrc/mixdec.cu lays it out: one chunk
+    of P phases of the mixed window (tile_out + K rows in groups of R
+    rows, each group padded by P samples where P < 32), then the chunk's
+    taps, K * P."""
+    k, p = -(-ntaps // dec), lanes(dec)
+    row = R * p + (p if p < 32 else 0)
+    return (((tile_out + k) // R + 1) * row + -(-k * p // 2)) * 8
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n_out: int, n_ch: int, dec: int, ntaps: int,
+                n_sm: int) -> LaunchPlan:
+    """The tile and block size of one call: the most threads (512, 256,
+    128) whose one pass over the warps' output groups (R outputs per group
+    of P lanes) still leaves a block for every SM, then
+
+    D > 32 (D/32 chunks of phases): a warp owns one group of R outputs
+    through the chunks, so tile_out = R * warps;
+
+    D <= 32 (one chunk): a block of T outputs does T + HALO_WEIGHT *
+    (L - D) / D outputs' worth of work (its window overlaps the next by
+    L - D samples); T runs over multiples of one pass while two blocks
+    still fit on an SM, and the T whose blocks, spread evenly over the
+    SMs, give the least work per SM wins (the larger on ties).  The
+    flagship gets 256 outputs and 512 threads (a 13% overlap); the
+    session's one-frame block 32 blocks of 32 outputs."""
+    if dec <= 0 or dec & (dec - 1):
+        raise ValueError(f"mixdec kernel needs a power-of-2 decimation, "
+                         f"got {dec}")
+    groups_per_warp = 32 // lanes(dec)
+    for threads in (512, 256, 128):     # 512: MIX_MAX_THREADS
+        unit = R * threads // 32 * groups_per_warp
+        if -(-n_out // unit) * n_ch >= n_sm:
+            break
+    t = unit
+    if dec <= 32:
+        halo = HALO_WEIGHT * max(ntaps - dec, 0) / dec
+        best = (math.inf, unit)
+        while t <= max(unit, n_out + unit - 1) and (
+                t == unit or smem_bytes(t, dec, ntaps) <= SMEM_SOFT):
+            cost = -(-(-(-n_out // t) * n_ch) // n_sm) * (t + halo)
+            if cost <= best[0]:
+                best = (cost, t)
+            t += unit
+        t = best[1]
+    smem = smem_bytes(t, dec, ntaps)
+    if smem > SMEM_MAX:
+        raise ValueError(f"mixdec: {ntaps} taps at D={dec} do not fit in "
+                         "shared memory")
+    return LaunchPlan(t, threads, smem, -(-n_out // t))
 
 
 def _new_carry(params: MixDecParams, carry: MixDecCarry, re: torch.Tensor,
@@ -119,16 +199,17 @@ def process_planes(plan: DecimationPlan, params: MixDecParams,
         incs_ptr, inc0 = incs.data_ptr(), 0
     else:
         incs_ptr, inc0 = None, params.phase_inc
-    taps = params.h_eq.flip(-1).contiguous()
+    _build.require(params.taps, "taps", RDTYPE, L)
     y = torch.empty((C, n // D) if bank else (n // D,), dtype=CDTYPE,
                     device=re.device)
+    plan_ = launch_plan(n // D, C, D, L, _build.sm_count(re.device))
     cstride = lambda a: a.stride(0) if a.dim() == 2 else 0
     lib = _build.library()
     _build.check(lib.cutesdr_mixdec(
         re.data_ptr(), im.data_ptr(), cstride(re), cstride(im),
         re.stride(-1), im.stride(-1), carry.raw_tail.data_ptr(), t,
-        taps.data_ptr(), L, dc.data_ptr(), carry.phase.data_ptr(), incs_ptr,
-        inc0, nco.PHASE_SCALE, D, n // D, C, y.data_ptr(),
-        _build.stream(re)), "mixdec")
+        params.taps.data_ptr(), L, dc.data_ptr(), carry.phase.data_ptr(), incs_ptr,
+        inc0, nco.PHASE_SCALE, D, n // D, C, plan_.tile_out, plan_.threads,
+        y.data_ptr(), _build.stream(re)), "mixdec")
     LAUNCHES["mixdec"] += 1
     return _new_carry(params, carry, re, im), y

@@ -101,8 +101,7 @@ def test_mixdec_batch_plain_matches_per_channel(shared):
                               raw_tail=_t(_cplx(rng, c.raw_tail.shape, 50.))))
                for i, (p, c) in enumerate(singles)]
     dcs = [complex(0.3 * i, -0.2 * i) for i in range(3)]
-    bp = mixdec.MixDecParams(
-        h_eq=singles[0][0].h_eq,
+    bp = singles[0][0]._replace(
         phase_inc=torch.tensor([p.phase_inc for p, _ in singles]))
     bc = t_ch.stack_state([c for _, c in singles])
     bdc = torch.tensor(dcs, dtype=torch.complex64)

@@ -244,3 +244,233 @@ def test_resample_band_real_and_bank_rows():
         assert torch.equal(resamp.resample_band(z[b:b + 1], ti[b:b + 1],
                                                 tf[b:b + 1], M, 28, True),
                            yc[b:b + 1])
+
+
+# --- the CUDA kernels' work split, emulated on the CPU ---------------------
+# The kernels themselves run only on the card (chip_smoke.py holds them
+# against their plain versions there); these tests hold the index plans
+# that csrc/mixdec.cu and csrc/fastfir.cu follow against the plain
+# versions, in float32, so that a plan that drops, repeats or misplaces a
+# term fails here.
+
+N_SM = 132   # the H100's streaming multiprocessors
+
+
+def _scatter_slot(p, lane):
+    """The floats (first, count) that a lane of P holds after the
+    reduce-scatter of 2R values, and whether it writes them."""
+    cnt, first, writer, off = 2 * mixdec.R, 0, True, p // 2
+    while off >= 1:
+        if cnt > 1:
+            cnt //= 2
+            first += cnt if lane & off else 0
+        elif lane & off:
+            writer = False
+        off //= 2
+    return first, cnt, writer
+
+
+def _mixdec_float_writes(n_out, n_ch, dec, ntaps, lp):
+    """How many times the kernel writes each float of y [n_ch, n_out] (re,
+    im interleaved): every block, warp, output group and lane, as the
+    kernel walks them."""
+    R, P = mixdec.R, mixdec.lanes(dec)
+    S, warps = 32 // P, lp.threads // 32
+    slots = [_scatter_slot(P, pl) for pl in range(P)]
+    writes = np.zeros((n_ch, 2 * n_out), np.int64)
+    for ch in range(n_ch):
+        for tile in range(lp.n_tiles):
+            o0 = tile * lp.tile_out
+            outs = min(lp.tile_out, n_out - o0)
+            groups = -(-outs // R)
+            for warp in range(warps):
+                # one chunk of phases: the warp walks the tile's groups;
+                # several: the warp owns group ``warp`` through them
+                starts = (range(warp * S, groups, warps * S) if dec <= 32
+                          else [warp])
+                for g0 in starts:
+                    gi = g0 + np.arange(S)
+                    assert gi.max() < lp.tile_out // R   # inside the window
+                    for first, cnt, writer in slots:
+                        if not writer:
+                            continue
+                        j = first + np.arange(cnt)
+                        o = gi[:, None] * R + j[None, :] // 2
+                        keep = o < outs
+                        np.add.at(writes[ch],
+                                  (2 * (o0 + gi[:, None] * R) + j)[keep], 1)
+    return writes
+
+
+@pytest.mark.parametrize("n_out,n_ch,dec,ntaps", [
+    (262_144, 1, 32, 1063),     # the flagship
+    (1024, 1, 32, 1063),        # the session's one-frame block
+    (1024, 64, 128, 3127),      # the 64-channel bank
+    (262_144, 2, 32, 1063),     # the stacked pair
+    (1024, 1, 128, 1506),       # the CW plan (d = 3)
+    (1000, 1, 4, 123),          # a 250 kHz input, a partial tile
+    (4096, 1, 1, 1), (777, 3, 2, 51), (32_768, 1, 256, 6256)])
+def test_mixdec_launch_plan_covers_every_output_once(n_out, n_ch, dec,
+                                                    ntaps):
+    lp = mixdec.launch_plan(n_out, n_ch, dec, ntaps, N_SM)
+    assert lp.smem_bytes <= mixdec.SMEM_MAX
+    assert lp.threads in (128, 256, 512)
+    assert lp.tile_out % (mixdec.R * lp.threads // 32
+                          * (32 // mixdec.lanes(dec))) == 0
+    if dec > 32:
+        assert lp.tile_out == mixdec.R * lp.threads // 32
+    assert lp.n_tiles * lp.tile_out >= n_out > (lp.n_tiles - 1) * lp.tile_out
+    writes = _mixdec_float_writes(n_out, n_ch, dec, ntaps, lp)
+    assert (writes == 1).all()
+    if (n_out, n_ch, dec) == (1024, 1, 32):
+        assert lp.n_tiles >= 16              # over tens of SMs, not 4
+    if n_out == 262_144:                     # window overlap <= ~15%
+        assert (ntaps - dec) / (lp.tile_out * dec) <= 0.15
+
+
+def _mixdec_emulated(z, taps, dec, n_out):
+    """csrc/mixdec.cu's order of the sum in float32: lane p of P sums its
+    phases p, p+P, .. in turn, each over k, into R outputs; then the P
+    lanes' sums meet pairwise over the xor tree of the reduce-scatter."""
+    L, P = taps.numel(), mixdec.lanes(dec)
+    K = -(-L // dec)
+    g = torch.zeros(K * dec)
+    g[:L] = taps
+    g = g.reshape(K, dec)
+    u = torch.zeros((n_out + K) * dec, dtype=torch.complex64)
+    u[:z.numel()] = z
+    u = torch.view_as_real(u.reshape(n_out + K, dec))     # [m, p, 2]
+    acc = torch.zeros(n_out, P, 2)
+    for q in range(dec // P):
+        ph = torch.arange(P) + q * P
+        for k in range(K):
+            acc = acc + g[k, ph][None, :, None] * u[k:k + n_out, ph]
+    off = P // 2
+    while off >= 1:
+        acc = acc + acc[:, torch.arange(P) ^ off]
+        off //= 2
+    return torch.view_as_complex(acc[:, 0].contiguous())
+
+
+@pytest.mark.parametrize("in_rate,bw", [(250_000.0, 20_000.0),   # D = 4
+                                        (2e6, 20_000.0),         # D = 32
+                                        (10e6, 20_000.0),        # D = 128
+                                        (2e6, 1000.0)])          # d = 3
+def test_mixdec_kernel_order_matches_fused(in_rate, bw):
+    """The kernel's phase-to-lane, R-output sliding-window order of the
+    sum equals ``decimator.fused_process`` to float32 roundoff."""
+    rng = np.random.default_rng(12)
+    plan = plan_decimation(in_rate, bw)
+    tp, _ = mixdec.init(plan, 0.0, "cpu")
+    dec, t = plan.decimation, decimator.tail_length(plan)
+    n_out = 203
+    z = torch.from_numpy(_cplx(rng, t + n_out * dec, 100.0))
+    _, want = decimator.fused_process(plan, decimator.FusedParams(tp.h_eq),
+                                      decimator.FusedCarry(z[:t]), z[t:])
+    got = _mixdec_emulated(z, tp.taps, dec, n_out)
+    assert torch.equal(tp.taps, tp.h_eq.flip(-1))
+    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                               atol=2e-6 * float(want.abs().max()))
+
+
+def _fft_emulated(x, inverse):
+    """csrc/fastfir.cu's transform in complex64, pass by pass: the radices
+    of ``fastfir.fft_plan``, butterfly j of each thread's share, the
+    quarter-table twiddle indices rotated by powers of -i, the in-register
+    radix-2 DIF network and its bit reversal, the Stockham write-back."""
+    n = x.shape[-1]
+    ept, radices = fastfir.fft_plan(n)
+    tpf = n // ept
+    tw = fastfir._twiddles(n, "cpu").numpy()
+    quarter = max(n // 4, 1)
+    c16 = np.exp(-2j * np.pi * np.arange(16) / 16).astype(np.complex64)
+    if inverse:
+        c16 = c16.conj()
+    ns = 1
+    for r in radices:
+        j = (np.arange(tpf)[:, None] + tpf * np.arange(ept // r)[None, :]
+             ).reshape(-1)
+        assert np.array_equal(np.sort(j), np.arange(n // r))
+        v = x[j[:, None] + np.arange(r)[None, :] * (n // r)]
+        if ns > 1:
+            m = (j % ns)[:, None] * np.arange(r)[None, :] * (n // (ns * r))
+            assert m.max() < n
+            w = tw[m % quarter] * (-1j) ** (m // quarter)
+            v = v * (w.conj() if inverse else w).astype(np.complex64)
+        length = r
+        while length >= 2:                     # radix-2 DIF in registers
+            h = length // 2
+            v = v.reshape(len(j), r // length, length)
+            a, b = v[..., :h].copy(), v[..., h:].copy()
+            v[..., :h] = a + b
+            v[..., h:] = (a - b) * c16[np.arange(h) * (16 // length)]
+            v = v.reshape(len(j), r)
+            length = h
+        bits = r.bit_length() - 1
+        rev = [int(f"{i:0{bits}b}"[::-1], 2) if bits else 0 for i in range(r)]
+        v = v[:, rev]
+        y = np.empty_like(x)
+        dst = (j // ns) * ns * r + j % ns
+        y[dst[:, None] + np.arange(r)[None, :] * ns] = v
+        x, ns = y, ns * r
+    return x
+
+
+@pytest.mark.parametrize("nfft", [1 << k for k in range(2, 14)])
+def test_fastfir_fft_plan_matches_torch_fft(nfft):
+    """Every nfft the kernel takes: its radix plan and twiddle indices,
+    emulated pass by pass, give torch.fft's forward and (unscaled)
+    inverse transforms within K2's tolerance, 5e-5 x peak."""
+    rng = np.random.default_rng(13)
+    ept, radices = fastfir.fft_plan(nfft)
+    assert int(np.prod(radices)) == nfft and all(ept % r == 0
+                                                 for r in radices)
+    assert nfft // ept <= fastfir.MAX_THREADS
+    x = _cplx(rng, nfft, 100.0)
+    for inverse, ref in ((False, torch.fft.fft),
+                         (True, lambda a: torch.fft.ifft(a) * nfft)):
+        want = ref(torch.from_numpy(x)).numpy()
+        got = _fft_emulated(x, inverse)
+        np.testing.assert_allclose(got, want,
+                                   atol=5e-5 * np.abs(want).max())
+
+
+def test_fastfir_cpu_stream_keeps_tail_when_block_is_shorter():
+    """A block shorter than the tail (4096/3073: 1,024 new samples, a
+    3,072-sample history): the carry keeps the history's last samples,
+    call after call, equal to filtering the concatenated stream."""
+    rng = np.random.default_rng(14)
+    tp, tc = ff_ops.init(100.0, 2800.0, 0.0, 62_500.0, "cpu", nfft=4096,
+                         ntaps=3073)
+    xs = [torch.from_numpy(_cplx(rng, 1024, 100.0)) for _ in range(4)]
+    got = []
+    for x in xs:
+        tc, y = fastfir.process(tp, tc, x)
+        got.append(y)
+    z = torch.cat([torch.zeros(3072, dtype=torch.complex64), *xs])
+    want = fastfir.filter_frames_plain(tp.h_freq, z, 3073)
+    np.testing.assert_allclose(torch.cat(got).numpy(), want.numpy(),
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(tc.tail, z[-3072:])
+
+
+@pytest.mark.parametrize("nfft,frames,want", [
+    (2048, 256, 1),       # the flagship: one 128-thread frame a block
+    (2048, 1, 1),         # the session's block
+    (2048, 64, 1),        # K6's 64 x 1
+    (2048, 1024, 2),      # K6's 4 x 256: two frames a block
+    (512, 8, 1), (64, 4096, 31), (8192, 512, 1)])
+def test_fastfir_frames_per_block(nfft, frames, want):
+    """Several frames share a block only when the call has frames to
+    spare beyond one per SM, and a block never exceeds the kernel's
+    thread limit."""
+    fpb = fastfir.frames_per_block(nfft, frames, N_SM)
+    assert fpb == want
+    assert fpb * (nfft // fastfir.fft_plan(nfft)[0]) <= fastfir.MAX_THREADS
+
+
+def test_mixdec_launch_plan_rejects_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        mixdec.launch_plan(1024, 1, 24, 100, N_SM)      # D not 2^k
+    with pytest.raises(ValueError):
+        mixdec.launch_plan(1024, 1, 32, 40_000, N_SM)   # taps beyond smem
