@@ -1,13 +1,20 @@
-"""Device time of the mixdec (K1) and fastfir (K2, K6) kernels on one
-NVIDIA GPU, at the main paths' shapes.
+"""Device time of the mixdec (K1), fastfir (K2, K6) and banded resampler
+(K9) kernels and of the AGC's guess-verify solve (K4) on one NVIDIA GPU,
+at the main paths' shapes.
 
-    python3 chip_kernel_times.py [--root DIR]
+    python3 chip_kernel_times.py [--root DIR] [--only PREFIX,...]
 
 Imports ``cutesdr_tpu_torch`` from DIR (default: this file's directory),
 so that an unpacked ``git archive`` of another commit, which builds its
 own kernels into its own ``build/``, can be timed in the same call on the
-same card: run it for each tree in turn (a, b, b, a) and compare.  Uses
-only the wrappers' public calls, which every version of the port has.
+same card (``--only`` keeps the cases whose label starts with one of the
+prefixes): run it for each tree in turn (a, b, b, a) and compare.  Uses
+only the wrappers' public calls and long-standing module functions
+(``resampler._times``, ``agc._prefix``, ``agc._two_rate_parallel``),
+which every version of the port since the resampler kernel has.  The AGC
+solve is timed as the receiver calls it, one two-rate averager through
+``agc._two_rate_parallel``, where the call time (``ms``) is what counts:
+the rounds' host reads are the cost there.
 
 Each case first runs back to back for half a second, so that the card's
 clocks settle under its load.  Prints one JSON line per case: the
@@ -169,18 +176,60 @@ def fastfir_case(fastfir, design_fastfir, gen, n_ch, frames):
     return lambda: fastfir.filter_frames_batch(hf, z, 1025)
 
 
+def resamp_case(resampler, resamp, gen, n_streams, n, ratio, nominal,
+                cplx):
+    """A banded-resampler call over ``n_streams`` blocks of ``n`` samples
+    at ``ratio`` (capacity sized for ``nominal``), 28 taps, exact
+    positions, output times from a random start, as
+    ``ops/resampler._banded_process`` forms them."""
+    params, _ = resampler.init(ratio, "cuda", complex_input=cplx)
+    periods = resampler.SINC_PERIODS
+    K, M = resampler.band_size(n, resampler.max_out_for(n, nominal), periods)
+    t0 = torch.rand(n_streams, 1, generator=gen, device="cuda") * ratio
+    t_int, t_frac = resampler._times(
+        params, t0, torch.arange(K, dtype=torch.float32, device="cuda"))
+    z = torch.randn(n_streams, n + periods, generator=gen, device="cuda",
+                    dtype=torch.complex64 if cplx else torch.float32) * 1000.0
+    return lambda: resamp.resample_band(z, t_int, t_frac, M, periods, True)
+
+
+def agc_case(agc, gen, n, kind):
+    """One two-rate averager (the attack's) of the AGC over n samples at
+    62.5 kHz, as the receiver calls it: the window peak of a -30 dBFS tone
+    in unit noise (the flagship's steady state), or of noise under an
+    envelope stepping every 512 samples over 30 dB (more rounds)."""
+    cfg = agc.AgcConfig(True, False, 62_500.0)
+    p = agc.make_params(cfg, -100.0, 30.0, 0.0, 200.0)
+    noise = torch.randn(n, generator=gen, device="cuda",
+                        dtype=torch.complex64)
+    if kind == "tone":
+        k = torch.arange(n, device="cuda", dtype=torch.float64)
+        x = (1036.0 * torch.exp(2j * torch.pi * 1000.0 * k / 62_500.0)
+             ).to(torch.complex64) + noise
+    else:
+        env = 10.0 ** (1 + 3 * torch.rand(n // 512, generator=gen,
+                                          device="cuda"))
+        x = noise * env.repeat_interleave(512)
+    c = agc.init_carry(cfg, "cuda")
+    peak = agc._prefix(cfg, c, x)[2]
+    return lambda: agc._two_rate_parallel(
+        p.attack_rise_alpha, p.attack_fall_alpha, c.attack_ave, peak,
+        agc.GUESS_ITERS, True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    root = os.path.dirname(os.path.abspath(__file__))
-    if sys.argv[1:2] == ["--root"]:
-        root = os.path.abspath(sys.argv[2])
+    args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+    root = os.path.abspath(args.get("--root",
+                                    os.path.dirname(os.path.abspath(__file__))))
+    only = tuple(args["--only"].split(",")) if "--only" in args else ("",)
     sys.path.insert(0, root)
     from cutesdr_tpu_torch.design.decimation_plan import plan_decimation
     from cutesdr_tpu_torch.design.fastfir_design import design_fastfir
-    from cutesdr_tpu_torch.kernels import _build, fastfir, mixdec
-    from cutesdr_tpu_torch.ops import nco
+    from cutesdr_tpu_torch.kernels import _build, fastfir, mixdec, resamp
+    from cutesdr_tpu_torch.ops import agc, nco, resampler
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -189,6 +238,8 @@ def main() -> int:
     gen.manual_seed(SEED)
     md = lambda *a: mixdec_case(mixdec, plan_decimation, nco, gen, *a)
     ff = lambda *a: fastfir_case(fastfir, design_fastfir, gen, *a)
+    rs = lambda *a: resamp_case(resampler, resamp, gen, *a)
+    flagship = 62_500.0 / 48_000.0
     cases = [
         ("mixdec flagship (1 x 8,388,608, D=32)", md(2e6, N_IN, 0, True)),
         ("mixdec session block (1 x 32,768, D=32)", md(2e6, 32_768, 0, True)),
@@ -200,8 +251,22 @@ def main() -> int:
         ("fastfir 1 frame", ff(0, 1)),
         ("fastfir_batch 64 x 1", ff(64, 1)),
         ("fastfir_batch 4 x 256", ff(4, 256)),
+        ("resamp 1 x 262,144 rate-locked",
+         rs(1, 262_144, flagship * (1 + 50e-6), flagship, False)),
+        ("resamp 1 x 1,024 session block",
+         rs(1, 1024, flagship, flagship, False)),
+        ("resamp 64 x 1,024 bank",
+         rs(64, 1024, 78_125.0 / 48_000.0, 78_125.0 / 48_000.0, False)),
+        ("resamp 4 x 32,768 complex",
+         rs(4, 32_768, 31_250.0 / 48_000.0 * (1 + 1e-4),
+            31_250.0 / 48_000.0, True)),
+        ("agc solve 262,144 tone", agc_case(agc, gen, 262_144, "tone")),
+        ("agc solve 262,144 envelope",
+         agc_case(agc, gen, 262_144, "envelope")),
     ]
     for label, fn in cases:
+        if not label.startswith(only):
+            continue
         warm_up(fn)
         dev, dev_by = device_ms(fn)
         clock = sm_clock_mhz()

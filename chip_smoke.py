@@ -16,9 +16,11 @@ with the input resident on the card, each over chained steps, 48 kHz
 audio (``path_specs``):
 
 * the flagship, USB at 2 MSPS, tune 100 kHz, frames_per_block=256
-  (8,388,608 input samples), the same with hang-mode AGC, and the same
-  with the resample ratio 50 ppm off nominal (the audio rate lock), so
-  its 262,144-sample tail takes the banded resampler kernel;
+  (8,388,608 input samples), the same with hang-mode AGC, the same with
+  the resample ratio 50 ppm off nominal (the audio rate lock), so its
+  262,144-sample tail takes the banded resampler kernel, and the same
+  width with the 16384/8193 channel filter that design/latency grows to
+  (a size the fastfir kernel does not take: the plain FFT route);
 * FM, SAM and AM at frames_per_block=256 (262,144 demodulated samples,
   8,388,608 or 16,777,216 input samples), each recovering its modulating
   tone; SAM's first block acquires through the seqloop_sam kernel;
@@ -34,7 +36,8 @@ audio (``path_specs``):
   USB) with the noise blanker and the spectrum display, fed int16 planes
   of a tone with impulses while an audio consumer drains its queue
   100 ppm fast (so the rate lock moves the ratio) and the mode walks
-  usb -> am -> fm -> usb (``check_session``).
+  usb -> am -> fm -> usb, then a usb -> am walk with a 29-tap sinc (odd
+  P through the resampler kernel) (``check_session``).
 
 Before each path every launch count is set to 0; after it, every kernel
 that the path's configuration routes to must have launched, and no other.
@@ -78,6 +81,7 @@ from cutesdr_tpu_torch.kernels import (  # noqa: E402
 from cutesdr_tpu_torch.ops import (  # noqa: E402
     agc, nco, noiseblanker, resampler)
 from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
+from cutesdr_tpu_torch.ops.util import first_order_recurrence  # noqa: E402
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
 from cutesdr_tpu_torch.pipeline import spectrum  # noqa: E402
 from cutesdr_tpu_torch.session import ReceiverSession  # noqa: E402
@@ -97,7 +101,7 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                       "cutesdr_tpu/kernels/fastfir4.py:297"),
     "scan_plain": ("cutesdr_tpu_torch/csrc/scan.cu",
                    "cutesdr_tpu/kernels/scan1.py:137"),
-    "scan_round": ("cutesdr_tpu_torch/csrc/scan.cu",
+    "scan_solve": ("cutesdr_tpu_torch/csrc/scan.cu",
                    "cutesdr_tpu/kernels/scan1.py:243"),
     "smeter": ("cutesdr_tpu_torch/csrc/smeter.cu",
                "cutesdr_tpu/kernels/scan1.py:398"),
@@ -416,12 +420,10 @@ def check_scans(gen, results):
     (xk, npk, ck), (xp, npp, cp) = run_k(), run_p()
     n_flip = int((npk != npp).sum())
     if n_flip > 4 or abs(int(ck) - int(cp)) > 4:
-        raise AssertionError(f"scan_round pattern/count differ: {n_flip} "
-                             f"flips, count {int(ck)} vs {int(cp)}")
-    # bytes: peaks and pattern in, values and pattern out; operations: the
-    # two branch updates and their comparison a sample
-    compare("scan_round", [xk], [xp], 1e-5, results, run_k, run_p,
-            work=(10 * n, 6 * n))
+        raise AssertionError(f"scan_solve one round: pattern/count differ: "
+                             f"{n_flip} flips, count {int(ck)} vs {int(cp)}")
+    compare("scan_solve", [xk], [xp], 1e-5, results, run_k, run_p,
+            " one round")
 
     mag = randn(n, gen, 10.0) - 60.0
     aa, ad = np.float32(1 / 625.0), np.float32(1 / 31250.0)
@@ -434,15 +436,113 @@ def check_scans(gen, results):
             run_p, work=(4 * n, 5 * n))
 
 
+def flagship_agc_inputs(gen) -> list[tuple]:
+    """The two-rate averagers' inputs of a flagship USB block after one
+    warm block: (peak, x0, rise, fall, n_iters) of each solve the AGC
+    launches, recorded at the solve's entry."""
+    cfg = rx.ReceiverConfig(mode="usb", input_rate=2e6, tune_freq=100e3,
+                            frames_per_block=256)
+    r = rx.Receiver(cfg)
+    blocks = stimulus(cfg, 2, gen, carriers=({"offset_hz": 1000.0},))
+    r.process(blocks[0])
+    seen, real = [], scan.guess_verify_solve
+    scan.guess_verify_solve = lambda *a: seen.append(a) or real(*a)
+    try:
+        r.process(blocks[1])
+    finally:
+        scan.guess_verify_solve = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def envelope_peak(gen, n: int) -> torch.Tensor:
+    """The AGC window peak of seeded noise under a stepping envelope (one
+    level every 512 samples over 30 dB): a series whose averagers take
+    several guess-verify rounds."""
+    cfg = agc.AgcConfig(True, False, 62_500.0)
+    env = 10.0 ** (1 + 3 * torch.rand(n // 512, generator=gen,
+                                      device="cuda")).repeat_interleave(512)
+    x = torch.complex(randn(n, gen), randn(n, gen)) * env
+    return agc._prefix(cfg, agc.init_carry(cfg, "cuda"), x)[2]
+
+
+def exact_solve(args, x: torch.Tensor) -> torch.Tensor:
+    """The float64 solve of the two-rate averager with the branch pattern
+    that the trajectory ``x`` induces (its converged pattern) and the
+    float32 coefficients both versions use: the reference that shows
+    each version's own float32 reassociation error."""
+    peak, x0, rise, fall = args[:4]
+    one = np.float32(1.0)
+    pat = peak > scan.shift1(x, x0)
+    A = torch.where(pat, float(one - rise), float(one - fall))
+    B = torch.where(pat, float(rise), float(fall)).float() * peak
+    return first_order_recurrence(A.double(), B.double(), x0.double())
+
+
+def check_guess_verify(gen, results):
+    """The guess-verify solve (one launch: warm start and every round)
+    against its plain version (the per-round loop): the flagship's two
+    averagers on a real USB block, and a stepping envelope's attack
+    averager, which takes several rounds; the same ok, rounds within one,
+    x within 1e-5 decades of the plain version's x plus the plain
+    version's own distance from the float64 solve of its pattern (the
+    decay averager's 12,500-sample memory puts the plain log-depth solve
+    ~8e-5 from it; the attack's, ~1.5e-6), and the kernel no farther
+    from the float64 solve than that, or 1e-5.  With two rounds allowed
+    the envelope does not converge, and the kernel must say so."""
+    cases = [(f" flagship {'attack' if i == 0 else 'decay'}", a)
+             for i, a in enumerate(flagship_agc_inputs(gen))]
+    pk = envelope_peak(gen, N_DEMOD)
+    p = agc.make_params(agc.AgcConfig(True, False, 62_500.0), -100.0, 30.0,
+                        0.0, 200.0)
+    env = (pk, torch.tensor(-5.0, device="cuda"), p.attack_rise_alpha,
+           p.attack_fall_alpha, agc.GUESS_ITERS)
+    cases.append((" envelope", env))
+    if len(cases) != 3:
+        raise AssertionError(f"the flagship block ran {len(cases) - 1} "
+                             "guess-verify solves, not 2")
+    for label, args in cases:
+        run_k = lambda: scan.guess_verify_solve(*args)
+        run_p = lambda: scan.guess_verify_solve_plain(*args)
+        (xk, okk, rk), (xp, okp, rp) = run_k(), run_p()
+        okk, rk, okp = bool(okk), int(rk), bool(okp)
+        phase(f"  scan_solve{label}: ok {okk} (plain {okp}), rounds {rk} "
+              f"(plain {rp})")
+        if okk != okp or abs(rk - rp) > 1:
+            raise AssertionError(f"scan_solve{label}: ok {okk} / {okp}, "
+                                 f"rounds {rk} / {rp}")
+        if label == " envelope" and rp < 3:
+            raise AssertionError(f"the envelope took {rp} rounds, not >= 3")
+        err_k = float((xk.double() - exact_solve(args, xk)).abs().max())
+        err_p = float((xp.double() - exact_solve(args, xp)).abs().max())
+        phase(f"  scan_solve{label}: from the float64 solve of its pattern "
+              f"kernel {err_k:.3e}, plain {err_p:.3e}")
+        if err_k > max(err_p, 1e-5):
+            raise AssertionError(f"scan_solve{label}: the kernel is "
+                                 f"{err_k:.3e} from the exact solve, the "
+                                 f"plain version {err_p:.3e}")
+        n = args[0].numel()
+        # bytes: the peaks in, x out; operations: per round run the two
+        # branch updates and their comparison a sample, and the warm start
+        compare("scan_solve", [xk], [xp], 1e-5 + err_p, results, run_k,
+                run_p, "" if label == " flagship attack" else label,
+                work=(8 * n, 6 * n * (rk + 1)))
+    x, ok, rounds = scan.guess_verify_solve(*env[:4], 2)
+    phase(f"  scan_solve envelope, 2 rounds allowed: ok {bool(ok)}, rounds "
+          f"{int(rounds)}")
+    if bool(ok) or int(rounds) != 2:
+        raise AssertionError("scan_solve: a solve cut at 2 rounds reported "
+                             "convergence")
+
+
 def resamp_case(gen, n_streams: int, n: int, ratio: float, nominal: float,
-                cplx: bool):
+                cplx: bool, periods: int = resampler.SINC_PERIODS):
     """The banded resampler's inputs for ``n_streams`` blocks of ``n``
     samples at ``ratio`` (capacity sized for ``nominal``, as the receiver
     sizes it), as ``ops/resampler._banded_process`` forms them: z =
     [tail | block] and the output times from a random start in [0, dt).
     Returns (z, t_int, t_frac, M, valid)."""
     params, _ = resampler.init(ratio, "cuda", complex_input=cplx)
-    periods = resampler.SINC_PERIODS
     K, M = resampler.band_size(n, resampler.max_out_for(n, nominal), periods)
     t0 = torch.rand(n_streams, 1, generator=gen, device="cuda") * ratio
     t_int, t_frac = resampler._times(
@@ -453,26 +553,32 @@ def resamp_case(gen, n_streams: int, n: int, ratio: float, nominal: float,
     return z.reshape(n_streams, -1), t_int, t_frac, M, t_int < n
 
 
-def check_resamp(gen, results):
+def check_resamp(gen, results, gen_new):
     """K9 against its plain version on the valid outputs (the caller masks
     the rest): the flagship's rate-locked tail (1 x 262,144 at 125/96
     x (1 + 50e-6)) in both modes, the 64-channel bank's tail (64 x 1,024 at
     78,125/48,000), a complex stereo tail (4 x 32,768 at 31,250/48,000 x
-    (1 + 1e-4)), and the session's default block (1 x 1,024 at 125/96,
-    timed for a later gate)."""
+    (1 + 1e-4)), the session's default block (1 x 1,024 at 125/96), and
+    the flagship's tail with a 29-tap sinc (odd P: the plain version's
+    direct form against the kernel's separable one; its inputs from
+    ``gen_new``, so the other cases' inputs stay those of earlier runs)."""
     flagship = 62_500.0 / 48_000.0
-    cases = [("", 1, N_DEMOD, flagship * (1 + 50e-6), flagship, False, True),
+    P = resampler.SINC_PERIODS
+    cases = [("", 1, N_DEMOD, flagship * (1 + 50e-6), flagship, False, True,
+              P),
              (" interp=False", 1, N_DEMOD, flagship * (1 + 50e-6), flagship,
-              False, False),
+              False, False, P),
              (" bank 64x1024", 64, 1024, 78_125.0 / 48_000.0,
-              78_125.0 / 48_000.0, False, True),
+              78_125.0 / 48_000.0, False, True, P),
              (" stereo 4x32768", 4, 32_768, 31_250.0 / 48_000.0 * (1 + 1e-4),
-              31_250.0 / 48_000.0, True, True),
-             (" 1x1024", 1, 1024, flagship, flagship, False, True)]
-    periods = resampler.SINC_PERIODS
-    for label, n_st, n, ratio, nominal, cplx, interp in cases:
-        z, t_int, t_frac, M, valid = resamp_case(gen, n_st, n, ratio,
-                                                 nominal, cplx)
+              31_250.0 / 48_000.0, True, True, P),
+             (" 1x1024", 1, 1024, flagship, flagship, False, True, P),
+             (" P=29", 1, N_DEMOD, flagship * (1 + 50e-6), flagship, False,
+              True, 29)]
+    for label, n_st, n, ratio, nominal, cplx, interp, periods in cases:
+        z, t_int, t_frac, M, valid = resamp_case(
+            gen if periods == P else gen_new, n_st, n, ratio, nominal, cplx,
+            periods)
         run_k = lambda: resamp.resample_band(z, t_int, t_frac, M, periods,
                                              interp)
         run_p = lambda: resamp.resample_band_plain(z, t_int, t_frac, M,
@@ -490,8 +596,11 @@ def check_resamp(gen, results):
         compare("resamp", planes(yk), planes(yp),
                 RESAMP_TOL * float(yp.abs().max()), results, run_k, run_p,
                 label, work=work)
+        lp = resamp.launch_plan(t_int.shape[-1], n_st, M, periods,
+                                _build.sm_count(z.device))
         phase(f"  ({n_st} x {n}, {t_int.shape[-1]} outputs a stream, "
-              f"M = {M}, ratio {ratio:.9f}, "
+              f"M = {M}, P = {periods}, {lp.blocks * n_st} blocks of "
+              f"{lp.outputs_per_block} outputs, ratio {ratio:.9f}, "
               f"{'complex' if cplx else 'real'}, interp={interp}, "
               f"bound {bound(*work)['bound_ms']:.4f} ms)")
 
@@ -679,6 +788,24 @@ def check_other_shapes(gen):
     phase(f"kernel scan_plain n={n}: max_abs_err {err:.3e}")
 
 
+def check_plain_filter_sizes(gen):
+    """Channel-filter sizes the fastfir kernel does not take (design/
+    latency's 16384/8193, nfft = 2000) stream through the plain FFT
+    route on the card: no launch, the plain streaming form's result."""
+    for nfft, ntaps in ((16384, 8193), (2000, 1025)):
+        pk, ck = ff_ops.init(100.0, 2800.0, 0.0, 62_500.0, "cuda",
+                             nfft=nfft, ntaps=ntaps)
+        x = torch.complex(randn(2 * (nfft - ntaps + 1), gen, 100.0),
+                          randn(2 * (nfft - ntaps + 1), gen, 100.0))
+        before = dict(kernels.LAUNCHES)
+        _, yk = fastfir.process(pk, ck, x)
+        _, yp = ff_ops.process(pk, ck, x)
+        if kernels.LAUNCHES != before or not torch.equal(yk, yp):
+            raise AssertionError(f"fastfir {nfft}/{ntaps} did not take the "
+                                 "plain route")
+        phase(f"fastfir {nfft}/{ntaps}: the plain FFT route, no launch")
+
+
 def snr_db(want, got, skip=0):
     """SNR of ``got`` against ``want`` (real or complex) from ``skip``."""
     n = min(len(want), len(got))
@@ -862,11 +989,17 @@ def routed_kernels(cfg, bank: bool, params) -> set[str]:
     (the seqloops by the tiers the demods report as taken).  A bank never
     takes the single-stream scan and S-meter kernels."""
     n = cfg.fastfir_valid * cfg.frames_per_block
-    want = {"mixdec", "fastfir_batch" if bank else "fastfir"}
+    want = {"mixdec"}
+    if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
+        want.add("fastfir_batch" if bank else "fastfir")
     if banded_tail(cfg, bank, params):
         want.add("resamp")
     if not bank and cfg.agc_on and scan.supported(n):
-        want |= {"scan_plain", "scan_round"}
+        # the attack averager, and the decay averager unless in hang mode
+        # (its rounds solve through the plain scan)
+        want.add("scan_solve")
+        if cfg.agc_hang:
+            want.add("scan_plain")
     if not bank and scan.smeter_supported(n):
         want.add("smeter")
     if fm.STATS["scan"]:
@@ -1073,6 +1206,13 @@ def path_specs() -> list:
          dict(streams=(tone(offset_hz=1000.0), tone(offset_hz=1500.0))), 3,
          dict(tones=((0, 1000.0), (1, 1500.0)), steps=4,
               may_fall_back=False)),
+        # design/latency's grown filter: the plain FFT route, no fastfir
+        ("usb nfft16384", "single",
+         rx.ReceiverConfig(mode="usb", input_rate=2e6, tune_freq=100e3,
+                           frames_per_block=32, fastfir_nfft=16384,
+                           fastfir_ntaps=8193), None,
+         tone(offset_hz=1000.0), 3,
+         dict(tones=((0, 1000.0),), steps=2, may_fall_back=False)),
     ]
 
 
@@ -1189,27 +1329,29 @@ def session_planes(cfg, n: int, seed: int):
             np.round(x.imag).astype(np.int16), hits)
 
 
-def session_cfg():
+def session_cfg(periods: int = resampler.SINC_PERIODS):
     """The session's configuration: the default block (one frame), 2 MSPS
-    USB tuned 100 kHz up, the noise blanker on."""
+    USB tuned 100 kHz up, the noise blanker on; ``periods`` sinc taps."""
     return rx.ReceiverConfig(input_rate=2e6, mode="usb", tune_freq=100e3,
-                             nb_on=True)
+                             nb_on=True, resampler_periods=periods)
 
 
-def check_session(gpu_label: str) -> dict:
+def check_session(gpu_label: str, periods: int = resampler.SINC_PERIODS,
+                  walk=SESSION_WALK, n_blocks: int = 512) -> dict:
     """``session usb nb``: a ReceiverSession at the default configuration
-    with the noise blanker and the spectrum display, fed int16 planes of
-    ``session_planes`` (8.4 s of signal) through ``pump_planes`` in
-    131 ms packets while an audio consumer drains ``audio_queue`` 100 ppm
-    fast, walking the modes of ``SESSION_WALK``.  Checks: no input sample
-    dropped, the rate lock moved the ratio, each mode's tone in its audio
-    after a 0.5 s transient, the spectrum peak at the tone, the impulses
-    blanked, every tensor on the card, the launches the path routes to.
-    Prints the real-time factor (signal seconds over wall seconds).
-    Returns the launch counts."""
-    cfg = session_cfg()
+    (``periods`` sinc taps) with the noise blanker and the spectrum
+    display, fed int16 planes of ``session_planes`` (``n_blocks`` blocks:
+    8.4 s of signal at 512) through ``pump_planes`` in 131 ms packets
+    while an audio consumer drains ``audio_queue`` 100 ppm fast, walking
+    the modes of ``walk``.  Checks: no input sample dropped, the rate
+    lock moved the ratio, each mode's tone in its audio after a 0.5 s
+    transient, the spectrum peak at the tone, the impulses blanked, every
+    tensor on the card, the launches the path routes to.  Prints the
+    real-time factor (signal seconds over wall seconds).  Returns the
+    launch counts."""
+    cfg = session_cfg(periods)
     bs = cfg.block_size
-    n = bs * 512
+    n = bs * n_blocks
     re, im, hits = session_planes(cfg, n, SEED)
     packet = bs * 8
     n_packets = n // packet
@@ -1219,14 +1361,14 @@ def check_session(gpu_label: str) -> dict:
         stats.update(dict.fromkeys(stats, 0))
     sess = ReceiverSession(cfg)
     sess.audio_queue = RecordingQueue(stereo=cfg.stereo)
-    sess.precompile([m for m, _ in SESSION_WALK])
+    sess.precompile([m for m, _ in walk])
     sess.start()
     t0 = time.perf_counter()
     marks, consumed = [], 0
-    seg = -(-n_packets // len(SESSION_WALK))
+    seg = -(-n_packets // len(walk))
     for i in range(n_packets):
         if i % seg == 0:
-            sess.set_mode(SESSION_WALK[i // seg][0])
+            sess.set_mode(walk[i // seg][0])
             marks.append(len(sess.audio_queue.blocks))
         sl = slice(i * packet, (i + 1) * packet)
         sess.pump_planes(re[sl], im[sl])
@@ -1240,7 +1382,8 @@ def check_session(gpu_label: str) -> dict:
     signal_s = n / cfg.input_rate
     m = sess.metrics
     ratio = sess.receiver.params.resamp
-    phase(f"session usb nb: {signal_s:.2f} s of signal in {wall:.2f} s wall,"
+    phase(f"session usb nb P={periods}: {signal_s:.2f} s of signal in "
+          f"{wall:.2f} s wall,"
           f" {signal_s / wall:.3f}x real time; samples_in {m.samples_in} of "
           f"{n}, blocks {m.blocks}, audio out {m.audio_samples_out}, ppm "
           f"{m.ppm_error:+d}, correction {sess._last_correction:.3e}, "
@@ -1253,7 +1396,7 @@ def check_session(gpu_label: str) -> dict:
         raise AssertionError("session: the rate lock never moved the ratio")
 
     blocks = sess.audio_queue.blocks
-    for k, (mode, tone_hz) in enumerate(SESSION_WALK):
+    for k, (mode, tone_hz) in enumerate(walk):
         end = marks[k + 1] if k + 1 < len(marks) else len(blocks)
         audio = np.concatenate(blocks[marks[k]:end]).astype(np.float64)
         tone_ratio(audio[24_000:], 48_000.0, tone_hz,
@@ -1348,6 +1491,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    # a second stream of inputs for the later checks, so that the earlier
+    # checks' inputs stay as they were
+    gen_new = torch.Generator(device="cuda")
+    gen_new.manual_seed(SEED + 6)
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
         return 0
@@ -1361,14 +1508,19 @@ def main() -> int:
     check_fastfir(gen, results)
     check_fastfir_batch(gen, results)
     check_scans(gen, results)
-    check_resamp(gen, results)
+    check_guess_verify(gen_new, results)
+    check_resamp(gen, results, gen_new)
     check_seqloops(gen, results)
     check_seqloops_bank(gen)
     check_other_shapes(gen)
+    check_plain_filter_sizes(gen_new)
     check_fixtures()
     check_refgold_extras()
     launches = check_paths(gen, smi)
     for k, v in check_session(smi).items():
+        launches[k] += v
+    # an odd sinc length: the session's banded tails through K9 at P = 29
+    for k, v in check_session(smi, 29, SESSION_WALK[:2]).items():
         launches[k] += v
     never = [k for k, v in launches.items() if v == 0]
     if never:

@@ -51,9 +51,10 @@ SIGNATURES = {
                         I64, I64, P],
     # a, b, x0, n, x, totals_a, totals_b, starts, stream
     "cutesdr_scan_plain": [P, P, P, I32, P, P, P, P, P],
-    # peak, pattern, rise, fall, x0, n, x, newpat, count, totals_a,
-    # totals_b, starts, stream
-    "cutesdr_scan_round": [P, P, F32, F32, P, I32, P, P, P, P, P, P, P],
+    # peak, pattern_in, rise, fall, ag, x0, n, n_iters, x, pattern, counts,
+    # result, totals_a, totals_b, stream
+    "cutesdr_scan_solve": [P, P, F32, F32, F32, P, I32, I32, P, P, P, P, P,
+                           P, P],
     # mag, attack, decay, a0, d0, n, out, totals_a, totals_b, starts,
     # maps_c, maps_u, maps_v, stream
     "cutesdr_smeter": [P, F32, F32, P, P, I32, P, P, P, P, P, P, P, P],
@@ -62,9 +63,10 @@ SIGNATURES = {
     # theta, n, n_ch, alpha, beta, limit, state0, prev, state, stream
     "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, P, P, P, P],
     # zr, zi, z_cstride, es, nz, t_int, t_frac, t_cstride, n_out, tables,
-    # M, periods, interp, span_cap, n_streams, yr, yi, y_cstride, ys, stream
+    # M, periods, interp, lanes, outputs_per_block, taps_per_lane, span,
+    # n_streams, yr, yi, y_cstride, ys, stream
     "cutesdr_resamp": [P, P, I64, I32, I32, P, P, I64, I32, P, I32, I32, I32,
-                       I32, I32, P, P, I64, I32, P],
+                       I32, I32, I32, I32, I32, P, P, I64, I32, P],
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,10 @@ path never concatenates them.  H stays in natural order (the JAX
 kernel's pre-permuted ``h2`` answered the TPU's four-step layout) and
 already holds 1/NFFT, so the inverse is not scaled again.  CPU tensors
 take the plain version, ``ops.fastfir.filter_frames``, which takes either
-shape.
+shape.  So does a size the kernel does not take (``kernel_supported``):
+a decision from the shape alone, made before any launch, as the JAX
+package gates its Pallas filter on ``fastfir4_supported`` and runs other
+sizes on the XLA FFT (a latency-sized 16384/8193 filter, nfft = 2000).
 """
 
 from __future__ import annotations
@@ -43,6 +46,14 @@ def fft_plan(nfft: int) -> tuple[int, tuple[int, ...]]:
     lg = nfft.bit_length() - 1
     n_pass = -(-lg // 4)
     return ept, (16,) * (n_pass - 1) + (nfft >> 4 * (n_pass - 1),)
+
+
+def kernel_supported(nfft: int, ntaps: int) -> bool:
+    """Whether K2/K6 take a filter size: a power-of-2 nfft from 4 to 8192
+    and a positive overlap-save hop.  Other sizes run the plain FFT
+    route on either device."""
+    return (nfft & (nfft - 1) == 0 and 4 <= nfft <= 8192
+            and nfft - (ntaps - 1) > 0)
 
 
 def frames_per_block(nfft: int, frames: int, n_sm: int) -> int:
@@ -78,10 +89,10 @@ def _launch(h_freq: torch.Tensor, tail: torch.Tensor, x: torch.Tensor,
     t = tail.shape[-1]
     valid = nfft - t
     n = x.shape[-1]
-    if nfft & (nfft - 1) or not 4 <= nfft <= 8192:
-        raise ValueError(f"fastfir kernel needs a power-of-2 nfft <= 8192, "
-                         f"got {nfft}")
-    if valid <= 0 or n % valid:
+    if not kernel_supported(nfft, t + 1):
+        raise ValueError(f"fastfir kernel needs a power-of-2 nfft <= 8192 "
+                         f"and a positive hop, got {nfft}/{t + 1}")
+    if n % valid:
         raise ValueError(f"fastfir block length {n} not a multiple of {valid}")
     _require_rows(tail, "tail", t, rows)
     _require_rows(x, "x", n, rows)
@@ -104,7 +115,8 @@ def filter_frames(h_freq: torch.Tensor, z: torch.Tensor,
                   ntaps: int = ff_ops.NFIR) -> torch.Tensor:
     """Overlap-save core on an explicit [ntaps-1 + n] history+block
     buffer; returns the n filtered samples."""
-    if _build.on_cpu(h_freq, z):
+    if _build.on_cpu(h_freq, z) or \
+            not kernel_supported(h_freq.shape[-1], ntaps):
         return filter_frames_plain(h_freq, z, ntaps)
     return _launch(h_freq, z[..., :ntaps - 1], z[..., ntaps - 1:], None,
                    "fastfir")
@@ -114,7 +126,8 @@ def filter_frames_batch(h_freq: torch.Tensor, z: torch.Tensor,
                         ntaps: int = ff_ops.NFIR) -> torch.Tensor:
     """The bank form: z [C, ntaps-1 + n] (per-channel history + block) and
     h_freq [C, nfft]; returns [C, n].  One launch for the bank."""
-    if _build.on_cpu(h_freq, z):
+    if _build.on_cpu(h_freq, z) or \
+            not kernel_supported(h_freq.shape[-1], ntaps):
         return filter_frames_plain(h_freq, z, ntaps)
     return _launch(h_freq, z[..., :ntaps - 1], z[..., ntaps - 1:],
                    z.shape[0], "fastfir_batch")
@@ -124,10 +137,12 @@ def _stream(params: ff_ops.FastFirParams, carry: ff_ops.FastFirCarry,
             x: torch.Tensor, name: str
             ) -> tuple[ff_ops.FastFirCarry, torch.Tensor]:
     """[tail | x] through the filter: on the card the kernel reads the two
-    directly; on the CPU the plain streaming form concatenates them."""
+    directly; on the CPU, and for a size the kernel does not take, the
+    plain streaming form concatenates them."""
     tail = carry.tail
     t = tail.shape[-1]
-    if _build.on_cpu(params.h_freq, tail, x):
+    if _build.on_cpu(params.h_freq, tail, x) or \
+            not kernel_supported(params.h_freq.shape[-1], t + 1):
         return ff_ops.process(params, carry, x)
     rows = tail.shape[0] if tail.dim() == 2 else None
     y = _launch(params.h_freq, tail, x, rows, name)

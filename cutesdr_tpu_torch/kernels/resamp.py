@@ -11,16 +11,20 @@ kernel.
 
 The plain version evaluates, for each chunk of 64 consecutive outputs, the
 weights over one M-sample window starting at the chunk's 128-aligned base
-b0 (M weights per output, of which P are non-zero).  CUDA tensors launch
-``csrc/resamp.cu``, which uses the same chunks and bases, so each weight is
-the same number, but evaluates only the taps that can be non-zero.  A
-leading axis of z and of the times is a bank of independent streams (one
-launch for the bank); complex z is two planes under one set of weights.
+b0 (M weights per output, of which P are non-zero): in the separable form
+of ``sinc_band`` for even P, in the JAX package's direct form
+(``sinc_value``) for odd P.  CUDA tensors launch ``csrc/resamp.cu``, which
+uses the same chunks and bases and the separable form for every P, but
+evaluates only the taps that can be non-zero, two or eight lanes to an
+output (``launch_plan``).  A leading axis of z and of the times is a bank of
+independent streams (one launch for the bank); complex z is two planes
+under one set of weights.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,6 +34,9 @@ from cutesdr_tpu_torch.types import CDTYPE, K_PI, RDTYPE
 
 SINC_PERIOD_PTS = 10000      # the reference table's points per period
 CHUNK = 64                   # outputs per chunk
+THREADS = 256                # kernel threads per block (RS_THREADS)
+# taps per lane the kernel unrolls fully, by lanes per output
+UNROLLED = {8: (4, 8), 2: (16, 32)}
 # Blackman-Harris 4-term coefficients (design/windows.py)
 BH_COEFS = (0.35875, 0.48829, 0.14128, 0.01168)
 
@@ -54,6 +61,14 @@ def _tables_on(M: int, periods: int, device: str) -> torch.Tensor:
     return torch.from_numpy(band_tables(M, periods)).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def _kernel_tables_on(M: int, periods: int, device: str) -> torch.Tensor:
+    """``band_tables`` as the kernel reads them: [3, M] pairs (cm_k,
+    sm_k)."""
+    t = band_tables(M, periods).reshape(3, 2, M).transpose(0, 2, 1)
+    return torch.from_numpy(np.ascontiguousarray(t)).to(device)
+
+
 def sinc_band(Ti: torch.Tensor, tf: torch.Tensor, M: int,
               periods: int) -> torch.Tensor:
     """Windowed-sinc weights over a band, sv[..., m] = f(m - T[...]) for
@@ -61,7 +76,8 @@ def sinc_band(Ti: torch.Tensor, tf: torch.Tensor, M: int,
     split into the static per-m factors of ``band_tables`` times per-output
     cos/sin, and the sinc numerator is one well-reduced sine per output
     times a parity sign.  The position arrives exactly decomposed (int Ti,
-    fractional tf) and is never reassembled into one float."""
+    fractional tf) and is never reassembled into one float.  Any P: for
+    odd P the parity term is taken about the half-integer P/2."""
     dev = tf.device
     m = np.arange(M)
     tables = _tables_on(M, periods, str(dev))
@@ -73,16 +89,25 @@ def sinc_band(Ti: torch.Tensor, tf: torch.Tensor, M: int,
         w = w + (torch.cos(ang_T)[..., None] * cm
                  + torch.sin(ang_T)[..., None] * sm)
 
-    im = torch.tensor(m - periods // 2, dtype=torch.int32,
-                      device=dev) - Ti[..., None]
-    vc = im.to(RDTYPE) - tf[..., None]
+    if periods % 2 == 0:
+        im = torch.tensor(m - periods // 2, dtype=torch.int32,
+                          device=dev) - Ti[..., None]
+        vc = im.to(RDTYPE) - tf[..., None]
+        rf = torch.round(tf)
+        r = tf - rf                                      # [-0.5, 0.5], exact
+        n_round = Ti + rf.to(torch.int32)
+    else:
+        # P/2 is a half-integer: the sine's argument pi*(m - T - P/2) is
+        # reduced about T + 1/2 instead of round(T) (the kernel's odd-P
+        # form; the plain version takes ``sinc_value`` for odd P)
+        im = torch.tensor(m - periods // 2 - 1, dtype=torch.int32,
+                          device=dev) - Ti[..., None]
+        r = tf - np.float32(0.5)
+        vc = im.to(RDTYPE) - r[..., None]
+        n_round = Ti + 1
     fi = vc * np.float32(K_PI)
     inside = (vc > -(periods / 2)) & (vc <= periods / 2)
-
-    rf = torch.round(tf)
-    r = tf - rf                                          # [-0.5, 0.5], exact
     sin_r = torch.sin(r * np.float32(K_PI))
-    n_round = Ti + rf.to(torch.int32)
     par_T = (1 - 2 * (n_round % 2)).to(RDTYPE)           # (-1)^round(T)
     sign_m = torch.tensor(np.where((m + periods // 2) % 2 == 0, -1.0, 1.0),
                           dtype=RDTYPE, device=dev)
@@ -91,6 +116,26 @@ def sinc_band(Ti: torch.Tensor, tf: torch.Tensor, M: int,
     small = fi.abs() < 1e-4                              # sin(fi)/fi -> 1
     s = torch.where(small, w, w * numer / torch.where(small, 1.0, fi))
     return torch.where(inside, s, torch.zeros((), dtype=RDTYPE, device=dev))
+
+
+def sinc_value(v: torch.Tensor, periods: int, interp: bool) -> torch.Tensor:
+    """The windowed-sinc weight at position ``v`` (support (0, periods]) in
+    the direct closed form of the reference's table entry at v*10000 (the
+    JAX package's ``ops/resampler._sinc_value``); ``interp=False`` first
+    quantizes v to the table's 10,000-point grid."""
+    if not interp:
+        v = torch.floor(v * SINC_PERIOD_PTS) / SINC_PERIOD_PTS
+    inside = (v > 0) & (v <= periods)
+    vs = torch.where(inside, v, torch.full((), periods / 2, dtype=v.dtype,
+                                           device=v.device))
+    w = torch.zeros_like(vs)
+    for kk, a in enumerate(BH_COEFS):
+        w = w + np.float32(((-1.0) ** kk) * a) * torch.cos(
+            np.float32(2.0 * np.pi * kk / periods) * vs)
+    fi = np.float32(K_PI) * (vs - periods / 2)
+    s = torch.where(fi.abs() < 1e-5, 1.0, torch.sin(fi) / fi)
+    return torch.where(inside, w * s, torch.zeros((), dtype=v.dtype,
+                                                  device=v.device))
 
 
 def resample_band_plain(z: torch.Tensor, t_int: torch.Tensor,
@@ -121,7 +166,12 @@ def resample_band_plain(z: torch.Tensor, t_int: torch.Tensor,
                 - first[..., None]).to(RDTYPE)
         qg = torch.ceil((offs + tf) * SINC_PERIOD_PTS)
         tf = (qg - offs * SINC_PERIOD_PTS) / SINC_PERIOD_PTS
-    sv = sinc_band(idx_local, tf, M, periods)            # [B, nc, C, M]
+    if periods % 2 == 0:
+        sv = sinc_band(idx_local, tf, M, periods)        # [B, nc, C, M]
+    else:
+        v = (torch.arange(M, dtype=torch.int32, device=dev)
+             - idx_local[..., None]).to(RDTYPE) - tf[..., None]
+        sv = sinc_value(v, periods, True)
     if z.is_complex():
         y = torch.complex((sv * zc.real[..., None, :]).sum(-1),
                           (sv * zc.imag[..., None, :]).sum(-1))
@@ -130,13 +180,43 @@ def resample_band_plain(z: torch.Tensor, t_int: torch.Tensor,
     return y.reshape(B, K)
 
 
-def span_cap(M: int, periods: int) -> int:
-    """Samples of z a 256-output block of the kernel stages: its four
-    chunks' bases lie within 3 x 64 x dt + 127 of the first, and M was
-    sized for 64 x dt + P + 132 (``ops/resampler._banded_process``).  Taps
-    beyond it (a ratio far off the one M was sized for) read global
-    memory."""
-    return 3 * max(M - periods - 132, 64) + 128 + M + 64
+def span_cap(M: int, periods: int, outputs_per_block: int) -> int:
+    """Samples of z a kernel block stages: the bases of its chunks lie
+    within (chunks - 1) x 64 x dt + 127 of the first, and M was sized for
+    64 x dt + P + 132 (``ops/resampler._banded_process``).  Taps beyond it
+    (a ratio far off the one M was sized for) read global memory."""
+    chunks = max(outputs_per_block // CHUNK, 1)
+    return (chunks - 1) * max(M - periods - 132, 64) + 128 + M + 64
+
+
+class ResampPlan(NamedTuple):
+    lanes: int               # lanes per output
+    outputs_per_block: int   # consecutive outputs a block walks
+    taps_per_lane: int       # unrolled tap slots of a lane
+    span: int                # z samples a block stages
+    blocks: int              # blocks per stream
+
+
+def launch_plan(K: int, n_streams: int, M: int, periods: int,
+                n_sm: int) -> ResampPlan:
+    """The kernel's work split.  G lanes per output, lane l taking the taps
+    t_int + 1 + l + G i (i < taps_per_lane: the P + 1 candidates, the
+    slots past them masked): G = 8 spreads a small call over the card and
+    cuts each thread's chain (the session's block), G = 2 where two
+    lanes per output already fill the card's resident threads (the
+    rate-locked tail), since every lane repeats its output's setup.  A
+    block of 256 threads evaluates 256 / G outputs at once and walks
+    ``outputs_per_block`` of them, doubled up to 256 while the call still
+    gives each SM four blocks, so that large calls stage the tables once
+    per 256 outputs."""
+    lanes = 2 if n_streams * K * 2 >= n_sm * 2048 else 8
+    opb = THREADS // lanes
+    while opb < 256 and n_streams * -(-K // (2 * opb)) >= 4 * n_sm:
+        opb *= 2
+    need = -(-(periods + 1) // lanes)
+    tpl = next((t for t in UNROLLED[lanes] if t >= need), need)
+    return ResampPlan(lanes, opb, tpl, span_cap(M, periods, opb),
+                      -(-K // opb))
 
 
 def resample_band(z: torch.Tensor, t_int: torch.Tensor,
@@ -148,23 +228,24 @@ def resample_band(z: torch.Tensor, t_int: torch.Tensor,
         return resample_band_plain(z, t_int, t_frac, M, periods, interp)
     B, K = t_int.shape
     nz = z.shape[-1]
-    if K % CHUNK or periods % 2 or M % 128:
-        raise ValueError(f"resamp kernel: needs K % {CHUNK} == 0, even "
-                         f"periods and M % 128 == 0 (K={K}, P={periods}, "
-                         f"M={M})")
+    if K % CHUNK or M % 128:
+        raise ValueError(f"resamp kernel: needs K % {CHUNK} == 0 and "
+                         f"M % 128 == 0 (K={K}, M={M})")
     cplx = z.is_complex()
     _build.require(z, "z", CDTYPE if cplx else RDTYPE, nz, rows=B)
     _build.require(t_int, "t_int", torch.int32, K, rows=B)
     _build.require(t_frac, "t_frac", RDTYPE, K, rows=B)
+    plan = launch_plan(K, B, M, periods, _build.sm_count(z.device))
     y = torch.empty((B, K), dtype=z.dtype, device=z.device)
     zf = torch.view_as_real(z) if cplx else z
     yf = torch.view_as_real(y) if cplx else y
     es = 2 if cplx else 1
-    tables = _tables_on(M, periods, str(z.device))
+    tables = _kernel_tables_on(M, periods, str(z.device))
     _build.check(_build.library().cutesdr_resamp(
         zf.data_ptr(), zf.data_ptr() + 4 if cplx else None, es * nz, es, nz,
         t_int.data_ptr(), t_frac.data_ptr(), K, K, tables.data_ptr(), M,
-        periods, int(bool(interp)), span_cap(M, periods), B, yf.data_ptr(),
+        periods, int(bool(interp)), plan.lanes, plan.outputs_per_block,
+        plan.taps_per_lane, plan.span, B, yf.data_ptr(),
         yf.data_ptr() + 4 if cplx else None, es * K, es,
         _build.stream(z)), "resamp")
     LAUNCHES["resamp"] += 1

@@ -3,18 +3,23 @@
 
 Three TPU kernels map onto two CUDA sources:
 
-* ``first_order_scan`` (scan1.first_order_scan) and ``guess_round``
-  (scan1.guess_round) are the same affine solve x[n] = A[n]*x[n-1] + B[n];
-  they differ only in how A/B are loaded and what the epilogue emits, so
-  ``csrc/scan.cu`` serves both, in mode "plain" and mode "round";
+* ``first_order_scan`` (scan1.first_order_scan) is the affine solve
+  x[n] = A[n]*x[n-1] + B[n] (``csrc/scan.cu``, three launches);
+* ``guess_round`` (scan1.guess_round) builds A/B from the AGC branch
+  pattern and re-derives the pattern; the port runs it inside
+  ``guess_verify_solve``, which also takes the loop around it from JAX's
+  ``ops/agc._two_rate_parallel`` (warm start, rounds until one validates
+  or ``n_iters`` ran) into ONE cooperative launch with no host read
+  (``csrc/scan.cu``); ``guess_round`` is that launch for one round from a
+  given pattern;
 * ``smeter_last`` (scan1.smeter_last) chains the attack EMA into the
   snapped max-affine decay and emits the two final values
   (``csrc/smeter.cu``).
 
 CUDA tensors launch the kernels; CPU tensors take the plain versions
 below, which are the JAX package's XLA forms (``ops/util`` solves, the
-open-coded guess-verify round of ``ops/agc._two_rate_parallel``).  The
-size gates are the JAX package's, so both take the same branch.
+open-coded guess-verify round and loop of ``ops/agc._two_rate_parallel``).
+The size gates are the JAX package's, so both take the same branch.
 """
 
 from __future__ import annotations
@@ -114,27 +119,107 @@ def guess_round_plain(peak: torch.Tensor, pattern: torch.Tensor, x0,
     return x, newpat, mism.sum(-1)
 
 
-def guess_round(peak: torch.Tensor, pattern: torch.Tensor, x0, rise_alpha,
-                fall_alpha):
-    """(x, new pattern, mismatch count) of one round; ``pattern`` is bool.
-    The count is a device tensor: reading it is the caller's host sync."""
-    if _build.on_cpu(peak, pattern):
-        return guess_round_plain(peak, pattern, x0, rise_alpha, fall_alpha)
+def guess_verify(body, carry, n_iters: int):
+    """Guess-verify rounds ``body(carry) -> (carry', ok)`` until every row
+    validates or ``n_iters`` rounds ran; ``ok`` is one flag per row (0-dim
+    for the single stream).  A row that has validated is frozen, as the
+    JAX package's vmapped ``lax.while_loop`` leaves a converged channel
+    alone: another round could still move it (the tie forgiveness).  One
+    host read per round but the last.  Returns (carry, every row
+    converged, rounds run): ``True`` where a read saw it, else the flag
+    as a 0-dim device bool, left for the caller to read."""
+    carry, ok = body(carry)
+    rounds = 1
+    while rounds < n_iters:
+        if bool(ok.all()):                               # host sync
+            return carry, True, rounds
+        new, new_ok = body(carry)
+        if ok.dim() == 0:
+            carry = new
+        else:
+            keep = ok.unsqueeze(-1)
+            carry = tuple(torch.where(keep, old, nw)
+                          for old, nw in zip(carry, new))
+        ok = ok | new_ok
+        rounds += 1
+    return carry, ok.all(), rounds
+
+
+def warm_rate(rise_alpha, fall_alpha) -> np.float32:
+    """The warm start's geometric-mean rate."""
+    return np.float32(np.sqrt(np.float32(rise_alpha) * np.float32(fall_alpha)))
+
+
+def guess_verify_solve_plain(peak: torch.Tensor, x0, rise_alpha, fall_alpha,
+                             n_iters: int):
+    """The two-rate averager x[n] = (1-a[n])*x[n-1] + a[n]*pk[n], a[n] =
+    rise if pk[n] > x[n-1] else fall, by guess-verify: a warm start at the
+    geometric-mean rate derives the first pattern, then rounds of
+    ``guess_round_plain`` until one has no unforgiven mismatch or
+    ``n_iters`` ran (rows of a [C, n] ``peak`` are independent streams,
+    frozen once they validate).  Returns (x, every row converged, rounds
+    run), as ``guess_verify``."""
+    ag = warm_rate(rise_alpha, fall_alpha)
+    xg = first_order_recurrence((np.float32(1.0) - ag) * torch.ones_like(peak),
+                                peak * ag, x0)
+
+    def body(c):
+        x, pattern, count = guess_round_plain(peak, c[1], x0, rise_alpha,
+                                              fall_alpha)
+        return (x, pattern), count == 0
+
+    (x, _), ok, rounds = guess_verify(body, (xg, peak > shift1(xg, x0)),
+                                      n_iters)
+    return x, ok, rounds
+
+
+def _solve_launch(peak: torch.Tensor, pattern, x0, rise_alpha, fall_alpha,
+                  n_iters: int):
+    """One launch of the solve: (x, last pattern, int32 [n_iters + 3] =
+    per-round counts [n_iters + 1], ok, rounds), all on the device."""
     n = peak.shape[-1]
     _build.require(peak, "peak", RDTYPE, n)
-    _build.require(pattern, "pattern", torch.bool, n)
+    if pattern is not None:
+        _build.require(pattern, "pattern", torch.bool, n)
     x0 = _scalar(x0, peak)
     x = torch.empty(n, dtype=RDTYPE, device=peak.device)
     newpat = torch.empty(n, dtype=torch.bool, device=peak.device)
-    count = torch.zeros(1, dtype=torch.int32, device=peak.device)
-    ta, tb, st = _scratch(n, 3, peak)
-    _build.check(_build.library().cutesdr_scan_round(
-        peak.data_ptr(), pattern.data_ptr(), np.float32(rise_alpha),
-        np.float32(fall_alpha), x0.data_ptr(), n, x.data_ptr(),
-        newpat.data_ptr(), count.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-        st.data_ptr(), _build.stream(peak)), "scan_round")
-    LAUNCHES["scan_round"] += 1
-    return x, newpat, count[0]
+    ints = torch.empty(n_iters + 3, dtype=torch.int32, device=peak.device)
+    ta, tb = _scratch(n, 2, peak)
+    _build.check(_build.library().cutesdr_scan_solve(
+        peak.data_ptr(), None if pattern is None else pattern.data_ptr(),
+        np.float32(rise_alpha), np.float32(fall_alpha),
+        warm_rate(rise_alpha, fall_alpha), x0.data_ptr(), n, n_iters,
+        x.data_ptr(), newpat.data_ptr(), ints.data_ptr(),
+        ints.data_ptr() + 4 * (n_iters + 1), ta.data_ptr(), tb.data_ptr(),
+        _build.stream(peak)), "scan_solve")
+    LAUNCHES["scan_solve"] += 1
+    return x, newpat, ints
+
+
+def guess_verify_solve(peak: torch.Tensor, x0, rise_alpha, fall_alpha,
+                       n_iters: int):
+    """(x, ok, rounds) of ``guess_verify_solve_plain`` for one stream: the
+    plain loop for CPU tensors, one launch of the kernel for CUDA ones, its
+    ok (0-dim bool) and round count (0-dim int32) left on the device."""
+    if _build.on_cpu(peak):
+        return guess_verify_solve_plain(peak, x0, rise_alpha, fall_alpha,
+                                        n_iters)
+    x, _, ints = _solve_launch(peak, None, x0, rise_alpha, fall_alpha,
+                               n_iters)
+    return x, ints[n_iters + 1] != 0, ints[n_iters + 2]
+
+
+def guess_round(peak: torch.Tensor, pattern: torch.Tensor, x0, rise_alpha,
+                fall_alpha):
+    """(x, new pattern, mismatch count) of one round; ``pattern`` is bool.
+    On the card the solve's launch for one round.  The count is a device
+    tensor: reading it is the caller's host sync."""
+    if _build.on_cpu(peak, pattern):
+        return guess_round_plain(peak, pattern, x0, rise_alpha, fall_alpha)
+    x, newpat, ints = _solve_launch(peak, pattern, x0, rise_alpha,
+                                    fall_alpha, 1)
+    return x, newpat, ints[1]
 
 
 # ---------------------------------------------------------------- smeter --

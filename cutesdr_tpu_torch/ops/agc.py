@@ -9,13 +9,16 @@
    samples and then releases;
 5. the gain law: fixed gain below the knee, 10^(mag*(slope-1)) above.
 
-The guess-verify loop is a Python loop that reads each round's validity
-on the host (one device sync per round, at most GUESS_ITERS rounds per
-averager), and the fallback is a Python branch.  ``process`` is the single
-stream, with the scan kernels above their size gate; ``process_batch`` a
-channel bank ([C, n], per-channel carries), in plain torch as the JAX
-package's vmapped form: one host read per round for the whole bank, and
-one bank-wide vote between the parallel result and the per-sample loop.
+``process`` is the single stream, with the scan kernels above their size
+gate: there each two-rate averager is one launch of the guess-verify
+solve (warm start and every round on the device), and the block reads
+one flag on the host, both averagers' convergence, to choose between the
+parallel result and the per-sample fallback (a Python branch).  Below
+the gate, in hang mode's decay averager, and in ``process_batch`` (a
+channel bank, [C, n] with per-channel carries, in plain torch as the JAX
+package's vmapped form) the rounds run from Python with one host read
+per round (for the whole bank), and a bank votes bank-wide between the
+parallel result and the per-sample loop.
 """
 
 from __future__ import annotations
@@ -126,49 +129,22 @@ def _solve(A: torch.Tensor, B: torch.Tensor, x0, fast: bool) -> torch.Tensor:
     return first_order_recurrence(A, B, x0)
 
 
-def _guess_verify(body, carry, n_iters: int):
-    """Guess-verify rounds ``body(carry) -> (carry', ok)`` until every row
-    validates or ``n_iters`` rounds ran; ``ok`` is one flag per row (0-dim
-    for the single stream).  A row that has validated is frozen, as the
-    JAX package's vmapped ``lax.while_loop`` leaves a converged channel
-    alone: another round could still move it (the tie forgiveness).  One
-    host read per round.  Returns (carry, ok, all rows ok)."""
-    carry, ok = body(carry)
-    for _ in range(n_iters - 1):
-        if bool(ok.all()):                                 # host sync
-            return carry, ok, True
-        new, new_ok = body(carry)
-        if ok.dim() == 0:
-            carry = new
-        else:
-            keep = ok.unsqueeze(-1)
-            carry = tuple(torch.where(keep, old, nw)
-                          for old, nw in zip(carry, new))
-        ok = ok | new_ok
-    return carry, ok, bool(ok.all())                       # host sync
-
-
 def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
                        n_iters: int, fast: bool):
     """Guess-verify solve of the two-rate averager
         x[n] = (1-a[n])*x[n-1] + a[n]*pk[n],
         a[n] = rise if pk[n] > x[n-1] else fall.
     Every fixed-pattern trajectory lower-bounds the true one, so the
-    iteration rises monotonically to the exact solution.  Returns
-    (trajectory, all rows converged)."""
-    # warm start: one solve at the geometric-mean rate as a proxy state
-    ag = np.sqrt(rise_alpha * fall_alpha)
-    xg = _solve((np.float32(1.0) - ag) * torch.ones_like(peak),
-                peak * ag, x0, fast)
-    one_round = scan.guess_round if fast and scan.supported(peak.shape[-1]) \
-        else scan.guess_round_plain
-
-    def body(c):
-        x, pattern, count = one_round(peak, c[1], x0, rise_alpha, fall_alpha)
-        return (x, pattern), count == 0
-
-    (x, _), _, ok = _guess_verify(body, (xg, peak > scan.shift1(xg, x0)),
-                                  n_iters)
+    iteration rises monotonically to the exact solution.  With ``fast``
+    (the single stream) from 65,536 samples up the solve kernel (one
+    launch, no host read), else the plain loop.  Returns (trajectory,
+    every row converged: a 0-dim device bool, or True where the plain
+    loop has read it)."""
+    if fast and scan.supported(peak.shape[-1]):
+        solve = scan.guess_verify_solve
+    else:
+        solve = scan.guess_verify_solve_plain
+    x, ok, _ = solve(peak, x0, rise_alpha, fall_alpha, n_iters)
     return x, ok
 
 
@@ -180,7 +156,7 @@ def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
     < hang_time`, and the timer is min(distance, hang_time).  A tie
     resets the timer even where the value cannot change, so the check is
     exact pattern equality (no forgiveness).  Returns (trajectory, timer,
-    all rows converged)."""
+    all rows converged, as ``_two_rate_parallel``)."""
     dev = peak.device
     rise, fall, zero = (torch.tensor(v, dtype=RDTYPE, device=dev) for v in
                         (p.decay_rise_alpha, p.decay_fall_alpha, 0.0))
@@ -195,8 +171,8 @@ def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
         return (new, d, dist), (new == pattern).all(-1)
 
     pattern0 = peak > scan.shift1(peak, d0)
-    (_, d, dist), _, ok = _guess_verify(body, (pattern0, None, None),
-                                        n_iters)
+    (_, d, dist), ok, _ = scan.guess_verify(body, (pattern0, None, None),
+                                            n_iters)
     timer = torch.clamp(dist[..., -1], max=p.hang_time).to(torch.int32)
     return d, timer, ok
 
@@ -204,7 +180,8 @@ def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
 def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
                        peak: torch.Tensor, fast: bool):
     """Both averagers in parallel: ((attack_last, decay_last, timer,
-    max(attack, decay) series), every row of both converged)."""
+    max(attack, decay) series), every row of both converged: True, or a
+    0-dim device bool that the caller reads once)."""
     a, a_ok = _two_rate_parallel(p.attack_rise_alpha, p.attack_fall_alpha,
                                  carry.attack_ave, peak, GUESS_ITERS, fast)
     if cfg.use_hang:
@@ -215,7 +192,7 @@ def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
         d, d_ok = _two_rate_parallel(p.decay_rise_alpha, p.decay_fall_alpha,
                                      carry.decay_ave, peak, GUESS_ITERS, fast)
         timer = carry.hang_timer
-    return (a[..., -1], d[..., -1], timer, torch.maximum(a, d)), a_ok and d_ok
+    return (a[..., -1], d[..., -1], timer, torch.maximum(a, d)), a_ok & d_ok
 
 
 def _averager_scan(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
@@ -283,7 +260,7 @@ def _process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
         return carry, x * params.manual_gain
     delayed, new_sig_delay, peak, mag_tail = _prefix(cfg, carry, x)
     levels, ok = _averager_parallel(cfg, params, carry, peak, fast)
-    if not ok:
+    if not bool(ok):                                     # host sync
         STATS["scan_fallbacks"] += 1
         levels = _averager_scan(cfg, params, carry, peak)
     a, d, timer, magsel = levels

@@ -220,8 +220,6 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
     n = x.shape[-1]
     B = x.shape[0]
     periods = carry.tail.shape[-1]
-    if periods % 2:
-        raise NotImplementedError("odd sinc lengths are not ported yet")
     dev = x.device
     max_out_p, M = band_size(n, max_out, periods)
 
