@@ -1,6 +1,8 @@
 """Device time of the mixdec (K1), fastfir (K2, K6) and banded resampler
-(K9) kernels and of the AGC's guess-verify solve (K4) on one NVIDIA GPU,
-at the main paths' shapes.
+(K9) kernels, of the AGC's guess-verify solve (K4), of the affine scan
+(K3), the S-meter (K5) and the AGC's sequential fallback (N1) on one
+NVIDIA GPU, at the main paths' shapes, and of the call sites that route
+their recurrences through K3/K5 (``route`` cases).
 
     python3 chip_kernel_times.py [--root DIR] [--only PREFIX,...]
 
@@ -10,8 +12,14 @@ own kernels into its own ``build/``, can be timed in the same call on the
 same card (``--only`` keeps the cases whose label starts with one of the
 prefixes): run it for each tree in turn (a, b, b, a) and compare.  Uses
 only the wrappers' public calls and long-standing module functions
-(``resampler._times``, ``agc._prefix``, ``agc._two_rate_parallel``),
-which every version of the port since the resampler kernel has.  The AGC
+(``resampler._times``, ``agc._prefix``, ``agc._two_rate_parallel``,
+``smeter.process``, ``fm._dc_track``, ``am.dc_block``), which every
+version of the port since the resampler kernel has; a case that a tree
+cannot run (a shape its kernel refuses, a module it lacks) prints
+``unsupported`` with the reason.  A ``route`` case times the call site
+as that tree routes it, all of its device work by queued CUDA events
+(``queued_ms``: the parent's plain torch route has no kernel of its own
+for the profiler to pick out).  The AGC
 solve is timed as the receiver calls it, one two-rate averager through
 ``agc._two_rate_parallel``, where the call time (``ms``) is what counts:
 the rounds' host reads are the cost there.
@@ -217,6 +225,65 @@ def agc_case(agc, gen, n, kind):
         agc.GUESS_ITERS, True)
 
 
+def scan_cases(gen, scan, fm, am, smeter, agcseq_mod):
+    """K3/K5/N1 kernel cases and the route cases of their call sites:
+    (label, fn, kind); the parent's kernels take only the 262,144 shapes,
+    its call sites route to plain torch below the JAX gates."""
+    import numpy as np
+    n = 262_144
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    a = 0.99 + 0.005 * torch.rand(n, generator=gen, device="cuda")
+    b, x0 = r(n) * 0.01, torch.tensor(-3.0, device="cuda")
+    mag = r(n) * 10.0 - 60.0
+    aa, ad = np.float32(1 / 625.0), np.float32(1 / 31250.0)
+    sm_p, sm_c = smeter.init(62_500.0, "cuda")
+    x1 = torch.randn(1024, generator=gen, device="cuda",
+                     dtype=torch.complex64) * 300.0
+    x64 = torch.randn(64, 1024, generator=gen, device="cuda",
+                      dtype=torch.complex64) * 300.0
+    sm_c64 = type(sm_c)(*(torch.stack([v] * 64) for v in sm_c))
+    fm_p, _ = fm.init(62_500.0, "cuda")
+    freqs, dc0 = r(n) * 0.05, torch.tensor(0.01, device="cuda")
+    z1, u = r(8), r(8, 256)
+    cases = [
+        ("scan 1 x 262,144 per-sample a",
+         lambda: scan.first_order_scan(a, b, x0), "kernel"),
+        ("scan 1 x 262,144 scalar a (scan.ema)",
+         lambda: scan.ema(fm_p.dc_alpha, freqs, dc0), "kernel"),
+        ("scan 8 x 256 scalar a, per-row x0",
+         lambda: scan.first_order_scan(0.99, u, z1), "kernel"),
+        ("smeter 1 x 262,144", lambda: scan.smeter_last(mag, aa, ad, x0, x0),
+         "kernel"),
+        ("smeter 64 x 1,024",
+         lambda: scan.smeter_last(mag[:65_536].reshape(64, 1024), aa, ad,
+                                  sm_c64.attack_ave, sm_c64.decay_ave),
+         "kernel"),
+        ("smeter 1 x 262,143",
+         lambda: scan.smeter_last(mag[:-1], aa, ad, x0, x0), "kernel"),
+        ("smeter 1 x 1,024",
+         lambda: scan.smeter_last(mag[:1024], aa, ad, x0, x0), "kernel"),
+        ("smeter route 1 x 1,024 (smeter.process)",
+         lambda: smeter.process(sm_p, sm_c, x1), "route"),
+        ("smeter route 64 x 1,024 (smeter.process bank)",
+         lambda: smeter.process(sm_p, sm_c64, x64), "route"),
+        ("scan route ema 1 x 262,144 (fm._dc_track)",
+         lambda: fm._dc_track(fm_p, freqs, dc0), "route"),
+        ("scan route 8 x 256 (am.dc_block)", lambda: am.dc_block(z1, u),
+         "route"),
+    ]
+    if agcseq_mod is not None:
+        pk = r(n) * 0.5 - 3.0
+        s0 = torch.tensor(-5.0, device="cuda")
+        t0 = torch.tensor(0, dtype=torch.int32, device="cuda")
+        for hang in (None, 12_500):
+            mode = "hang" if hang else "two-rate"
+            cases.append((f"agcseq 1 x 262,144 {mode}",
+                          lambda h=hang: agcseq_mod.averager_scan(
+                              pk, s0, s0, t0, (0.008, 0.0032),
+                              (0.0053, 0.00032), h), "kernel"))
+    return cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_times: no CUDA device", file=sys.stderr)
@@ -228,8 +295,14 @@ def main() -> int:
     sys.path.insert(0, root)
     from cutesdr_tpu_torch.design.decimation_plan import plan_decimation
     from cutesdr_tpu_torch.design.fastfir_design import design_fastfir
-    from cutesdr_tpu_torch.kernels import _build, fastfir, mixdec, resamp
-    from cutesdr_tpu_torch.ops import agc, nco, resampler
+    from cutesdr_tpu_torch.demod import am, fm
+    from cutesdr_tpu_torch.kernels import (_build, fastfir, mixdec, resamp,
+                                           scan)
+    from cutesdr_tpu_torch.ops import agc, nco, resampler, smeter
+    try:
+        from cutesdr_tpu_torch.kernels import agcseq
+    except ImportError:
+        agcseq = None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -264,11 +337,22 @@ def main() -> int:
         ("agc solve 262,144 envelope",
          agc_case(agc, gen, 262_144, "envelope")),
     ]
-    for label, fn in cases:
+    cases = [(label, fn, "kernel") for label, fn in cases]
+    cases += scan_cases(gen, scan, fm, am, smeter, agcseq)
+    for label, fn, kind in cases:
         if not label.startswith(only):
             continue
+        try:
+            fn()
+        except (ValueError, RuntimeError, TypeError, AttributeError) as e:
+            print(json.dumps({"case": label, "unsupported": str(e)[:200],
+                              "root": root, "gpu": smi}), flush=True)
+            continue
         warm_up(fn)
-        dev, dev_by = device_ms(fn)
+        if kind == "route":
+            dev, dev_by = queued_ms(fn), "queued events (all device work)"
+        else:
+            dev, dev_by = device_ms(fn)
         clock = sm_clock_mhz()
         print(json.dumps({"case": label, "device_ms": dev,
                           "device_by": dev_by, "ms": call_ms(fn),

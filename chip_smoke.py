@@ -24,6 +24,9 @@ audio (``path_specs``):
 * FM, SAM and AM at frames_per_block=256 (262,144 demodulated samples,
   8,388,608 or 16,777,216 input samples), each recovering its modulating
   tone; SAM's first block acquires through the seqloop_sam kernel;
+* the flagship USB and its hang-mode twin with one guess-verify round
+  allowed, so the AGC takes its sequential fallback (kernel N1) on its
+  blocks;
 * an FM monitor on an idle channel at the low-latency configuration
   (512/257 filter, one frame: 256 demodulated samples), whose noise
   blocks take the seqloop_fm kernel;
@@ -39,8 +42,11 @@ audio (``path_specs``):
   usb -> am -> fm -> usb, then a usb -> am walk with a 29-tap sinc (odd
   P through the resampler kernel) (``check_session``).
 
-Before each path every launch count is set to 0; after it, every kernel
-that the path's configuration routes to must have launched, and no other.
+The scans (K3, K5) are also held to the float64 solve of their float32
+inputs (no farther from it than 1.5x their plain versions), N1 to its
+plain loop bitwise.  Before each path every launch count is set to 0;
+after it, every kernel that the path's configuration routes to must have
+launched, and no other.
 Prints one line per phase, a JSON line of per-kernel results, the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, so the script exits non-zero.  It
@@ -55,6 +61,8 @@ see ``profile_paths``).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -77,11 +85,12 @@ from cutesdr_tpu_torch.design.fastfir_design import (  # noqa: E402
     design_fastfir)
 from cutesdr_tpu_torch.io.audio_sink import RateLockedQueue  # noqa: E402
 from cutesdr_tpu_torch.kernels import (  # noqa: E402
-    _build, fastfir, mixdec, resamp, scan, seqloop)
+    _build, agcseq, fastfir, mixdec, resamp, scan, seqloop)
 from cutesdr_tpu_torch.ops import (  # noqa: E402
     agc, nco, noiseblanker, resampler)
 from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
-from cutesdr_tpu_torch.ops.util import first_order_recurrence  # noqa: E402
+from cutesdr_tpu_torch.ops.util import (  # noqa: E402
+    first_order_recurrence, max_affine_recurrence)
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
 from cutesdr_tpu_torch.pipeline import spectrum  # noqa: E402
 from cutesdr_tpu_torch.session import ReceiverSession  # noqa: E402
@@ -111,6 +120,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                     "cutesdr_tpu/kernels/seqloop.py:235"),
     "resamp": ("cutesdr_tpu_torch/csrc/resamp.cu",
                "cutesdr_tpu/kernels/resamp1.py:222"),
+    # N1 has no Pallas counterpart: it replaces the recurrence JAX runs as
+    # a lax.scan (ops/agc.py _averager_scan)
+    "agcseq": ("cutesdr_tpu_torch/csrc/agcseq.cu",
+               "cutesdr_tpu/ops/agc.py:134"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -401,15 +414,47 @@ def check_seqloops_bank(gen):
                                  "equal to its plain loop")
 
 
-def check_scans(gen, results):
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def float64_bar(label: str, got, plain, exact) -> tuple[float, float, float]:
+    """The scans' bar against the float64 solve ``exact`` of the same
+    float32 inputs: the kernel's max error from it no worse than 1.5x the
+    plain version's, or than 2 float32 ulps of the output's scale where
+    the plain version is closer still.  Returns (kernel error, plain
+    error, the tolerance of kernel against plain: the bar plus the plain
+    version's own error); raises if the kernel misses the bar."""
+    err_k = float((got.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    bar = max(1.5 * err_p, 2 * EPS32 * float(exact.abs().max()))
+    phase(f"  {label}: from the float64 solve kernel {err_k:.3e}, plain "
+          f"{err_p:.3e} (bar {bar:.3e})")
+    if not err_k <= bar:
+        raise AssertionError(f"{label}: the kernel is {err_k:.3e} from the "
+                             f"float64 solve, above its bar {bar:.3e}")
+    return err_k, err_p, bar + err_p
+
+
+def check_scans(gen, results, gen_new):
+    """K3 (the affine scan) and K5 (the S-meter's final values), each one
+    launch, against their plain versions and the float64 solve of the
+    same float32 inputs (``float64_bar``): K3 at 262,144 with per-sample
+    a, 262,144 through ``scan.ema`` with FM's DC-tracker alpha (a scalar
+    a, B = alpha*x formed in the kernel), and 8 x 256 rows with per-row
+    initial states; K5 at 262,144, 262,143 (a partial last chunk), 1,024
+    (the session's block, one chunk: no look-back) and 64 x 1,024 (the
+    bank's rows).  The K4 round check keeps its inputs from ``gen``; the
+    new cases draw from ``gen_new``."""
     n = N_DEMOD
     a = 0.99 + 0.005 * torch.rand(n, generator=gen, device="cuda")
     b = randn(n, gen, 0.01)
     x0 = torch.tensor(-3.0, device="cuda")
     run_k = lambda: scan.first_order_scan(a, b, x0)
     run_p = lambda: scan.first_order_scan_plain(a, b, x0)
+    exact = first_order_recurrence(a.double(), b.double(), x0.double())
+    _, _, tol = float64_bar("scan_plain", run_k(), run_p(), exact)
     # bytes: a, b in, x out; operations: one multiply-add a sample
-    compare("scan_plain", [run_k()], [run_p()], 1e-5, results, run_k, run_p,
+    compare("scan_plain", [run_k()], [run_p()], tol, results, run_k, run_p,
             work=(12 * n, 2 * n))
 
     pk = randn(n, gen, 0.3) - 3.0
@@ -428,12 +473,121 @@ def check_scans(gen, results):
     mag = randn(n, gen, 10.0) - 60.0
     aa, ad = np.float32(1 / 625.0), np.float32(1 / 31250.0)
     a0 = torch.tensor(-120.0, device="cuda")
-    run_k = lambda: scan.smeter_last(mag, aa, ad, a0, a0)
-    run_p = lambda: scan.smeter_last_plain(mag, aa, ad, a0, a0)
+    check_smeter(mag, aa, ad, a0, a0, results, "")
+
+    # K3: a scalar a, through the EMA (FM's DC tracker at 62.5 kHz), and
+    # rows with their own initial states
+    alpha = fm.init(62_500.0, "cuda")[0].dc_alpha
+    x = randn(n, gen_new, 0.05)
+    xs0 = torch.tensor(0.01, device="cuda")
+    run_k = lambda: scan.ema(alpha, x, xs0)
+    run_p = lambda: scan.ema_plain(alpha, x, xs0)
+    c = float(torch.as_tensor(1.0 - alpha, dtype=torch.float32))
+    exact = first_order_recurrence(c, (x * alpha).double(), xs0.double())
+    _, _, tol = float64_bar("scan_plain ema", run_k(), run_p(), exact)
+    compare("scan_plain", [run_k()], [run_p()], tol, results, run_k, run_p,
+            " ema (scalar a)", work=(8 * n, 3 * n))
+    a = 0.99 + 0.005 * torch.rand(8, 256, generator=gen_new, device="cuda")
+    b = randn(8 * 256, gen_new, 0.01).reshape(8, 256)
+    rows0 = randn(8, gen_new)
+    run_k = lambda: scan.first_order_scan(a, b, rows0)
+    run_p = lambda: scan.first_order_scan_plain(a, b, rows0)
+    exact = first_order_recurrence(a.double(), b.double(), rows0.double())
+    _, _, tol = float64_bar("scan_plain 8x256", run_k(), run_p(), exact)
+    compare("scan_plain", [run_k()], [run_p()], tol, results, run_k, run_p,
+            " 8x256 rows", work=(12 * 8 * 256, 2 * 8 * 256))
+
+    for label, shape in ((" 262,143", (n - 1,)), (" 1,024", (1024,)),
+                         (" 64x1,024", (64, 1024))):
+        mag = (randn(int(np.prod(shape)), gen_new, 10.0) - 60.0).reshape(
+            shape)
+        lead = shape[:-1]
+        s0 = (randn(64, gen_new, 5.0) - 100.0 if lead
+              else torch.tensor(-120.0, device="cuda"))
+        check_smeter(mag, aa, ad, s0, s0 + 3.0, results, label)
+
+
+def check_smeter(mag, aa, ad, a0, d0, results, label):
+    """K5 on ``mag`` ([n] or [C, n]) against its plain version and the
+    float64 solve of the same float32 magnitudes and alphas."""
+    run_k = lambda: scan.smeter_last(mag, aa, ad, a0, d0)
+    run_p = lambda: scan.smeter_last_plain(mag, aa, ad, a0, d0)
+    ca = float(torch.as_tensor(1.0 - aa, dtype=torch.float32))
+    a64 = first_order_recurrence(ca, (mag * aa).double(), a0.double())
+    d64 = max_affine_recurrence(float(np.float32(1.0) - ad),
+                                (mag * ad).double(), a64, d0.double())
+    (ak, dk), (ap, dp) = run_k(), run_p()
+    tol = max(float64_bar(f"smeter{label} {k}", g, p, e[..., -1])[2]
+              for k, g, p, e in (("attack", ak, ap, a64),
+                                 ("decay", dk, dp, d64)))
     # bytes: the magnitudes in; operations: two averager updates and the
     # snap a sample
-    compare("smeter", list(run_k()), list(run_p()), 1e-3, results, run_k,
-            run_p, work=(4 * n, 5 * n))
+    compare("smeter", [ak, dk], [ap, dp], tol, results, run_k, run_p, label,
+            work=(4 * mag.numel(), 5 * mag.numel()))
+
+
+def check_agcseq(gen, results):
+    """N1 (the AGC's sequential averagers) against its plain per-sample
+    loop, to the bit: 4,096 samples of window peaks under a stepping
+    envelope, two-rate and hang mode, 1 and 64 streams with their own
+    carries; then the flagship's 262,144 samples (two-rate, bitwise
+    again, the plain loop timed once), with the kernel's time there in
+    both modes taken before any plain loop runs."""
+    fs = 62_500.0
+
+    def args(peak, hang):
+        p = agc.make_params(agc.AgcConfig(True, hang, fs), -100.0, 30.0, 0.0,
+                            200.0)
+        lead = peak.shape[:-1]
+        k = torch.arange(int(np.prod(lead)), device="cuda").reshape(lead)
+        return (peak, -5.0 + 0.25 * k.float(), -4.0 + 0.5 * k.float(),
+                (k * 97 % max(p.hang_time, 1)).to(torch.int32),
+                (p.attack_rise_alpha, p.attack_fall_alpha),
+                (p.decay_rise_alpha, p.decay_fall_alpha),
+                p.hang_time if hang else None)
+
+    def bitwise(label, a):
+        got, want = agcseq.averager_scan(*a), agcseq.averager_scan_plain(*a)
+        unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+        phase(f"kernel agcseq {label}: {unequal} values not bitwise equal")
+        if unequal:
+            raise AssertionError(f"agcseq {label}: the kernel is not bitwise "
+                                 "equal to its plain loop")
+
+    small = []
+    for n_ch in (1, 64):
+        peak = torch.stack([envelope_peak(gen, 4096) for _ in range(n_ch)])
+        small.append((n_ch, peak[0] if n_ch == 1 else peak))
+    peak = envelope_peak(gen, N_DEMOD)
+    # the kernel's times first: after the plain loops' hundreds of
+    # thousands of small launches the profiler loses kernel records
+    timed = {}
+    for hang in (False, True):
+        a = args(peak, hang)
+        run_k = lambda: agcseq.averager_scan(*a)
+        warm_up(run_k)
+        timed[hang] = time_ms(run_k, reps=3, calls=5), device_ms(run_k)
+    for n_ch, pk in small:
+        for hang in (False, True):
+            bitwise(f"{n_ch} x 4096 {'hang' if hang else 'two-rate'}",
+                    args(pk, hang))
+    a = args(peak, False)
+    out = []
+    plain_ms = time_once(lambda: out.append(agcseq.averager_scan_plain(*a)))
+    got = agcseq.averager_scan(*a)
+    if not all(torch.equal(g, w) for g, w in zip(got, out[0])):
+        raise AssertionError("agcseq 262,144: not bitwise equal")
+    for hang, (ms, (dev, dev_by)) in timed.items():
+        phase(f"kernel agcseq 1 x {N_DEMOD} {'hang' if hang else 'two-rate'}"
+              f": kernel {ms:.4f} ms (device {dev:.4f} ms, {dev_by}), plain "
+              f"{plain_ms:.1f} ms (two-rate, 1 call, bitwise equal)")
+    ms, (dev, dev_by) = timed[False]
+    # bytes: the peaks in, the series out; operations: two averager steps
+    # (compare, multiply, multiply, add) and the max
+    results["agcseq"] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dev,
+                         "device_by": dev_by, "plain_ms": plain_ms,
+                         **bound(8 * N_DEMOD, 9 * N_DEMOD),
+                         "library_ms": None}
 
 
 def flagship_agc_inputs(gen) -> list[tuple]:
@@ -986,27 +1140,49 @@ def banded_tail(cfg, bank: bool, params) -> bool:
 
 def routed_kernels(cfg, bank: bool, params) -> set[str]:
     """The kernels a configuration's path routes to, by the port's gates
-    (the seqloops by the tiers the demods report as taken).  A bank never
-    takes the single-stream scan and S-meter kernels."""
+    (the seqloops by the tiers the demods report as taken, N1 by the AGC's
+    fallbacks).  Every path runs the S-meter kernel; the affine scan runs
+    the AM/SAM DC block, FM's three EMAs and hang mode's decay rounds; a
+    bank never takes the single-stream guess-verify solve kernel."""
     n = cfg.fastfir_valid * cfg.frames_per_block
-    want = {"mixdec"}
+    want = {"mixdec", "smeter"}
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
         want.add("fastfir_batch" if bank else "fastfir")
     if banded_tail(cfg, bank, params):
         want.add("resamp")
     if not bank and cfg.agc_on and scan.supported(n):
-        # the attack averager, and the decay averager unless in hang mode
-        # (its rounds solve through the plain scan)
         want.add("scan_solve")
-        if cfg.agc_hang:
-            want.add("scan_plain")
-    if not bank and scan.smeter_supported(n):
-        want.add("smeter")
+    if cfg.mode in ("am", "sam", "fm") or (cfg.agc_on and cfg.agc_hang):
+        want.add("scan_plain")
     if fm.STATS["scan"]:
         want.add("seqloop_fm")
     if sam.STATS["scan"]:
         want.add("seqloop_sam")
+    if agc.STATS["scan_fallbacks"]:
+        want.add("agcseq")
     return want
+
+
+@contextlib.contextmanager
+def guess_rounds(n_iters):
+    """The AGC's guess-verify rounds capped at ``n_iters`` (None: as they
+    are), so that a path forces the sequential fallback."""
+    kept = agc.GUESS_ITERS
+    agc.GUESS_ITERS = n_iters or kept
+    try:
+        yield
+    finally:
+        agc.GUESS_ITERS = kept
+
+
+def fallback_check(launches, tiers, n_blocks):
+    """A path with one guess-verify round allowed: the AGC fell back on
+    at least one block, and each fallback was one launch of N1."""
+    fallbacks = agc.STATS["scan_fallbacks"]
+    if not (fallbacks >= 1 and launches["agcseq"] == fallbacks):
+        raise AssertionError(f"agc fallback path: {fallbacks} fallbacks, "
+                             f"{launches['agcseq']} agcseq launches over "
+                             f"{n_blocks} blocks")
 
 
 def tone_ratio(audio: np.ndarray, rate: float, tone_hz: float,
@@ -1213,6 +1389,17 @@ def path_specs() -> list:
                            fastfir_ntaps=8193), None,
          tone(offset_hz=1000.0), 3,
          dict(tones=((0, 1000.0),), steps=2, may_fall_back=False)),
+        # one guess-verify round allowed: the AGC's sequential fallback,
+        # one launch of N1 a block, two-rate and hang mode
+        ("usb agc fallback", "single", usb_cfg, None,
+         tone(offset_hz=1000.0), 2,
+         dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
+              need=("agcseq",), check=fallback_check)),
+        ("usb hang agc fallback", "single",
+         rx.ReceiverConfig(mode="usb", agc_hang=True, **full), None,
+         tone(offset_hz=1000.0), 2,
+         dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
+              need=("agcseq",), check=fallback_check)),
     ]
 
 
@@ -1222,8 +1409,10 @@ def check_paths(gen, gpu_label) -> dict:
     for label, kind, cfg, freqs, stim, n_blocks, kw in path_specs():
         kw = dict(kw)
         blocks = path_blocks(kind, cfg, gen, stim, n_blocks + kw.pop("steps"))
-        for k, v in drive_path(label, kind, cfg, freqs, blocks[:n_blocks],
-                               blocks[n_blocks:], gpu_label, **kw).items():
+        with guess_rounds(kw.pop("guess_iters", None)):
+            launched = drive_path(label, kind, cfg, freqs, blocks[:n_blocks],
+                                  blocks[n_blocks:], gpu_label, **kw)
+        for k, v in launched.items():
             total[k] += v
         del blocks
     return total
@@ -1251,15 +1440,16 @@ def profile_paths(gen, gpu_label) -> None:
                 r.process(b)
             torch.cuda.synchronize()
 
-        for b in blocks[:n_blocks]:
-            r.process(b)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_steps(n_blocks)
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_steps(n_blocks + steps)
+        with guess_rounds(kw.get("guess_iters")):
+            for b in blocks[:n_blocks]:
+                r.process(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_steps(n_blocks)
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_steps(n_blocks + steps)
         profile_report(label, ms, prof, steps, gpu_label)
         del blocks
     profile_session(gpu_label)
@@ -1357,6 +1547,7 @@ def check_session(gpu_label: str, periods: int = resampler.SINC_PERIODS,
     n_packets = n // packet
     torch.cuda.synchronize()
     kernels.reset_launches()
+    agc.STATS["scan_fallbacks"] = 0
     for stats in (fm.STATS, sam.STATS):
         stats.update(dict.fromkeys(stats, 0))
     sess = ReceiverSession(cfg)
@@ -1435,7 +1626,9 @@ def check_session(gpu_label: str, periods: int = resampler.SINC_PERIODS,
         (sess.receiver.state, sess.receiver.params, sess.analyzer.state))}
     if devices != {"cuda"}:
         raise AssertionError(f"session tensors on {devices}")
-    want = routed_kernels(cfg, False, sess.receiver.params)
+    want = set().union(*(routed_kernels(dataclasses.replace(cfg, mode=mode),
+                                        False, sess.receiver.params)
+                         for mode, _ in walk))
     wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
     if wrong:
         raise AssertionError(f"session: launches {wrong} do not match the "
@@ -1507,8 +1700,9 @@ def main() -> int:
     check_mixdec_bank(gen)
     check_fastfir(gen, results)
     check_fastfir_batch(gen, results)
-    check_scans(gen, results)
+    check_scans(gen, results, gen_new)
     check_guess_verify(gen_new, results)
+    check_agcseq(gen_new, results)
     check_resamp(gen, results, gen_new)
     check_seqloops(gen, results)
     check_seqloops_bank(gen)

@@ -1,7 +1,7 @@
 // Affine scan x[n] = A[n]*x[n-1] + B[n], and the AGC's guess-verify solve.
 //
 // Replaces cutesdr_tpu/kernels/scan1.py:first_order_scan (_kernel: A and
-// B are read; cutesdr_scan_plain) and scan1.py:guess_round (_round_kernel:
+// B are read; cutesdr_scan_affine) and scan1.py:guess_round (_round_kernel:
 // A and B are built from the AGC branch pattern and the window peak, and
 // the epilogue emits x, the re-derived pattern and the count of
 // unforgiven mismatches), together with the loop around it, JAX's
@@ -12,12 +12,20 @@
 // Bound on the H100: latency, launches and host reads, not bytes.  At the
 // flagship's 262,144 elements an operand is 1 MB, which the card reads in
 // well under a microsecond.
-//  * The plain scan is three launches on one stream: (1) each block
-//    composes its 2048-element chunk (8 elements per thread sequentially,
-//    then an ordered block scan) into one affine total; (2) one block
-//    scans the chunk totals into chunk start values; (3) each block
-//    recomputes its chunk from its start value and writes the outputs.
-//  * The guess-verify solve would be one such triple per round, driven
+//  * The affine scan is ONE launch over [rows, n] (grid = rows x chunks of
+//    2048): each block stages its chunk of B (and of A, unless A is one
+//    scalar for the whole call, as for the EMAs) in shared memory with
+//    coalesced 16-byte loads, each thread composes its 8 consecutive
+//    elements, an ordered block scan gives every thread its prefix and
+//    the chunk its map, the look-back of scan_common.cuh (one pass, status
+//    words tagged with the call's epoch, chunk ids from a ticket, the same
+//    bits on every call) gives the chunk its start value, and x goes back
+//    through the tile with coalesced stores.  B may carry a scale (the
+//    EMA's alpha: B = alpha*u, rounded once, as the plain version's
+//    product); each row has its own initial state.  A row of one chunk
+//    (the session's block, a bank's rows) takes no look-back at all.  Each
+//    operand is read once and x written once; no scratch, no host read.
+//  * The guess-verify solve would be one scan per round, driven
 //    from Python with a host read of the count after every round (~0.1 ms
 //    of host time a round on the card for ~9 us of device work).  It is
 //    ONE cooperative launch (cudaLaunchCooperativeKernel, at
@@ -26,8 +34,8 @@
 //    0: the geometric-mean rate, which derives the first pattern) and
 //    every round on the device.  A round is: each block composes its
 //    chunks' totals from the pattern; a grid barrier; each block scans the
-//    totals itself (the same block scan as (2), so every block gets the
-//    same start values) and applies its chunks, writing x and the
+//    totals itself (so every block gets the same start values) and applies
+//    its chunks, writing x and the
 //    re-derived pattern in place and counting mismatches into that
 //    round's slot; a grid barrier; every block reads the round's count
 //    and stops at 0 or after n_iters rounds.  The last round's count and
@@ -39,15 +47,17 @@
 //    totals, the counts) are read with ld.global.cg, past the L1 cache,
 //    which is not coherent across SMs.
 //
-// Numbers: the solve composes, scans and applies in the same order as the
-// three-launch form, so its x is bitwise the three-launch rounds' x.
+// Numbers: the solve composes, scans and applies chunk by chunk as the
+// three-launch scan it replaced did, so its x is bitwise those rounds' x.
 // Against the float64 solve of the same pattern and float32 coefficients
 // the chunked scan's reassociation error is ~2e-6 decades at the attack
 // averager's rates and ~2e-5 at the decay averager's 12,500-sample memory,
 // a quarter of the plain version's log-depth solve there (chip_smoke.py
 // holds the kernel to the plain version within 1e-5 plus the plain
 // version's own error).  The counts are integer block reductions plus one
-// atomicAdd per block, so they are deterministic.
+// atomicAdd per block, so they are deterministic.  The affine scan is
+// held to the float64 solve of its float32 inputs (chip_smoke.py): no
+// worse than 1.5x the plain version's error.
 #include <cooperative_groups.h>
 
 #include "scan_common.cuh"
@@ -56,45 +66,62 @@ namespace cutesdr {
 
 namespace cg = cooperative_groups;
 
-// ------------------------------------------------------------ plain scan --
+// ------------------------------------------------------------ affine scan --
 
-__device__ __forceinline__ Aff thread_total(const float* a, const float* b,
-                                            int n, int first) {
+struct AffineArgs {
+    const float* a;          // [rows, n]; null: a_scalar for every element
+    float a_scalar;
+    const float* b;          // [rows, n]
+    float b_scale;           // B = b_scale * b (1: B = b)
+    const float* x0;         // row r's initial state x0[r * x0_stride];
+    int x0_stride;           //   null: x0_value
+    float x0_value;
+    int n, nchunks;
+    bool vec;                // a, b, x 16-byte aligned, n % 4 == 0
+    float* x;                // [rows, n]
+    Lookback lb;
+    unsigned* ticket;
+    unsigned ticket_base, epoch;
+};
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+affine_scan_kernel(AffineArgs s) {
+    __shared__ __align__(16) float tile_b[SCAN_CHUNK];
+    __shared__ __align__(16) float tile_a[SCAN_CHUNK];
+    const bool chained = s.nchunks > 1;
+    const int id = chunk_ticket(s.ticket, s.ticket_base, chained);
+    const int row = id / s.nchunks, c = id - row * s.nchunks;
+    const long long off = (long long)row * s.n + (long long)c * SCAN_CHUNK;
+    const int len = min(SCAN_CHUNK, s.n - c * SCAN_CHUNK);
+    load_tile(tile_b, s.b + off, len, s.vec);
+    if (s.a) load_tile(tile_a, s.a + off, len, s.vec);
+    __syncthreads();
+    float av[SCAN_ITEMS], bv[SCAN_ITEMS];
+    own_items(tile_b, bv);
+    if (s.a) own_items(tile_a, av);
+    const int first = (int)threadIdx.x * SCAN_ITEMS;
     Aff t = aff_id();
+#pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k) {
-        const int i = first + k;
-        if (i < n) t = compose(t, Aff{a[i], b[i]});
+        if (!s.a) av[k] = s.a_scalar;
+        bv[k] = __fmul_rn(s.b_scale, bv[k]);
+        if (first + k < len) t = compose(t, Aff{av[k], bv[k]});
     }
-    return t;
-}
-
-__global__ void chunk_totals_kernel(const float* __restrict__ a,
-                                    const float* __restrict__ b, int n,
-                                    float* __restrict__ tot_a,
-                                    float* __restrict__ tot_b) {
-    const int first = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
     Aff total;
-    block_exclusive(thread_total(a, b, n, first), &total);
-    if (threadIdx.x == 0) {
-        tot_a[blockIdx.x] = total.a;
-        tot_b[blockIdx.x] = total.b;
-    }
-}
-
-__global__ void apply_kernel(const float* __restrict__ a,
-                             const float* __restrict__ b, int n,
-                             const float* __restrict__ starts,
-                             float* __restrict__ x_out) {
-    const int first = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
-    Aff total;
-    Aff ex = block_exclusive(thread_total(a, b, n, first), &total);
-    float x = apply(ex, starts[blockIdx.x]);
+    const Aff ex = block_exclusive(t, &total);
+    const float x0 = s.x0 ? s.x0[(long long)row * s.x0_stride] : s.x0_value;
+    const float start = chained ? chunk_start(s.lb, row * s.nchunks, c,
+                                              s.nchunks, total, x0, s.epoch)
+                                : x0;
+    float x = apply(ex, start);
+#pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k) {
-        const int i = first + k;
-        if (i >= n) break;
-        x = apply(Aff{a[i], b[i]}, x);
-        x_out[i] = x;
+        x = apply(Aff{av[k], bv[k]}, x);
+        bv[k] = x;
     }
+    put_items(tile_b, bv);                 // each thread its own slots
+    __syncthreads();
+    store_tile(s.x + off, tile_b, len, s.vec);
 }
 
 // ------------------------------------------------------ guess-verify solve --
@@ -188,7 +215,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) solve_kernel(SolveArgs s) {
             }
         }
         grid.sync();
-        // the chunk start values, as chunk_starts_kernel forms them, a
+        // the chunk start values, an ordered block scan of the totals, a
         // window of SCAN_THREADS chunks at a time; this block's chunks of
         // the window follow at once
         int mism = 0;
@@ -253,17 +280,28 @@ static int solve_max_blocks() {
 
 using namespace cutesdr;
 
-CUTESDR_API int cutesdr_scan_plain(const float* a, const float* b,
-                                   const float* x0, int n, float* x,
-                                   float* tot_a, float* tot_b, float* starts,
-                                   void* stream) {
-    const cudaStream_t st = (cudaStream_t)stream;
+// x [rows, n] of x[i] = A[i]*x[i-1] + B[i] along each row, in one
+// launch: A = a[i] (a non-null) or a_scalar, B = b_scale*b[i], x[-1] of
+// row r = x0[r * x0_stride] (x0 non-null) or x0_value.  vec: a, b, x are
+// 16-byte aligned and n % 4 == 0.  Rows of more than one chunk chain
+// through the look-back memory (flags: rows * ceil(n / 2048) slots, agg:
+// two 16-byte words a slot; ticket: one counter) with the call's epoch
+// (never 0) and ticket base (the ticket's value before the launch).
+CUTESDR_API int cutesdr_scan_affine(const float* a, float a_scalar,
+                                    const float* b, float b_scale,
+                                    const float* x0, int x0_stride,
+                                    float x0_value, int n, int rows, int vec,
+                                    float* x, unsigned* flags, double2* agg,
+                                    unsigned* ticket,
+                                    unsigned ticket_base, unsigned epoch,
+                                    void* stream) {
+    if (n <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
     const int nchunks = (n + SCAN_CHUNK - 1) / SCAN_CHUNK;
-    chunk_totals_kernel<<<nchunks, SCAN_THREADS, 0, st>>>(a, b, n, tot_a,
-                                                          tot_b);
-    chunk_starts_kernel<<<1, SCAN_THREADS, 0, st>>>(tot_a, tot_b, nchunks,
-                                                    x0, starts);
-    apply_kernel<<<nchunks, SCAN_THREADS, 0, st>>>(a, b, n, starts, x);
+    AffineArgs s{a, a_scalar, b, b_scale, x0, x0_stride, x0_value, n,
+                 nchunks, vec != 0, x, {flags, agg}, ticket,
+                 ticket_base, epoch};
+    affine_scan_kernel<<<rows * nchunks, SCAN_THREADS, 0,
+                         (cudaStream_t)stream>>>(s);
     return (int)cudaGetLastError();
 }
 

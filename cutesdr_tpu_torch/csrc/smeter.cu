@@ -1,92 +1,89 @@
-// S-meter averager pair, final values only.
+// S-meter averager pair, final values only, over [rows, n].
 //
 // Replaces cutesdr_tpu/kernels/scan1.py:smeter_last (_smeter_kernel):
 //     a[n] = (1-aa)*a[n-1] + aa*m[n]                (attack EMA)
 //     d[n] = max((1-ad)*d[n-1] + ad*m[n], a[n])     (snapped decay)
-// and emits (a[N-1], d[N-1]); the series are never written.
+// and emits (a[N-1], d[N-1]) of every row; the series are never written.
 //
-// Bound on the H100: latency.  It is a reduction of a 1 MB operand to two
-// scalars, so the cost is the number of dependent passes.  Design: four
-// launches on one stream — (1) per-2048-chunk affine totals of the attack
-// EMA; (2) one block turns them into the attack value at each chunk start
-// (exclusive prefix, the same pass as scan.cu); (3) each chunk rebuilds its
-// attack series locally and composes its max-affine map (c, u, v) =
-// (1-ad, ad*m, a) in order, identity (1, 0, -inf) as scan1.py:276; (4) one
-// block composes the chunk maps in order and applies them to d0.
+// Bound on the H100: latency.  It is a reduction of the magnitudes to two
+// scalars a row, so the cost is the number of dependent passes.  Design:
+// ONE launch, grid = rows x chunks of 2048, one read of ``mag``.  Each
+// block stages its chunk with coalesced 16-byte loads and each thread
+// keeps its 8 consecutive magnitudes in registers for both phases:
+//  1. the attack EMA: an ordered block scan of the affine maps
+//     (1-aa, aa*m) gives each thread its prefix and the chunk its map; the
+//     look-back over the row's earlier chunks (scan_common.cuh) gives the
+//     chunk its attack start value;
+//  2. the decay: each thread rebuilds its attack values and composes the
+//     max-affine maps (1-ad, ad*m, a) in order, identity (1, 0, -inf) as
+//     scan1.py:276, in double (scan_common.cuh; the per-element terms are
+//     the plain version's float32 values); an ordered block
+//     reduction gives the chunk its map, and a second look-back, chained
+//     in the same launch, its decay start value; d_last rounds to float32
+//     once.
+// The last chunk of a row writes the row's (a_last, d_last).  A row of one
+// chunk (the session's block, a bank's rows, the FM monitor) takes no
+// look-back.  No scratch, no host read; the look-back's status words carry
+// the call's epoch, so no call clears them.
 #include "scan_common.cuh"
 
 namespace cutesdr {
 
-__device__ __forceinline__ Aff attack_elem(const float* mag, float aa,
-                                           int i) {
-    return {1.f - aa, aa * mag[i]};
-}
+struct SmeterArgs {
+    const float* mag;        // [rows, n]
+    int n, nchunks, rows;
+    bool vec;                // mag 16-byte aligned, n % 4 == 0
+    float aa, ca, ad, cd;    // alphas and the plain version's 1 - alpha
+    const float* a0;         // row r's initial states at [r * carry_stride]
+    const float* d0;
+    int carry_stride;
+    float* out;              // [2, rows]: a_last, d_last
+    Lookback attack, decay;
+    unsigned* ticket;
+    unsigned ticket_base, epoch;
+};
 
-__device__ Aff attack_thread_total(const float* mag, float aa, int first,
-                                   int n) {
+__global__ void __launch_bounds__(SCAN_THREADS) smeter_kernel(SmeterArgs s) {
+    __shared__ __align__(16) float tile[SCAN_CHUNK];
+    const bool chained = s.nchunks > 1;
+    const int id = chunk_ticket(s.ticket, s.ticket_base, chained);
+    const int row = id / s.nchunks, c = id - row * s.nchunks;
+    const int len = min(SCAN_CHUNK, s.n - c * SCAN_CHUNK);
+    load_tile(tile, s.mag + (long long)row * s.n + (long long)c * SCAN_CHUNK,
+              len, s.vec);
+    __syncthreads();
+    float m[SCAN_ITEMS];
+    own_items(tile, m);
+    const int first = (int)threadIdx.x * SCAN_ITEMS;
     Aff t = aff_id();
+#pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k)
-        if (first + k < n) t = compose(t, attack_elem(mag, aa, first + k));
-    return t;
-}
-
-__global__ void attack_totals_kernel(const float* __restrict__ mag, float aa,
-                                     int n, float* __restrict__ tot_a,
-                                     float* __restrict__ tot_b) {
-    const int first = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
+        if (first + k < len) t = compose(t, Aff{s.ca, __fmul_rn(s.aa, m[k])});
     Aff total;
-    block_exclusive(attack_thread_total(mag, aa, first, n), &total);
-    if (threadIdx.x == 0) {
-        tot_a[blockIdx.x] = total.a;
-        tot_b[blockIdx.x] = total.b;
-    }
-}
-
-__global__ void decay_maps_kernel(const float* __restrict__ mag, float aa,
-                                  float ad, int n,
-                                  const float* __restrict__ starts,
-                                  float* __restrict__ map_c,
-                                  float* __restrict__ map_u,
-                                  float* __restrict__ map_v) {
-    const int first = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
-    Aff total;
-    Aff ex = block_exclusive(attack_thread_total(mag, aa, first, n), &total);
-    float a = apply(ex, starts[blockIdx.x]);
-    MaxAff m = maxaff_id();
+    const Aff ex = block_exclusive(t, &total);
+    const int slots = row * s.nchunks;
+    const float a0 = s.a0[(long long)row * s.carry_stride];
+    const float a_start =
+        chained ? chunk_start(s.attack, slots, c, s.nchunks, total, a0,
+                              s.epoch)
+                : a0;
+    float a = apply(ex, a_start);
+    MaxAff dm = maxaff_id();
+#pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k) {
-        const int i = first + k;
-        if (i >= n) break;
-        a = apply(attack_elem(mag, aa, i), a);
-        m = compose(m, MaxAff{1.f - ad, ad * mag[i], a});
+        if (first + k < len) {
+            a = apply(Aff{s.ca, __fmul_rn(s.aa, m[k])}, a);
+            dm = compose(dm, MaxAff{s.cd, __fmul_rn(s.ad, m[k]), a});
+        }
     }
-    m = block_reduce(m);
-    if (threadIdx.x == 0) {
-        map_c[blockIdx.x] = m.c;
-        map_u[blockIdx.x] = m.u;
-        map_v[blockIdx.x] = m.v;
-    }
-}
-
-__global__ void finish_kernel(const float* __restrict__ map_c,
-                              const float* __restrict__ map_u,
-                              const float* __restrict__ map_v, int nchunks,
-                              const float* __restrict__ tot_a,
-                              const float* __restrict__ tot_b,
-                              const float* __restrict__ starts,
-                              const float* __restrict__ d0,
-                              float* __restrict__ out) {
-    MaxAff acc = maxaff_id();
-    for (int base = 0; base < nchunks; base += blockDim.x) {
-        const int k = base + threadIdx.x;
-        MaxAff m = k < nchunks ? MaxAff{map_c[k], map_u[k], map_v[k]}
-                               : maxaff_id();
-        m = block_reduce(m);
-        if (threadIdx.x == 0) acc = compose(acc, m);
-    }
-    if (threadIdx.x == 0) {
-        const int last = nchunks - 1;
-        out[0] = apply(Aff{tot_a[last], tot_b[last]}, starts[last]);
-        out[1] = fmaxf(fmaf(acc.c, *d0, acc.u), acc.v);
+    dm = block_reduce(dm);                 // valid in thread 0
+    const double d0 = s.d0[(long long)row * s.carry_stride];
+    const double d_start =
+        chained ? chunk_start(s.decay, slots, c, s.nchunks, dm, d0, s.epoch)
+                : d0;
+    if (c == s.nchunks - 1 && threadIdx.x == 0) {
+        s.out[row] = apply(total, a_start);
+        s.out[s.rows + row] = (float)apply(dm, d_start);
     }
 }
 
@@ -94,20 +91,30 @@ __global__ void finish_kernel(const float* __restrict__ map_c,
 
 using namespace cutesdr;
 
-CUTESDR_API int cutesdr_smeter(const float* mag, float aa, float ad,
-                               const float* a0, const float* d0, int n,
-                               float* out, float* tot_a, float* tot_b,
-                               float* starts, float* map_c, float* map_u,
-                               float* map_v, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
+// (a_last, d_last) of every row of mag [rows, n] into out [2, rows], in
+// one launch.  ca, cd: 1 - aa and 1 - ad as the plain version rounds
+// them; a0, d0: the rows' initial states at r * carry_stride; vec: mag
+// 16-byte aligned and n % 4 == 0.  Rows of more than one chunk chain
+// through two phases of look-back memory (flags: 2 * rows * ceil(n / 2048)
+// slots, agg: two 16-byte words a slot; the decay phase's after the
+// attack's;
+// ticket: one counter) with the call's epoch (never 0) and ticket base
+// (the ticket's value before the launch).
+CUTESDR_API int cutesdr_smeter(const float* mag, float aa, float ca, float ad,
+                               float cd, const float* a0, const float* d0,
+                               int carry_stride, int n, int rows, int vec,
+                               float* out, unsigned* flags, double2* agg,
+                               unsigned* ticket,
+                               unsigned ticket_base, unsigned epoch,
+                               void* stream) {
+    if (n <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
     const int nchunks = (n + SCAN_CHUNK - 1) / SCAN_CHUNK;
-    attack_totals_kernel<<<nchunks, SCAN_THREADS, 0, st>>>(mag, aa, n, tot_a,
-                                                           tot_b);
-    chunk_starts_kernel<<<1, SCAN_THREADS, 0, st>>>(tot_a, tot_b, nchunks,
-                                                    a0, starts);
-    decay_maps_kernel<<<nchunks, SCAN_THREADS, 0, st>>>(
-        mag, aa, ad, n, starts, map_c, map_u, map_v);
-    finish_kernel<<<1, SCAN_THREADS, 0, st>>>(map_c, map_u, map_v, nchunks,
-                                              tot_a, tot_b, starts, d0, out);
+    const int slots = rows * nchunks;
+    SmeterArgs s{mag, n, nchunks, rows, vec != 0, aa, ca, ad, cd, a0, d0,
+                 carry_stride, out,
+                 {flags, agg},
+                 {flags + slots, agg + 2 * slots},
+                 ticket, ticket_base, epoch};
+    smeter_kernel<<<slots, SCAN_THREADS, 0, (cudaStream_t)stream>>>(s);
     return (int)cudaGetLastError();
 }

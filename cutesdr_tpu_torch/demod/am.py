@@ -1,9 +1,10 @@
 """AM envelope demodulator (port of ``cutesdr_tpu/demod/am.py``).
 
 Magnitude envelope sqrt(I^2+Q^2), one-pole DC-removal highpass
-H(z) = (1-z^-1)/(1-0.99 z^-1) solved by the log-depth first-order
-recurrence, then a post lowpass FIR at the channel's half-bandwidth
-(Kaiser, 50 dB, transition to 1.8 x BW).  A bank's [C, n] rows are
+H(z) = (1-z^-1)/(1-0.99 z^-1) solved by the first-order recurrence (one
+launch of the affine scan on the card, ``kernels/scan``), then a post
+lowpass FIR at the channel's half-bandwidth (Kaiser, 50 dB, transition
+to 1.8 x BW).  A bank's [C, n] rows are
 independent channels with [C] states.
 """
 
@@ -14,8 +15,8 @@ from typing import NamedTuple
 import torch
 
 from cutesdr_tpu_torch.design.fir_kaiser import design_lowpass
+from cutesdr_tpu_torch.kernels import scan
 from cutesdr_tpu_torch.ops import fir
-from cutesdr_tpu_torch.ops.util import first_order_recurrence
 from cutesdr_tpu_torch.types import real_scalar
 
 DC_ALPHA = 0.99
@@ -53,7 +54,7 @@ def set_bandwidth(params: AmParams, bandwidth: float,
 def dc_block(z1: torch.Tensor, u: torch.Tensor):
     """z0[n] = u[n] + 0.99*z0[n-1];  y[n] = z0[n] - z0[n-1], along the
     last axis.  Returns (z0 last, y)."""
-    z0 = first_order_recurrence(DC_ALPHA, u, z1)
+    z0 = scan.first_order_scan(DC_ALPHA, u, z1)
     z_prev = torch.cat([z1.unsqueeze(-1), z0[..., :-1]], -1)
     return z0[..., -1], z0 - z_prev
 

@@ -23,7 +23,9 @@ channel takes the scan tier when another channel of the bank is not.
 Every tier runs the DC tracker afterwards, vectorized in the offset
 frame (``_dc_track``).  The noise squelch (HP FIR, rectified EMA,
 +-100 hysteresis against a 0..5000 threshold) and the optional one-pole
-de-emphasis are parallel and stay on the device.
+de-emphasis are parallel and stay on the device.  The three one-pole
+EMAs (DC tracker, squelch, de-emphasis) are each one launch of the affine
+scan on the card (``kernels/scan.ema``).
 """
 
 from __future__ import annotations
@@ -35,10 +37,9 @@ import torch
 
 from cutesdr_tpu_torch.design.fir_kaiser import design_highpass
 from cutesdr_tpu_torch.design.iir_biquad import biquad_lowpass
-from cutesdr_tpu_torch.kernels import seqloop
+from cutesdr_tpu_torch.kernels import scan, seqloop
 from cutesdr_tpu_torch.ops import fir, iir, pll
 from cutesdr_tpu_torch.ops.pll import TWO_PI, wrap_pi
-from cutesdr_tpu_torch.ops.util import ema
 from cutesdr_tpu_torch.types import K_2PI, real_scalar
 
 FMPLL_RANGE = 6000.0
@@ -164,7 +165,7 @@ def _dc_track(params: FmParams, freqs: torch.Tensor, dc0: torch.Tensor):
     (audio series, dc_last)."""
     off = freqs[..., 0]
     f_off = freqs - off.unsqueeze(-1)
-    dcs_off = ema(params.dc_alpha, f_off, dc0 - off)
+    dcs_off = scan.ema(params.dc_alpha, f_off, dc0 - off)
     audio = (f_off - dcs_off) * float(params.out_gain)
     return audio, off + dcs_off[..., -1]
 
@@ -238,7 +239,8 @@ def _pll(params: FmParams, carry: FmCarry, x: torch.Tensor):
 
 def _noise_squelch(params: FmParams, carry: FmCarry, audio: torch.Tensor):
     fc, noise = fir.process_real(params.hp_fir, carry.hp_fir, audio)
-    ave = ema(params.squelch_alpha, noise.abs(), carry.squelch_ave)[..., -1]
+    ave = scan.ema(params.squelch_alpha, noise.abs(),
+                   carry.squelch_ave)[..., -1]
 
     thresh = params.squelch_threshold
     if thresh == 0.0:
@@ -261,7 +263,7 @@ def _post(params: FmParams, carry: FmCarry, pll_out):
     """Squelch + de-emphasis + carry assembly after the PLL."""
     phase, freq, dc, audio, _err = pll_out
     fc, ic, ave, squelched, y = _noise_squelch(params, carry, audio)
-    y = ema(params.deemph_alpha, y, carry.deemph)
+    y = scan.ema(params.deemph_alpha, y, carry.deemph)
     return FmCarry(nco_phase=phase, nco_freq=freq, freq_error_dc=dc,
                    squelch_ave=ave, squelch_on=squelched,
                    hp_fir=fc, lp_iir=ic, deemph=y[..., -1]), y

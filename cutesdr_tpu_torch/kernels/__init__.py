@@ -8,7 +8,7 @@ kernel launches per wrapper — incremented only where a kernel is launched
 
 LAUNCHES = {"mixdec": 0, "fastfir": 0, "fastfir_batch": 0, "scan_plain": 0,
             "scan_solve": 0, "smeter": 0, "seqloop_fm": 0, "seqloop_sam": 0,
-            "resamp": 0}
+            "resamp": 0, "agcseq": 0}
 
 
 def reset_launches() -> None:

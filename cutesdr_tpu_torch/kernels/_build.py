@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
-a plain C interface, loaded with ``ctypes``.  The build happens at first
-use, never at import, into ``<repo>/build/kernels/<hash>/`` (listed in
+All ``csrc/*.cu`` sources compile with ``nvcc`` (one process per source,
+all started together) and link into ONE shared library with a plain C
+interface, loaded with ``ctypes``.  The build happens at first use, never
+at import, into ``<repo>/build/kernels/<hash>/`` (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, so a fresh
 checkout builds from its own sources alone.  No ``--use_fast_math``: the
 mixdec oscillator needs the accurate ``sincosf``.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libcutesdr_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -49,15 +50,22 @@ SIGNATURES = {
     # stream
     "cutesdr_fastfir": [P, P, P, P, P, I32, I32, I32, I32, I32, I64, I64,
                         I64, I64, P],
-    # a, b, x0, n, x, totals_a, totals_b, starts, stream
-    "cutesdr_scan_plain": [P, P, P, I32, P, P, P, P, P],
+    # a, a_scalar, b, b_scale, x0, x0_stride, x0_value, n, rows, vec, x,
+    # flags, agg, ticket, ticket_base, epoch, stream
+    "cutesdr_scan_affine": [P, F32, P, F32, P, I32, F32, I32, I32, I32, P,
+                            P, P, P, U32, U32, P],
     # peak, pattern_in, rise, fall, ag, x0, n, n_iters, x, pattern, counts,
     # result, totals_a, totals_b, stream
     "cutesdr_scan_solve": [P, P, F32, F32, F32, P, I32, I32, P, P, P, P, P,
                            P, P],
-    # mag, attack, decay, a0, d0, n, out, totals_a, totals_b, starts,
-    # maps_c, maps_u, maps_v, stream
-    "cutesdr_smeter": [P, F32, F32, P, P, I32, P, P, P, P, P, P, P, P],
+    # mag, aa, 1 - aa, ad, 1 - ad, a0, d0, carry_stride, n, rows, vec, out,
+    # flags, agg, ticket, ticket_base, epoch, stream
+    "cutesdr_smeter": [P, F32, F32, F32, F32, P, P, I32, I32, I32, I32, P, P,
+                       P, P, U32, U32, P],
+    # peak, n, n_ch, attack rise, attack fall, decay rise, decay fall,
+    # hang_time, a0, d0, timer0, a_out, d_out, timer_out, mag, stream
+    "cutesdr_agc_seq": [P, I32, I32, F32, F32, F32, F32, I32, P, P, P, P, P,
+                        P, P, P],
     # theta, n, n_ch, alpha, beta, limit, state0, freqs, err, state, stream
     "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, P, P, P, P, P],
     # theta, n, n_ch, alpha, beta, limit, state0, prev, state, stream
@@ -93,23 +101,38 @@ def _nvcc() -> str:
     return exe
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's output
+    once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for cmd, (out, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
-    """Compile the library if this source hash has not been built yet."""
+    """Compile the library if this source hash has not been built yet: one
+    nvcc per source, all at once, then one link."""
     global build_seconds
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
+    obj_dir = out_dir / f"obj.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [str(obj_dir / (p.stem + ".o")) for p in cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+              for p, o in zip(cus, objs)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])
     os.replace(tmp, lib)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return lib
 

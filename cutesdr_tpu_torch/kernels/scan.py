@@ -1,10 +1,13 @@
-"""Affine prefix scans of the AGC and the S-meter (port of
-``cutesdr_tpu/kernels/scan1.py``).
+"""Affine prefix scans of the AGC, the S-meter and the demodulators'
+one-pole filters (port of ``cutesdr_tpu/kernels/scan1.py``).
 
 Three TPU kernels map onto two CUDA sources:
 
 * ``first_order_scan`` (scan1.first_order_scan) is the affine solve
-  x[n] = A[n]*x[n-1] + B[n] (``csrc/scan.cu``, three launches);
+  x[n] = A[n]*x[n-1] + B[n] over ``[..., n]`` rows with per-row initial
+  states, A per sample or one scalar (``csrc/scan.cu``, one launch: a
+  single-pass decoupled look-back scan); ``ema`` is the exponential
+  moving average through it, its alpha folded into the kernel;
 * ``guess_round`` (scan1.guess_round) builds A/B from the AGC branch
   pattern and re-derives the pattern; the port runs it inside
   ``guess_verify_solve``, which also takes the loop around it from JAX's
@@ -13,29 +16,36 @@ Three TPU kernels map onto two CUDA sources:
   (``csrc/scan.cu``); ``guess_round`` is that launch for one round from a
   given pattern;
 * ``smeter_last`` (scan1.smeter_last) chains the attack EMA into the
-  snapped max-affine decay and emits the two final values
-  (``csrc/smeter.cu``).
+  snapped max-affine decay and emits the two final values of every row
+  (``csrc/smeter.cu``, one launch, one pass).
 
-CUDA tensors launch the kernels; CPU tensors take the plain versions
-below, which are the JAX package's XLA forms (``ops/util`` solves, the
-open-coded guess-verify round and loop of ``ops/agc._two_rate_parallel``).
-The size gates are the JAX package's, so both take the same branch.
+CUDA tensors launch the kernels at every size; CPU tensors take the
+plain versions, which are the JAX package's XLA forms (``ops/util``
+solves, the open-coded guess-verify round and loop of
+``ops/agc._two_rate_parallel``), so every CPU parity test sees the numbers
+the plain solves give.  Of the JAX package's size gates, ``supported``
+still routes the guess-verify solve (the single stream's kernel only
+from 65,536, as JAX's); ``smeter_supported`` is JAX's S-meter gate,
+which the CUDA S-meter does not need.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from cutesdr_tpu_torch.kernels import LAUNCHES, _build
-from cutesdr_tpu_torch.ops.util import (ema, first_order_recurrence,
-                                        max_affine_recurrence)
+from cutesdr_tpu_torch.ops import util
+from cutesdr_tpu_torch.ops.util import first_order_recurrence
 from cutesdr_tpu_torch.types import RDTYPE
 
 ROWS_PER_STEP = 256           # the JAX kernels' block rows (S-meter gate)
 MIN_KERNEL_N = 65536          # below this the plain solve is taken
 CHUNK = 2048                  # elements per CUDA block (THREADS * ITEMS in
                               # csrc/scan_common.cuh)
+EPOCHS = 2**32 - 1            # status-word epochs: 1 .. 2^32 - 1
 
 
 def supported(n: int) -> bool:
@@ -43,8 +53,9 @@ def supported(n: int) -> bool:
 
 
 def smeter_supported(n: int) -> bool:
-    """The S-meter kernel emits only final values, so its last element
-    must be a real sample: whole (256 x 128) blocks only (scan1.py:391)."""
+    """The JAX package's S-meter gate: its kernel emits only final values,
+    so its last element must be a real sample: whole (256 x 128) blocks
+    only (scan1.py:391).  The CUDA kernel takes every n."""
     return n >= MIN_KERNEL_N and n % (ROWS_PER_STEP * 128) == 0
 
 
@@ -66,28 +77,138 @@ def shift1(x: torch.Tensor, x0) -> torch.Tensor:
                      -1)
 
 
+# -------------------------------------------------------- look-back state --
+
+class _Lookback:
+    """The status memory of the one-pass scans on one CUDA stream: status
+    words and chunk maps (one slot a chunk of each look-back phase), and
+    the ticket counter.  Grown, never cleared: each
+    call tags its status words with a new epoch, and takes chunk ids from
+    the ticket counter's value before its launch (``ticket_base``), which
+    the host tracks, so a call costs no memset and no host read."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots = 0
+        self.epoch = 0
+        self.tickets = 0
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.flags = self.agg = None
+
+    def claim(self, slots: int) -> tuple:
+        """Pointers for a call of ``slots`` status slots (all phases) and its
+        (epoch, ticket base)."""
+        if slots > self.slots:
+            self.slots = max(slots, 2 * self.slots)
+            z = lambda *shape: torch.zeros(*shape, dtype=torch.int32,
+                                           device=self.device)
+            # a slot's map: two 16-byte words
+            self.flags, self.agg = z(self.slots), z(self.slots, 8)
+        self.epoch = self.epoch % EPOCHS + 1
+        return (self.flags.data_ptr(), self.agg.data_ptr(),
+                self.ticket.data_ptr(), self.tickets, self.epoch)
+
+    def launched(self, blocks: int) -> None:
+        self.tickets = (self.tickets + blocks) % 2**32
+
+
+_lookbacks: dict[tuple, _Lookback] = {}
+_lookback_lock = threading.Lock()
+
+
+def _launch_chained(t: torch.Tensor, rows: int, n: int, phases: int,
+                    launch) -> int:
+    """Launch a one-pass scan over ``rows`` rows of ``n`` on ``t``'s stream
+    with ``phases`` look-back phases: ``launch(flags, agg, ticket,
+    ticket_base, epoch)`` enqueues it and returns its CUDA error, which is
+    returned.  Rows of one chunk use no look-back memory."""
+    nchunks = -(-n // CHUNK)
+    key = (t.device.index, _build.stream(t))
+    with _lookback_lock:
+        lb = _lookbacks.get(key)
+        if lb is None:
+            lb = _lookbacks[key] = _Lookback(t.device)
+        ptrs = lb.claim(phases * rows * nchunks) if nchunks > 1 else \
+            (None, None, None, 0, 0)
+        err = launch(*ptrs)
+        if err == 0 and nchunks > 1:
+            lb.launched(rows * nchunks)
+    return err
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous float32 [rows, n] (a view where it can be)."""
+    return t.reshape(-1, t.shape[-1]).to(RDTYPE).contiguous()
+
+
+def _state(x0, rows: int, like: torch.Tensor) -> tuple:
+    """(pointer, stride, value) of initial states: a host number (null
+    pointer), one device value for every row (stride 0) or one per row."""
+    if not isinstance(x0, torch.Tensor):
+        return None, 0, float(np.float32(x0))
+    x0 = x0.to(device=like.device, dtype=RDTYPE).reshape(-1).contiguous()
+    if x0.numel() not in (1, rows):
+        raise ValueError(f"initial states: expected 1 or {rows} values, got "
+                         f"{x0.numel()}")
+    return x0, int(x0.numel() == rows and rows > 1), 0.0
+
+
+def _aligned(*ts: torch.Tensor) -> int:
+    """1 if every tensor's data is 16-byte aligned and rows are whole
+    16-byte vectors (the kernels' vector loads and stores)."""
+    return int(all(t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0
+                   for t in ts))
+
+
 # ------------------------------------------------------------ mode plain --
 
 first_order_scan_plain = first_order_recurrence
+ema_plain = util.ema
 
 
-def first_order_scan(a: torch.Tensor, b: torch.Tensor, x0) -> torch.Tensor:
-    """x[n] = a[n]*x[n-1] + b[n], x[-1] = x0, for flat float32 tensors."""
-    if _build.on_cpu(a, b):
-        return first_order_scan_plain(a, b, x0)
-    n = b.shape[-1]
-    a = a.expand(n).contiguous()
-    _build.require(a, "a", RDTYPE, n)
-    _build.require(b, "b", RDTYPE, n)
-    x0 = _scalar(x0, b)
-    x = torch.empty(n, dtype=RDTYPE, device=b.device)
-    ta, tb, st = _scratch(n, 3, b)
-    _build.check(_build.library().cutesdr_scan_plain(
-        a.data_ptr(), b.data_ptr(), x0.data_ptr(), n, x.data_ptr(),
-        ta.data_ptr(), tb.data_ptr(), st.data_ptr(), _build.stream(b)),
-        "scan_plain")
+def _affine(a, b: torch.Tensor, x0, b_scale: float = 1.0) -> torch.Tensor:
+    """One launch of the affine scan: x[i] = A[i]*x[i-1] + b_scale*b[i]
+    along the last axis of ``b``; ``a`` a host number or a tensor that
+    broadcasts to ``b``; ``x0`` a host number, one value or one per row."""
+    shape = b.shape
+    if b.numel() == 0:
+        return torch.empty(shape, dtype=RDTYPE, device=b.device)
+    b2 = _rows(b)
+    rows, n = b2.shape
+    if isinstance(a, torch.Tensor):
+        a2, a_scalar = _rows(a.to(RDTYPE).expand(shape)), 0.0
+    else:
+        a2, a_scalar = None, float(np.float32(a))
+    x0t, x0_stride, x0_value = _state(x0, rows, b2)
+    x = torch.empty((rows, n), dtype=RDTYPE, device=b.device)
+    vec = _aligned(b2, x, *(() if a2 is None else (a2,)))
+    lib = _build.library()
+    _build.check(_launch_chained(b2, rows, n, 1, lambda *lb: (
+        lib.cutesdr_scan_affine(
+            None if a2 is None else a2.data_ptr(), a_scalar, b2.data_ptr(),
+            float(b_scale), None if x0t is None else x0t.data_ptr(),
+            x0_stride, x0_value, n, rows, vec, x.data_ptr(), *lb,
+            _build.stream(b2)))), "scan_plain")
     LAUNCHES["scan_plain"] += 1
-    return x
+    return x.reshape(shape)
+
+
+def first_order_scan(a, b: torch.Tensor, x0) -> torch.Tensor:
+    """x[n] = a[n]*x[n-1] + b[n] along the last axis of ``b`` ([n] or
+    [..., n] rows), x[-1] = x0: ``a`` a scalar or a tensor broadcasting to
+    ``b``; ``x0`` a scalar or one value per row."""
+    if _build.on_cpu(b, *(t for t in (a, x0) if isinstance(t, torch.Tensor))):
+        return first_order_scan_plain(a, b, x0)
+    return _affine(a, b, x0)
+
+
+def ema(alpha, x: torch.Tensor, init) -> torch.Tensor:
+    """Exponential moving average y[n] = (1-alpha)*y[n-1] + alpha*x[n]
+    along the last axis (``ops/util.ema``): on the card one launch of the
+    affine scan with the scalar 1 - alpha and B = alpha*x formed inside."""
+    if _build.on_cpu(x, *(t for t in (init,) if isinstance(t, torch.Tensor))):
+        return ema_plain(alpha, x, init)
+    return _affine(1.0 - alpha, x, init, b_scale=float(np.float32(alpha)))
 
 
 # ------------------------------------------------------------ mode round --
@@ -225,31 +346,42 @@ def guess_round(peak: torch.Tensor, pattern: torch.Tensor, x0, rise_alpha,
 # ---------------------------------------------------------------- smeter --
 
 def smeter_last_plain(mag: torch.Tensor, attack_alpha, decay_alpha, a0, d0):
-    a_series = ema(attack_alpha, mag, a0)
-    d_series = max_affine_recurrence(np.float32(1.0) - decay_alpha,
-                                     mag * decay_alpha, a_series, d0)
-    return a_series[-1], d_series[-1]
+    a_series = util.ema(attack_alpha, mag, a0)
+    d_series = util.max_affine_recurrence(np.float32(1.0) - decay_alpha,
+                                          mag * decay_alpha, a_series, d0)
+    return a_series[..., -1], d_series[..., -1]
 
 
 def smeter_last(mag: torch.Tensor, attack_alpha, decay_alpha, a0, d0):
-    """(a_last, d_last) of the S-meter averager pair over ``mag``:
+    """(a_last, d_last) of the S-meter averager pair along the last axis
+    of ``mag`` ([n] or [..., n] rows, any n >= 1):
         a[n] = (1-aa)*a[n-1] + aa*m[n]
         d[n] = max((1-ad)*d[n-1] + ad*m[n], a[n])
-    Callers check ``smeter_supported(len(mag))``."""
-    if _build.on_cpu(mag):
+    ``a0``, ``d0``: one value or one per row.  On the card one launch."""
+    if _build.on_cpu(mag, *(t for t in (a0, d0)
+                            if isinstance(t, torch.Tensor))):
         return smeter_last_plain(mag, attack_alpha, decay_alpha, a0, d0)
-    n = mag.shape[-1]
-    if not smeter_supported(n):
-        raise ValueError(f"smeter kernel needs whole 32768-sample blocks, "
-                         f"got {n}")
-    _build.require(mag, "mag", RDTYPE, n)
-    a0, d0 = _scalar(a0, mag), _scalar(d0, mag)
-    out = torch.empty(2, dtype=RDTYPE, device=mag.device)
-    ta, tb, st, mc, mu, mv = _scratch(n, 6, mag)
-    _build.check(_build.library().cutesdr_smeter(
-        mag.data_ptr(), np.float32(attack_alpha), np.float32(decay_alpha),
-        a0.data_ptr(), d0.data_ptr(), n, out.data_ptr(), ta.data_ptr(),
-        tb.data_ptr(), st.data_ptr(), mc.data_ptr(), mu.data_ptr(),
-        mv.data_ptr(), _build.stream(mag)), "smeter")
+    m2 = _rows(mag)
+    rows, n = m2.shape
+    states = [torch.as_tensor(v, dtype=RDTYPE, device=mag.device)
+              .reshape(-1).contiguous() for v in (a0, d0)]
+    stride = states[0].numel() == rows and rows > 1
+    for v in states:
+        if v.numel() != (rows if stride else 1):
+            raise ValueError(f"smeter_last: initial states of {v.numel()} "
+                             f"values for {rows} rows")
+    aa, ad = np.float32(attack_alpha), np.float32(decay_alpha)
+    # 1 - alpha as the plain version rounds it (ops/util.ema, the decay's
+    # float32 subtraction), on the host: no tensor, so no scalar read
+    ca = float(np.float32(1.0 - attack_alpha))
+    cd = float(np.float32(1.0) - ad)
+    out = torch.empty(2, rows, dtype=RDTYPE, device=mag.device)
+    lib = _build.library()
+    _build.check(_launch_chained(m2, rows, n, 2, lambda *lb: (
+        lib.cutesdr_smeter(
+            m2.data_ptr(), float(aa), ca, float(ad), cd, states[0].data_ptr(),
+            states[1].data_ptr(), int(stride), n, rows, _aligned(m2),
+            out.data_ptr(), *lb, _build.stream(m2)))), "smeter")
     LAUNCHES["smeter"] += 1
-    return out[0], out[1]
+    lead = mag.shape[:-1]
+    return out[0].reshape(lead), out[1].reshape(lead)

@@ -4,21 +4,22 @@
 2. log magnitude log10(max(|I|,|Q|) + K_MIN) - log10(32767), in decades;
 3. an 18 ms sliding-window peak (van Herk cummax);
 4. attack and decay averagers, solved in parallel by guess-verify over
-   the branch pattern, with an exact sequential fallback.  The decay
+   the branch pattern, with an exact sequential fallback (on the card
+   one launch of kernel N1, ``kernels/agcseq``).  The decay
    averager is two-rate, or in hang mode rises fast, holds for hang_time
    samples and then releases;
 5. the gain law: fixed gain below the knee, 10^(mag*(slope-1)) above.
 
-``process`` is the single stream, with the scan kernels above their size
-gate: there each two-rate averager is one launch of the guess-verify
-solve (warm start and every round on the device), and the block reads
-one flag on the host, both averagers' convergence, to choose between the
-parallel result and the per-sample fallback (a Python branch).  Below
-the gate, in hang mode's decay averager, and in ``process_batch`` (a
-channel bank, [C, n] with per-channel carries, in plain torch as the JAX
-package's vmapped form) the rounds run from Python with one host read
-per round (for the whole bank), and a bank votes bank-wide between the
-parallel result and the per-sample loop.
+``process`` is the single stream: above the guess-verify kernel's size
+gate each two-rate averager is one launch of the solve (warm start and
+every round on the device), and the block reads one flag on the host,
+both averagers' convergence, to choose between the parallel result and
+the sequential fallback (a Python branch).  Below the gate, in hang
+mode's decay averager, and in ``process_batch`` (a channel bank, [C, n]
+with per-channel carries, as the JAX package's vmapped form) the rounds
+run from Python with one host read per round (for the whole bank), each
+round's solve one launch of the affine scan on the card, and a bank
+votes bank-wide between the parallel result and the sequential fallback.
 """
 
 from __future__ import annotations
@@ -29,9 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu_torch.kernels import scan
+from cutesdr_tpu_torch.kernels import agcseq, scan
 from cutesdr_tpu_torch.ops.util import (distance_since_last_true,
-                                        first_order_recurrence,
                                         sliding_window_max)
 from cutesdr_tpu_torch.types import MAX_AMPLITUDE, RDTYPE, real_scalar
 
@@ -120,15 +120,6 @@ def init_carry(cfg: AgcConfig, device) -> AgcCarry:
         hang_timer=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _solve(A: torch.Tensor, B: torch.Tensor, x0, fast: bool) -> torch.Tensor:
-    """x[n] = A[n]*x[n-1] + B[n]: with ``fast`` (the single stream) the scan
-    kernel from 65,536 samples up (the JAX package's gate), else the
-    log-depth torch solve."""
-    if fast and scan.supported(B.shape[-1]):
-        return scan.first_order_scan(A, B, x0)
-    return first_order_recurrence(A, B, x0)
-
-
 def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
                        n_iters: int, fast: bool):
     """Guess-verify solve of the two-rate averager
@@ -149,14 +140,15 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
 
 
 def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
-                         n_iters: int, fast: bool):
+                         n_iters: int):
     """Guess-verify solve of the hang-mode decay averager: rise while
     pk > d, HOLD for hang_time samples, then release.  The pattern is the
     rising flags alone; the hold window is `distance since the last rise
     < hang_time`, and the timer is min(distance, hang_time).  A tie
     resets the timer even where the value cannot change, so the check is
-    exact pattern equality (no forgiveness).  Returns (trajectory, timer,
-    all rows converged, as ``_two_rate_parallel``)."""
+    exact pattern equality (no forgiveness).  Each round's solve is the
+    affine scan (``kernels/scan.first_order_scan``).  Returns (trajectory,
+    timer, all rows converged, as ``_two_rate_parallel``)."""
     dev = peak.device
     rise, fall, zero = (torch.tensor(v, dtype=RDTYPE, device=dev) for v in
                         (p.decay_rise_alpha, p.decay_fall_alpha, 0.0))
@@ -166,7 +158,7 @@ def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
         dist = distance_since_last_true(pattern, timer0)
         hold = ~pattern & (scan.shift1(dist, timer0) < p.hang_time)
         alpha = torch.where(pattern, rise, torch.where(hold, zero, fall))
-        d = _solve(1.0 - alpha, alpha * peak, d0, fast)
+        d = scan.first_order_scan(1.0 - alpha, alpha * peak, d0)
         new = peak > scan.shift1(d, d0)
         return (new, d, dist), (new == pattern).all(-1)
 
@@ -187,7 +179,7 @@ def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
     if cfg.use_hang:
         d, timer, d_ok = _hang_decay_parallel(p, carry.decay_ave,
                                               carry.hang_timer, peak,
-                                              GUESS_ITERS, fast)
+                                              GUESS_ITERS)
     else:
         d, d_ok = _two_rate_parallel(p.decay_rise_alpha, p.decay_fall_alpha,
                                      carry.decay_ave, peak, GUESS_ITERS, fast)
@@ -197,39 +189,15 @@ def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
 
 def _averager_scan(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
                    peak: torch.Tensor):
-    """The exact sequential recurrence of both averagers, one sample at a
-    time on the tensors' device (every row at once); taken only when
-    guess-verify does not converge.  Returns the tuple of
-    ``_averager_parallel``."""
-    dev = peak.device
-    r = lambda v: torch.tensor(v, dtype=RDTYPE, device=dev)
-    if not cfg.use_hang:
-        # both averagers as one [..., 2] state
-        rise = r([p.attack_rise_alpha, p.decay_rise_alpha])
-        fall = r([p.attack_fall_alpha, p.decay_fall_alpha])
-        s = torch.stack([carry.attack_ave, carry.decay_ave], -1)
-        states = torch.empty(peak.shape + (2,), dtype=RDTYPE, device=dev)
-        for i, pk in enumerate(peak.unbind(-1)):
-            pk = pk.unsqueeze(-1)
-            alpha = torch.where(pk > s, rise, fall)
-            s = (1.0 - alpha) * s + alpha * pk
-            states[..., i, :] = s
-        return s[..., 0], s[..., 1], carry.hang_timer, states.amax(-1)
-    ar, af = r(p.attack_rise_alpha), r(p.attack_fall_alpha)
-    dr, df = p.decay_rise_alpha, p.decay_fall_alpha
-    one = np.float32(1.0)
-    a, d, timer = carry.attack_ave, carry.decay_ave, carry.hang_timer
-    mag = torch.empty_like(peak)
-    for i, pk in enumerate(peak.unbind(-1)):
-        alpha = torch.where(pk > a, ar, af)
-        a = (1.0 - alpha) * a + alpha * pk
-        rising = pk > d
-        hold = timer < p.hang_time
-        d = torch.where(rising, (one - dr) * d + dr * pk,
-                        torch.where(hold, d, (one - df) * d + df * pk))
-        timer = torch.where(rising, 0, torch.where(hold, timer + 1, timer))
-        mag[..., i] = torch.maximum(a, d)
-    return a, d, timer, mag
+    """The exact sequential recurrence of both averagers, every row at
+    once (``kernels/agcseq``: one launch on the card, the per-sample torch
+    loop on the CPU); taken only when guess-verify does not converge.
+    Returns the tuple of ``_averager_parallel``."""
+    return agcseq.averager_scan(
+        peak, carry.attack_ave, carry.decay_ave, carry.hang_timer,
+        (p.attack_rise_alpha, p.attack_fall_alpha),
+        (p.decay_rise_alpha, p.decay_fall_alpha),
+        p.hang_time if cfg.use_hang else None)
 
 
 def _prefix(cfg: AgcConfig, carry: AgcCarry, x: torch.Tensor):
@@ -271,13 +239,15 @@ def _process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
 
 def process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
             x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
-    """One stream: the scan kernels where their size gate allows."""
+    """One stream: the guess-verify solve kernel where its size gate
+    allows."""
     return _process(cfg, params, carry, x, fast=True)
 
 
 def process_batch(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
                   x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
     """A channel bank: ``x`` [C, n] and a leading channel axis on the
-    carry; the params are shared.  The plain torch solves (no kernels);
+    carry; the params are shared.  The guess-verify rounds run from
+    Python (each hang-mode round one affine-scan launch on the card);
     converged channels are frozen, the fallback is voted bank-wide."""
     return _process(cfg, params, carry, x, fast=False)

@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from cutesdr_tpu_torch.kernels import scan
-from cutesdr_tpu_torch.ops.util import ema, max_affine_recurrence
 from cutesdr_tpu_torch.types import MAX_AMPLITUDE, real_scalar
 
 ATTACK_TIMECONST = 0.01
@@ -44,26 +43,18 @@ def init(sample_rate: float, device) -> tuple[SMeterParams, SMeterCarry]:
                         average_mag=r(-120.0), peak_mag=r(0.0)))
 
 
-def process(params: SMeterParams, carry: SMeterCarry, x: torch.Tensor,
-            fast: bool = False) -> tuple[SMeterCarry, torch.Tensor]:
+def process(params: SMeterParams, carry: SMeterCarry,
+            x: torch.Tensor) -> tuple[SMeterCarry, torch.Tensor]:
     """Returns (carry', per-sample dB magnitudes); read the meter through
-    the getters.  ``fast=True`` (the single stream) takes the
-    final-values-only scan (``kernels.scan.smeter_last``) where its size
-    gate allows.  With ``fast=False`` ``x`` may be a [C, n] bank with a
-    leading channel axis on the carry."""
+    the getters.  The averagers' final values come from
+    ``kernels.scan.smeter_last`` (one launch on the card).  ``x`` may be a
+    [C, n] bank with a leading channel axis on the carry."""
     pwr = (x.real * x.real + x.imag * x.imag) / MAX_PWR
     # floor at -160 dBFS: the reference's 1e-50 guard underflows in float32
     mag = 10.0 * torch.log10(torch.clamp(pwr, min=1e-16))
     peak = torch.maximum(carry.peak_mag, mag.amax(-1))
-    if fast and scan.smeter_supported(mag.shape[-1]):
-        a, d = scan.smeter_last(mag, params.attack_alpha, params.decay_alpha,
-                                carry.attack_ave, carry.decay_ave)
-    else:
-        a_series = ema(params.attack_alpha, mag, carry.attack_ave)
-        d_series = max_affine_recurrence(
-            np.float32(1.0) - params.decay_alpha, mag * params.decay_alpha,
-            a_series, carry.decay_ave)
-        a, d = a_series[..., -1], d_series[..., -1]
+    a, d = scan.smeter_last(mag, params.attack_alpha, params.decay_alpha,
+                            carry.attack_ave, carry.decay_ave)
     return SMeterCarry(attack_ave=a, decay_ave=d, average_mag=d,
                        peak_mag=peak), mag
 

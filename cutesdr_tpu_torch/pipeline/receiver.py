@@ -12,17 +12,19 @@ Numeric knobs (tune frequency, filter H, AGC constants, resample ratio,
 volume, DC cal) are plain values in ``ReceiverParams``, swapped between
 blocks; the stream state is one ``ReceiverState`` handed across blocks.
 The path choices are the JAX package's: the rational resampler from
-131,072 demodulated samples up, the scan kernels from 65,536, the S-meter
-kernel for whole 32,768-sample blocks.  Tensors on the CPU run every
+131,072 demodulated samples up, the AGC's guess-verify solve kernel from
+65,536.  The S-meter kernel, the affine scan (the demods' one-poles, hang
+mode's rounds) and the AGC's sequential fallback (kernel N1) take every
+size, single stream and bank.  Tensors on the CPU run every
 kernel's plain version; CUDA tensors launch the kernels.  A mode, rate or
 filter-size change keeps the stream: ``migrate_state`` carries the state
 into the new configuration's (``Receiver.reconfigure``).
 
 ``bank_receiver_step`` runs C channels of one configuration at once (a
 leading channel axis on the state and on the per-channel params): one
-mixdec and one batched channel-filter launch for the bank, the AGC and
-the PLL tiers voted bank-wide, and, as in the JAX package's bank, never
-the single-stream kernels (scan, S-meter) or the rational resampler.
+mixdec, one batched channel-filter and one S-meter launch for the bank,
+the AGC and the PLL tiers voted bank-wide, and, as in the JAX package's
+bank, never the guess-verify solve kernel or the rational resampler.
 """
 
 from __future__ import annotations
@@ -357,8 +359,9 @@ def _front_prefilter(cfg: ReceiverConfig, params: ReceiverParams,
 def _levels(cfg: ReceiverConfig, params: ReceiverParams,
             state: ReceiverState, filt: torch.Tensor, fast: bool):
     """S-meter + AGC on the channel-filtered samples.  ``fast`` is the
-    single stream, with its kernels; a bank passes False."""
-    sm_c, _ = smeter.process(params.smeter, state.smeter, filt, fast=fast)
+    single stream, with the guess-verify solve kernel; a bank passes
+    False."""
+    sm_c, _ = smeter.process(params.smeter, state.smeter, filt)
     agc_step = agc.process if fast else agc.process_batch
     agc_c, leveled = agc_step(_agc_cfg(cfg), params.agc, state.agc, filt)
     return sm_c, agc_c, leveled

@@ -95,9 +95,12 @@ def test_fastfir_process_and_retune():
 
 @pytest.mark.parametrize("n,fast", [(8192, False), (65536, True)])
 def test_smeter_series_and_last_value(n, fast):
-    """Series form (small blocks) and the final-values-only scan (whole
-    32768-sample blocks; its plain version on the CPU) against the JAX
-    series form, within 1e-3 dB, over two chained blocks."""
+    """A small block and a whole-32768-sample block (``fast``: the JAX
+    package's final-values-only kernel gate; the port's S-meter takes the
+    same dispatch at every size, its plain version on the CPU) against the
+    JAX series form, within 1e-3 dB, over two chained blocks."""
+    from cutesdr_tpu_torch.kernels import scan as t_scan
+    assert t_scan.smeter_supported(n) == fast
     rng = np.random.default_rng(3)
     jp, jc = j_sm.init(62_500.0, jnp.float32)
     tp, tc = t_sm.init(62_500.0, "cpu")
@@ -105,7 +108,7 @@ def test_smeter_series_and_last_value(n, fast):
     for b in range(2):
         x = _cplx(rng, n, 300.0 * (1 + 5 * b))
         jc, jm = j_process(jp, jc, jnp.asarray(x))
-        tc, tm = t_sm.process(tp, tc, _t(x), fast=fast)
+        tc, tm = t_sm.process(tp, tc, _t(x))
         np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-4)
         for f in ("attack_ave", "decay_ave", "average_mag", "peak_mag"):
             assert abs(float(getattr(tc, f)) - float(getattr(jc, f))) < 1e-3
