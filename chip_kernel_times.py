@@ -1,8 +1,9 @@
 """Device time of the mixdec (K1), fastfir (K2, K6) and banded resampler
 (K9) kernels, of the AGC's guess-verify solve (K4), of the affine scan
-(K3), the S-meter (K5) and the AGC's sequential fallback (N1) on one
-NVIDIA GPU, at the main paths' shapes, and of the call sites that route
-their recurrences through K3/K5 (``route`` cases).
+(K3), the S-meter (K5), the AGC's sequential fallback (N1) and the PLL
+loops (K7, K8) on one NVIDIA GPU, at the main paths' shapes, and of the
+call sites that route their recurrences through K3/K5 or FM's PLL tier
+through K7 (``route`` cases, with their launches and host reads a call).
 
     python3 chip_kernel_times.py [--root DIR] [--only PREFIX,...]
 
@@ -284,6 +285,71 @@ def scan_cases(gen, scan, fm, am, smeter, agcseq_mod):
     return cases
 
 
+def seqloop_cases(gen, seqloop, fm, sam):
+    """K7/K8 kernel cases (label, fn, kind) at the full width (262,144), a
+    bank of four, a 3 Hz tone 32,768 long (FM's chunks almost never
+    bit-sync: K7's walker runs end to end) and the idle monitor's block
+    (256 + 256 chained from the first call's state); and FM's PLL tier as
+    the demod routes a noise block that leaves the linear tier
+    (``fm._pll``: the parent's torch chunked scan, or one K7 launch)."""
+    import numpy as np
+    n = 262_144
+    noise = lambda *shape: (torch.rand(*shape, generator=gen, device="cuda")
+                            * 2 - 1) * np.pi
+    k = torch.arange(32_768, dtype=torch.float64, device="cuda")
+    tone = (torch.remainder(k * (2 * np.pi * 3.0 / 62_500.0) + 0.3 + np.pi,
+                            2 * np.pi) - np.pi).float()
+    fm_p, fm_c = fm.init(62_500.0, "cuda")
+    sam_p, _ = sam.init(31_250.0, "cuda")
+    s0 = (torch.tensor(0.5, device="cuda"), torch.tensor(0.0, device="cuda"))
+    fa = (fm_p.pll_alpha, fm_p.pll_beta, fm_p.nco_limit, *s0)
+    sa = (sam_p.pll_alpha, sam_p.pll_beta, sam_p.nco_limit, *s0)
+    th_fm, th_sam, th4, th512 = noise(n), noise(n), noise(4, n), noise(512)
+    x = torch.randn(n, generator=gen, device="cuda",
+                    dtype=torch.complex64) * 1000.0
+
+    def chained(fn, a):
+        first = fn(*a, th512[:256])
+        return fn(*a[:3], first[0], first[1], th512[256:])
+
+    return [
+        ("seqloop_fm 1 x 262,144 noise",
+         lambda: seqloop.fm_pll_scan(*fa, th_fm), "kernel"),
+        ("seqloop_fm 1 x 32,768 3 Hz tone",
+         lambda: seqloop.fm_pll_scan(*fa, tone), "kernel"),
+        ("seqloop_fm 256 + 256 chained",
+         lambda: chained(seqloop.fm_pll_scan, fa), "kernel"),
+        ("seqloop_sam 1 x 262,144 noise",
+         lambda: seqloop.sam_pll_scan(*sa, th_sam), "kernel"),
+        ("seqloop_sam 4 x 262,144 noise",
+         lambda: seqloop.sam_pll_scan(*sa, th4), "kernel"),
+        ("seqloop_sam 256 + 256 chained",
+         lambda: chained(seqloop.sam_pll_scan, sa), "kernel"),
+        ("seqloop route fm tier 1 x 262,144 noise (fm._pll)",
+         lambda: fm._pll(fm_p, fm_c, x), "route"),
+    ]
+
+
+def event_counts(events, steps: int = 1) -> tuple[float, float]:
+    """(kernel launches, host reads) a step of a profiled window of
+    ``steps`` steps (``events``: its ``prof.key_averages()``): the
+    cudaLaunchKernel and aten::_local_scalar_dense (``.item()``, ``bool``
+    of a device tensor) events."""
+    count = {e.key: e.count for e in events}
+    return (count.get("cudaLaunchKernel", 0) / steps,
+            count.get("aten::_local_scalar_dense", 0) / steps)
+
+
+def call_counts(fn) -> tuple[float, float]:
+    """(kernel launches, host reads) of one call of fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return event_counts(prof.key_averages())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_times: no CUDA device", file=sys.stderr)
@@ -295,9 +361,9 @@ def main() -> int:
     sys.path.insert(0, root)
     from cutesdr_tpu_torch.design.decimation_plan import plan_decimation
     from cutesdr_tpu_torch.design.fastfir_design import design_fastfir
-    from cutesdr_tpu_torch.demod import am, fm
+    from cutesdr_tpu_torch.demod import am, fm, sam
     from cutesdr_tpu_torch.kernels import (_build, fastfir, mixdec, resamp,
-                                           scan)
+                                           scan, seqloop)
     from cutesdr_tpu_torch.ops import agc, nco, resampler, smeter
     try:
         from cutesdr_tpu_torch.kernels import agcseq
@@ -339,6 +405,7 @@ def main() -> int:
     ]
     cases = [(label, fn, "kernel") for label, fn in cases]
     cases += scan_cases(gen, scan, fm, am, smeter, agcseq)
+    cases += seqloop_cases(gen, seqloop, fm, sam)
     for label, fn, kind in cases:
         if not label.startswith(only):
             continue
@@ -349,14 +416,16 @@ def main() -> int:
                               "root": root, "gpu": smi}), flush=True)
             continue
         warm_up(fn)
+        extra = {}
         if kind == "route":
             dev, dev_by = queued_ms(fn), "queued events (all device work)"
+            extra = dict(zip(("launches", "host_reads"), call_counts(fn)))
         else:
             dev, dev_by = device_ms(fn)
         clock = sm_clock_mhz()
         print(json.dumps({"case": label, "device_ms": dev,
                           "device_by": dev_by, "ms": call_ms(fn),
-                          "sm_clock": clock,
+                          "sm_clock": clock, **extra,
                           "root": root, "gpu": smi}), flush=True)
     return 0
 

@@ -27,6 +27,9 @@ audio (``path_specs``):
 * the flagship USB and its hang-mode twin with one guess-verify round
   allowed, so the AGC takes its sequential fallback (kernel N1) on its
   blocks;
+* FM at full width on carrier-less noise (``fm noise``), whose blocks
+  take the chunked tier, one launch of the FM PLL kernel (K7) each (its
+  launches and host reads a step: the ``--profile`` line);
 * an FM monitor on an idle channel at the low-latency configuration
   (512/257 filter, one frame: 256 demodulated samples), whose noise
   blocks take the seqloop_fm kernel;
@@ -44,9 +47,13 @@ audio (``path_specs``):
 
 The scans (K3, K5) are also held to the float64 solve of their float32
 inputs (no farther from it than 1.5x their plain versions), N1 to its
-plain loop bitwise.  Before each path every launch count is set to 0;
-after it, every kernel that the path's configuration routes to must have
-launched, and no other.
+plain loop bitwise, and the PLL kernels (K7, K8) to theirs bitwise at
+every shape, with K7's chunked-tier flag against the torch chunked
+tier's (forced repairs, an acquisition block, banks of 4 and 64
+streams), and their walk's cycles a sample from a clock64() probe.
+Before each path every launch count is set to 0; after it, every kernel
+that the path's configuration routes to must have launched, and no
+other.
 Prints one line per phase, a JSON line of per-kernel results, the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, so the script exits non-zero.  It
@@ -76,7 +83,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from chip_kernel_times import device_ms, warm_up  # noqa: E402
+from chip_kernel_times import device_ms, event_counts, warm_up  # noqa: E402
 from cutesdr_tpu_torch import kernels  # noqa: E402
 from cutesdr_tpu_torch.demod import fm, sam  # noqa: E402
 from cutesdr_tpu_torch.design.decimation_plan import (  # noqa: E402
@@ -132,6 +139,8 @@ F32_OPS_S = 67e12
 RESAMP_TOL = 2e-5         # x the block's peak: the two differ only in the
                           # order of the tap sum
 SEQ_TOL = 1e-6            # rad: kernel and plain loop round alike
+PLL_STEP_OPS = 20         # float32 operations of one PLL step (two wraps
+                          # of five, the update, the clamp, three sums)
 # which outputs of the seqloop wrappers are angles (compared wrapped):
 # FM (phase, freq, freqs, err), SAM (phase, freq, pre-update phases)
 ANGLES = {"seqloop_fm": (True, False, False, True),
@@ -412,6 +421,109 @@ def check_seqloops_bank(gen):
         if unequal or unequal_chained:
             raise AssertionError(f"{name}: the bank kernel is not bitwise "
                                  "equal to its plain loop")
+
+
+def torch_chunked_flag(p, phase0, freq0, th, halo: int):
+    """The flag of FM's chunked tier in torch (``fm._pll_chunked``) at any
+    halo, per stream of th, over its whole 128-sample chunks."""
+    _, c = fm.init(62_500.0, "cuda")
+    c = c._replace(nco_phase=torch.as_tensor(phase0, device="cuda"),
+                   nco_freq=torch.as_tensor(freq0, device="cuda"))
+    n = th.shape[-1] // fm.PLL_CHUNK * fm.PLL_CHUNK
+    return fm._pll_chunked(p, c, th[..., :n].contiguous(), halo)[0]
+
+
+def seq_theta(kind: str, n: int, fs: float, gen, offset_hz: float = 150.0):
+    """Seeded noise, a tone ``offset_hz`` off the NCO, or an acquisition
+    block (noise, then the tone from 37 samples past the middle)."""
+    noise = pll_theta("noise", n, fs, offset_hz, gen)
+    if kind == "noise":
+        return noise
+    tone = pll_theta("tone", n, fs, offset_hz, gen)
+    if kind == "tone":
+        return tone
+    k = torch.arange(n, device="cuda")
+    return torch.where(k < n // 2 + 37, noise, tone)
+
+
+def check_seqloop_redesign(gen, results):
+    """The redesigned K7 and K8, bitwise against the plain loops: K7 with
+    forced repairs (a 1-sample halo on noise at 250 kHz, whose repair
+    walks stop mid-stream, also with the stager warp sleeping
+    4 us after every group's barrier, so that each stop reaches a stager
+    far behind the walker; a 3 Hz tone, whose chunks almost never
+    bit-sync, at 62.5 kHz), on an acquisition
+    block, and banks of 4 and 64 streams of both kernels (noise, tone and
+    acquisition streams, each with its own start state); K7's flag
+    against the torch chunked tier's at the same halo.  Then cycles a
+    sample of one stream's walk from the kernels' clock64() probe, with
+    the magic-constant round and with rintf."""
+    fm62, _ = fm.init(62_500.0, "cuda")
+    fm250, _ = fm.init(250_000.0, "cuda")
+    sam31, _ = sam.init(31_250.0, "cuda")
+    noise250 = seq_theta("noise", 8192, 250e3, gen)
+    cases = [("forced repair, halo 1, noise 250 kHz", fm250, noise250, 1,
+              False, 0),
+             ("forced repair, 3 Hz tone", fm62,
+              seq_theta("tone", 8192, 62.5e3, gen, 3.0), 128, False, 0),
+             ("acquisition", fm62, seq_theta("acq", 8192, 62.5e3, gen), 128,
+              None, 0),
+             ("forced repair, halo 1, noise 250 kHz, stager 4 us late",
+              fm250, noise250, 1, False, 4000)]
+    phase0 = torch.tensor(0.5, device="cuda")
+    freq0 = torch.tensor(0.0, device="cuda")
+    for label, p, th, halo, flag_want, stager_ns in cases:
+        args = (p.pll_alpha, p.pll_beta, p.nco_limit, phase0, freq0)
+        valid, *got = seqloop.fm_pll_chunked(*args, th, halo, stager_ns)
+        err, unequal = seq_err("seqloop_fm", got,
+                               seqloop.fm_pll_scan_plain(*args, th))
+        flag = bool(torch_chunked_flag(p, phase0, freq0, th, halo))
+        phase(f"kernel seqloop_fm {label} n={th.numel()}: max_abs_err "
+              f"{err:.3e}, {unequal} values not bitwise equal, flag "
+              f"{bool(valid)} (torch chunked tier {flag})")
+        if unequal or bool(valid) != flag or (
+                flag_want is not None and flag != flag_want):
+            raise AssertionError(f"seqloop_fm {label}: not the loop, or the "
+                                 "flag differs from the torch chunked tier")
+    kinds = ("noise", "tone", "acq")
+    for c in (4, 64):
+        for name, p, fs, kernel, plain in (
+                ("seqloop_fm", fm62, 62.5e3, seqloop.fm_pll_chunked,
+                 seqloop.fm_pll_scan_plain),
+                ("seqloop_sam", sam31, 31.25e3, seqloop.sam_pll_scan,
+                 seqloop.sam_pll_scan_plain)):
+            th = torch.stack([seq_theta(kinds[i % 3], 2048, fs, gen)
+                              for i in range(c)])
+            ph0 = torch.rand(c, generator=gen, device="cuda") * 6.0 - 3.0
+            fr0 = randn(c, gen, 0.01)
+            args = (p.pll_alpha, p.pll_beta, p.nco_limit, ph0, fr0)
+            got = kernel(*args, th)
+            if name == "seqloop_fm":
+                flags, got = got[0], got[1:]
+                if not torch.equal(flags, torch_chunked_flag(p, ph0, fr0, th,
+                                                             128)):
+                    raise AssertionError(f"K7 bank of {c}: flags differ from "
+                                         "the torch chunked tier's")
+            err, unequal = seq_err(name, got, plain(*args, th))
+            phase(f"kernel {name} bank {c} x 2048 (noise, tone, acquisition):"
+                  f" max_abs_err {err:.3e}, {unequal} values not bitwise "
+                  "equal")
+            if unequal:
+                raise AssertionError(f"{name} bank of {c}: not bitwise the "
+                                     "plain loop")
+    for name, kind, p, fs in (("seqloop_fm", "fm", fm62, 62.5e3),
+                              ("seqloop_sam", "sam", sam31, 31.25e3)):
+        th = seq_theta("noise", 32_768, fs, gen)
+        cyc = {fast: seqloop.chain_cycles(kind, p.pll_alpha, p.pll_beta,
+                                          p.nco_limit, th, fast)
+               for fast in (True, False)}
+        results[name]["cycles_per_sample"] = cyc[True][0]
+        results[name]["step_cycles"] = cyc[True][1]
+        results[name]["cycles_per_sample_rintf"] = cyc[False][0]
+        phase(f"kernel {name} walk: {cyc[True][0]:.1f} cycles a sample "
+              f"(clock64, one lane, fast wrap; the steps alone "
+              f"{cyc[True][1]:.1f}), {cyc[False][0]:.1f} with the plain "
+              f"wrap (steps {cyc[False][1]:.1f})")
 
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -789,11 +901,12 @@ def pll_theta(kind: str, n: int, fs: float, offset_hz: float, gen):
 
 def seq_err(name: str, got, want) -> tuple[float, int]:
     """Largest difference of a seqloop kernel's outputs from its plain
-    loop's (angles wrapped) and the count of values not bitwise equal;
-    raises beyond SEQ_TOL."""
+    loop's (angles wrapped) and the count of values not bitwise equal
+    (compared as int32, so -0 and +0 differ); raises beyond SEQ_TOL."""
     err = max(angle_err(g, w) if is_angle else float((g - w).abs().max())
               for g, w, is_angle in zip(got, want, ANGLES[name]))
-    unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+    unequal = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                  for g, w in zip(got, want))
     if not err <= SEQ_TOL:
         raise AssertionError(f"{name} disagrees with its plain loop: "
                              f"{err:.3e} > {SEQ_TOL:.1e}")
@@ -818,7 +931,8 @@ def check_seqloops(gen, results):
     locked tone, and the full-width 262,144 samples of noise.  The kernel
     is timed as the others are; the plain loop (one launch per torch op
     per sample) once.  Then FM's chunked tier (torch) at 262,144 on the
-    same noise: it must equal K7 where it validates.  Last, partial tiles
+    same noise against K7's one launch: the same flag, and the same bits
+    where it validates.  Last, partial tiles
     and the carry between calls: two chained calls of 256 samples (the FM
     idle channel's block) and of 31,768 then 777 samples (neither whole
     1,024-sample tiles), on noise."""
@@ -837,7 +951,7 @@ def check_seqloops(gen, results):
         th = pll_theta("noise", N_DEMOD, fs, off, gen)
         dev[name] = device_ms(lambda: kernel(p.pll_alpha, p.pll_beta,
                                              p.nco_limit, phase0, freq0, th),
-                              calls=3)
+                              calls=10)
     for n, kind in ((32_768, "noise"), (32_768, "tone"), (N_DEMOD, "noise")):
         for name, (p, fs, off, kernel, plain) in loops.items():
             th = pll_theta(kind, n, fs, off, gen)
@@ -854,13 +968,15 @@ def check_seqloops(gen, results):
                   f"{plain_ms:.1f} ms (1 call)")
             if n == N_DEMOD:
                 # bytes: theta in, the series out (FM two, SAM one);
-                # operations: the dozen of the per-sample chain
+                # operations: ~20 a step (PLL_STEP_OPS), one step a
+                # sample: the function's work, not the chunked schedule's
                 series = 2 if name == "seqloop_fm" else 1
                 results[name] = {"max_abs_err": err, "ms": ms,
                                  "device_ms": dev[name][0],
                                  "device_by": dev[name][1],
                                  "plain_ms": plain_ms,
-                                 **bound(4 * n * (1 + series), 12 * n),
+                                 **bound(4 * n * (1 + series),
+                                         PLL_STEP_OPS * n),
                                  "library_ms": None}
                 if name == "seqloop_fm":
                     check_fm_chunked(fm_p, fm_c, phase0, freq0, th, got, ms)
@@ -876,17 +992,30 @@ def check_seqloops(gen, results):
 
 
 def check_fm_chunked(p, c, phase0, freq0, th, k_out, k_ms):
+    """FM's chunked tier in torch (``fm._pll_chunked``, ``ops/pll``'s
+    chunked scan, the parent's card route) against K7's one launch
+    (``seqloop.fm_pll_chunked``) on the same noise: the same flag, and
+    where it holds the same bits; both timed."""
     c = c._replace(nco_phase=phase0, nco_freq=freq0)
     run = lambda: fm._pll_chunked(p, c, th)
+    run_k = lambda: seqloop.fm_pll_chunked(p.pll_alpha, p.pll_beta,
+                                           p.nco_limit, phase0, freq0, th)
     valid, (ph, fr, _dc, _audio, errs) = run()
-    valid = bool(valid)
-    if valid and not (torch.equal(errs, k_out[3])
-                      and float(fr) == float(k_out[1])):
+    k_valid, k_ph, k_fr, k_freqs, k_errs = run_k()
+    valid, k_valid = bool(valid), bool(k_valid)
+    if valid != k_valid:
+        raise AssertionError(f"K7's flag {k_valid} is not the torch chunked "
+                             f"tier's {valid}")
+    if not (torch.equal(k_errs, k_out[3]) and torch.equal(k_freqs, k_out[2])):
+        raise AssertionError("K7 gave other bits on a second call")
+    if valid and not (torch.equal(errs, k_errs) and float(fr) == float(k_fr)
+                      and float(ph) == float(k_ph)):
         raise AssertionError("FM chunked tier validated but differs from K7")
     ms = time_ms(run, reps=3, calls=2)
     phase(f"FM chunked tier (torch) n={th.numel()} noise: valid {valid}, "
+          f"K7 flag {k_valid}, "
           f"{'bitwise equal to K7, ' if valid else ''}{ms:.2f} ms "
-          f"(median of 3x2 calls) against K7 {k_ms:.4f} ms")
+          f"(median of 3x2 calls) against K7's one launch {k_ms:.4f} ms")
 
 
 def check_other_shapes(gen):
@@ -1140,10 +1269,11 @@ def banded_tail(cfg, bank: bool, params) -> bool:
 
 def routed_kernels(cfg, bank: bool, params) -> set[str]:
     """The kernels a configuration's path routes to, by the port's gates
-    (the seqloops by the tiers the demods report as taken, N1 by the AGC's
-    fallbacks).  Every path runs the S-meter kernel; the affine scan runs
-    the AM/SAM DC block, FM's three EMAs and hang mode's decay rounds; a
-    bank never takes the single-stream guess-verify solve kernel."""
+    (the seqloops by the tiers the demods report as taken: FM's chunked
+    and scan tiers are each one K7 launch; N1 by the AGC's fallbacks).
+    Every path runs the S-meter kernel; the affine scan runs the AM/SAM
+    DC block, FM's three EMAs and hang mode's decay rounds; a bank never
+    takes the single-stream guess-verify solve kernel."""
     n = cfg.fastfir_valid * cfg.frames_per_block
     want = {"mixdec", "smeter"}
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
@@ -1154,7 +1284,7 @@ def routed_kernels(cfg, bank: bool, params) -> set[str]:
         want.add("scan_solve")
     if cfg.mode in ("am", "sam", "fm") or (cfg.agc_on and cfg.agc_hang):
         want.add("scan_plain")
-    if fm.STATS["scan"]:
+    if fm.STATS["scan"] or fm.STATS["chunked"]:     # one K7 launch either
         want.add("seqloop_fm")
     if sam.STATS["scan"]:
         want.add("seqloop_sam")
@@ -1314,6 +1444,17 @@ def fm_monitor_check(cfg):
     return check
 
 
+def fm_noise_check(launches, tiers, n_blocks):
+    """FM on carrier-less noise at full width: every block past the first
+    leaves the linear tier and takes the chunked tier, each one launch of
+    K7 (the torch chunked scan never runs on the card)."""
+    if not (tiers["chunked"] >= n_blocks - 1
+            and launches["seqloop_fm"] == tiers["chunked"] + tiers["scan"]):
+        raise AssertionError(f"fm noise: tiers {tiers}, K7 launches "
+                             f"{launches['seqloop_fm']} over {n_blocks} "
+                             "blocks")
+
+
 def sam_acquire_check(launches, tiers, n_blocks):
     if not (tiers["scan"] >= 1 and launches["seqloop_sam"] == tiers["scan"]):
         raise AssertionError(f"bank sam: tiers {tiers}, K8 launches "
@@ -1400,6 +1541,11 @@ def path_specs() -> list:
          tone(offset_hz=1000.0), 2,
          dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
               need=("agcseq",), check=fallback_check)),
+        # carrier-less noise at full width: the chunked tier every block,
+        # one K7 launch each (last, so the paths before keep their inputs)
+        ("fm noise", "single", rx.ReceiverConfig(mode="fm", **full), None,
+         dict(carriers=(), noise_db=-60.0), 3,
+         dict(steps=4, need=("seqloop_fm",), check=fm_noise_check)),
     ]
 
 
@@ -1467,15 +1613,14 @@ def profile_report(label: str, ms: float, prof, steps: int,
     by_op = {e.key: e.self_device_time_total / 1e3 / steps
              for e in events if "CUDA" not in str(e.device_type)
              and e.key.startswith("aten::")}
-    count = {e.key: e.count / steps for e in events}
+    launches, host_reads = event_counts(events, steps)
     busy = sum(device.values())
     top = lambda d: [[round(t, 4), k[:70]] for t, k in sorted(
         ((t, k) for k, t in d.items() if t > 0), reverse=True)[:8]]
     print(json.dumps({
         "path": label, "ms_per_step": ms, "device_busy_ms": busy,
         "busy_share": busy / ms,
-        "launches_per_step": count.get("cudaLaunchKernel", 0.0),
-        "host_reads_per_step": count.get("aten::_local_scalar_dense", 0.0),
+        "launches_per_step": launches, "host_reads_per_step": host_reads,
         "top_device_ms": top(device), "top_ops_ms": top(by_op),
         "gpu": gpu_label}), flush=True)
 
@@ -1688,6 +1833,8 @@ def main() -> int:
     # checks' inputs stay as they were
     gen_new = torch.Generator(device="cuda")
     gen_new.manual_seed(SEED + 6)
+    gen_pll = torch.Generator(device="cuda")         # K7/K8's newer checks
+    gen_pll.manual_seed(SEED + 8)
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
         return 0
@@ -1706,6 +1853,7 @@ def main() -> int:
     check_resamp(gen, results, gen_new)
     check_seqloops(gen, results)
     check_seqloops_bank(gen)
+    check_seqloop_redesign(gen_pll, results)
     check_other_shapes(gen)
     check_plain_filter_sizes(gen_new)
     check_fixtures()

@@ -8,10 +8,17 @@ package:
 
 * 0, linear: the parallel locked-loop solve (``ops/pll.solve_locked``);
 * 1, chunked: the exact recurrence as concurrent chunk scans with a
-  bitwise boundary check (``ops/pll.chunked_scan``), for blocks of at
-  least four 128-sample chunks (``_chunkable``);
-* 2, scan: the exact sequential loop (``kernels/seqloop.fm_pll_scan``, the
-  K7 kernel on CUDA).
+  bitwise boundary check, for blocks of at least four 128-sample chunks
+  (``_chunkable``) where every boundary held;
+* 2, scan: the exact sequential loop.
+
+Tiers 1 and 2 are one call of ``kernels/seqloop.fm_pll_chunked`` (one
+launch of the K7 kernel on the card, its plain version on the CPU): the
+chunked tier's schedule with its failed chunks repaired in the same
+call, so its outputs are the sequential loop's, and its first check's
+flag labels the block tier 1 (chunkable and every boundary held) or 2.
+``_pll_chunked`` (``ops/pll.chunked_scan``, JAX's chunked tier) is no
+tier here: the tests and the smoke hold K7's flag to it.
 
 The JAX package picks the tier on the device with ``lax.cond``; here it
 is a host branch on each validity flag: one device sync per block, two
@@ -170,22 +177,16 @@ def _dc_track(params: FmParams, freqs: torch.Tensor, dc0: torch.Tensor):
     return audio, off + dcs_off[..., -1]
 
 
-def _pll_scan(params: FmParams, carry: FmCarry, theta: torch.Tensor):
-    """The exact loop, then the DC tracker."""
-    phase, freq, freqs, err = seqloop.fm_pll_scan(
-        params.pll_alpha, params.pll_beta, params.nco_limit,
-        carry.nco_phase, carry.nco_freq, theta)
-    audio, dc_last = _dc_track(params, freqs, carry.freq_error_dc)
-    return phase, freq, dc_last, audio, err
-
-
 def _chunkable(n: int) -> bool:
     """Static gate of the chunked tier."""
     return n % PLL_CHUNK == 0 and n // PLL_CHUNK >= 4
 
 
-def _pll_chunked(params: FmParams, carry: FmCarry, theta: torch.Tensor):
-    """The exact recurrence as chunk scans (``ops/pll.chunked_scan``)."""
+def _pll_chunked(params: FmParams, carry: FmCarry, theta: torch.Tensor,
+                 halo: int = PLL_HALO):
+    """The exact recurrence as chunk scans (``ops/pll.chunked_scan``), with
+    a ``halo`` of warm-up (the checks force repairs with a short one): JAX's
+    chunked tier, the reference for K7's flag (no tier of ``_pll``)."""
     a, b, lim = (float(v) for v in (params.pll_alpha, params.pll_beta,
                                     params.nco_limit))
 
@@ -198,7 +199,7 @@ def _pll_chunked(params: FmParams, carry: FmCarry, theta: torch.Tensor):
 
     init = (carry.nco_phase, carry.nco_freq)
     valid, (freqs, errs), (phase, freq) = pll.chunked_scan(
-        step, init, init, theta, PLL_CHUNK, PLL_HALO)
+        step, init, init, theta, PLL_CHUNK, halo)
     audio, dc_last = _dc_track(params, freqs, carry.freq_error_dc)
     return valid, (torch.remainder(phase, TWO_PI), freq, dc_last, audio,
                    errs)
@@ -219,6 +220,16 @@ def _pll_linear(params: FmParams, carry: FmCarry, theta: torch.Tensor):
     return valid, (phase, f_last, dc_last, audio, e)
 
 
+def _pll_exact(params: FmParams, carry: FmCarry, theta: torch.Tensor):
+    """The exact loop and the chunked tier's flag in one K7 launch
+    (``seqloop.fm_pll_chunked``), then the DC tracker."""
+    valid, phase, freq, freqs, err = seqloop.fm_pll_chunked(
+        params.pll_alpha, params.pll_beta, params.nco_limit,
+        carry.nco_phase, carry.nco_freq, theta)
+    audio, dc_last = _dc_track(params, freqs, carry.freq_error_dc)
+    return valid, (phase, freq, dc_last, audio, err)
+
+
 def _pll(params: FmParams, carry: FmCarry, x: torch.Tensor):
     """Tiered PLL solve.  Returns (tier, pll_out) with the tier taken; a
     bank takes a tier only where it is exact for every channel."""
@@ -227,12 +238,9 @@ def _pll(params: FmParams, carry: FmCarry, x: torch.Tensor):
     tier = TIER_LINEAR
     if not bool(valid.all()):                               # host sync
         tier = TIER_SCAN
-        if _chunkable(theta.shape[-1]):
-            cvalid, out = _pll_chunked(params, carry, theta)
-            if bool(cvalid.all()):                          # host sync
-                tier = TIER_CHUNKED
-        if tier == TIER_SCAN:
-            out = _pll_scan(params, carry, theta)
+        cvalid, out = _pll_exact(params, carry, theta)
+        if _chunkable(theta.shape[-1]) and bool(cvalid.all()):  # host sync
+            tier = TIER_CHUNKED
     STATS[TIER_NAMES[tier]] += 1
     return tier, out
 

@@ -66,10 +66,14 @@ SIGNATURES = {
     # hang_time, a0, d0, timer0, a_out, d_out, timer_out, mag, stream
     "cutesdr_agc_seq": [P, I32, I32, F32, F32, F32, F32, I32, P, P, P, P, P,
                         P, P, P],
-    # theta, n, n_ch, alpha, beta, limit, state0, freqs, err, state, stream
-    "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, P, P, P, P, P],
-    # theta, n, n_ch, alpha, beta, limit, state0, prev, state, stream
-    "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, P, P, P, P],
+    # theta, n, n_ch, alpha, beta, limit, fast, halo, state0, freqs, err,
+    # state, valid, e1, e2, flags, ticket, ticket_base, epoch, clocks,
+    # stager_ns, stream
+    "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, I32, I32, P, P, P, P, P,
+                       P, P, P, P, U32, U32, P, U32, P],
+    # theta, n, n_ch, alpha, beta, limit, fast, state0, prev, state,
+    # clocks, stream
+    "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, I32, P, P, P, P, P],
     # zr, zi, z_cstride, es, nz, t_int, t_frac, t_cstride, n_out, tables,
     # M, periods, interp, lanes, outputs_per_block, taps_per_lane, span,
     # n_streams, yr, yi, y_cstride, ys, stream

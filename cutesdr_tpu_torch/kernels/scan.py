@@ -116,24 +116,34 @@ _lookbacks: dict[tuple, _Lookback] = {}
 _lookback_lock = threading.Lock()
 
 
-def _launch_chained(t: torch.Tensor, rows: int, n: int, phases: int,
-                    launch) -> int:
-    """Launch a one-pass scan over ``rows`` rows of ``n`` on ``t``'s stream
-    with ``phases`` look-back phases: ``launch(flags, agg, ticket,
-    ticket_base, epoch)`` enqueues it and returns its CUDA error, which is
-    returned.  Rows of one chunk use no look-back memory."""
-    nchunks = -(-n // CHUNK)
+def launch_ordered(t: torch.Tensor, slots: int, blocks: int, launch) -> int:
+    """Launch a kernel whose blocks order themselves through the status
+    memory of ``t``'s stream: ``launch(flags, agg, ticket, ticket_base,
+    epoch)`` enqueues it with ``slots`` status slots (0: none, and no
+    tickets taken) and returns its CUDA error, which is returned; its
+    ``blocks`` blocks each take one ticket.  Shared by every kernel of
+    the stream (the scans here, K7 in ``kernels/seqloop``): a call's epoch
+    is new, so no call reads another's words."""
     key = (t.device.index, _build.stream(t))
     with _lookback_lock:
         lb = _lookbacks.get(key)
         if lb is None:
             lb = _lookbacks[key] = _Lookback(t.device)
-        ptrs = lb.claim(phases * rows * nchunks) if nchunks > 1 else \
-            (None, None, None, 0, 0)
+        ptrs = lb.claim(slots) if slots else (None, None, None, 0, 0)
         err = launch(*ptrs)
-        if err == 0 and nchunks > 1:
-            lb.launched(rows * nchunks)
+        if err == 0 and slots:
+            lb.launched(blocks)
     return err
+
+
+def _launch_chained(t: torch.Tensor, rows: int, n: int, phases: int,
+                    launch) -> int:
+    """Launch a one-pass scan over ``rows`` rows of ``n`` on ``t``'s stream
+    with ``phases`` look-back phases (``launch_ordered``).  Rows of one
+    chunk use no look-back memory."""
+    nchunks = -(-n // CHUNK)
+    slots = phases * rows * nchunks if nchunks > 1 else 0
+    return launch_ordered(t, slots, rows * nchunks, launch)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
