@@ -43,7 +43,18 @@ audio (``path_specs``):
   of a tone with impulses while an audio consumer drains its queue
   100 ppm fast (so the rate lock moves the ratio) and the mode walks
   usb -> am -> fm -> usb, then a usb -> am walk with a 29-tap sinc (odd
-  P through the resampler kernel) (``check_session``).
+  P through the resampler kernel) (``check_session``);
+* the serving surface (``check_serving``, inputs from a generator of
+  its own): the flagship and full-width FM with probes on (the taps'
+  shapes, the audio bitwise the flagship's without probes, FM's tier
+  tap against the tiers counted and K7's launches), a two-branch
+  ``DiversitySession`` and a four-branch ``DiversityReceiver`` at the
+  flagship's width (gains, the combine's tone-SNR gain over one branch,
+  the combine against float64, host reads a block), a ``BankSession``
+  over the 64-channel grid (S-meters, mini-spectra, the monitor's audio
+  after ``select``, the probe frame's channel), and the session's probe
+  scope walked through p7, p2, p6 and off, then a ``SpectrumServer`` on
+  127.0.0.1 round-tripping /probe, /spectrum.json and /tune.
 
 The scans (K3, K5) are also held to the float64 solve of their float32
 inputs (no farther from it than 1.5x their plain versions), N1 to its
@@ -61,9 +72,9 @@ needs a CUDA device; it never imports jax.
 
     python3 chip_smoke.py --profile
 
-builds the kernels and profiles the same receiver paths and the session
-instead (step time, device busy time, launches and host reads per step;
-see ``profile_paths``).
+builds the kernels and profiles the same receiver paths, the session
+and the serving paths instead (step time, device busy time, launches and
+host reads per step; see ``profile_paths`` and ``profile_serving``).
 """
 
 from __future__ import annotations
@@ -1369,6 +1380,24 @@ def channel_audio(out) -> list[np.ndarray]:
     return [a[:k].double().cpu().numpy() for a, k in zip(audio, n)]
 
 
+def reset_counts() -> None:
+    """Every launch count and tier count set to 0 (after the card is
+    idle)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    agc.STATS["scan_fallbacks"] = 0
+    for stats in (fm.STATS, sam.STATS):
+        stats.update(dict.fromkeys(stats, 0))
+
+
+def check_routed(label: str, launches: dict, want: set) -> None:
+    """The kernels of ``want`` launched, and no other."""
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
+    if wrong:
+        raise AssertionError(f"{label}: launches {wrong} do not match the "
+                             f"kernels its configuration routes to {want}")
+
+
 def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
                skip=1, need=(), may_fall_back=True, check=None,
                ratio_ppm=0.0):
@@ -1381,11 +1410,7 @@ def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
     while it settles, except where ``may_fall_back`` is False.
     ``check(launches, tiers, n_blocks)`` adds a path's own conditions."""
     r = make_receiver(kind, cfg, freqs, ratio_ppm)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    agc.STATS["scan_fallbacks"] = 0
-    for stats in (fm.STATS, sam.STATS):
-        stats.update(dict.fromkeys(stats, 0))
+    reset_counts()
     audio = [channel_audio(r.process(b)) for b in blocks]
     launches = dict(kernels.LAUNCHES)
     tiers = dict({"fm": fm.STATS, "sam": sam.STATS}.get(cfg.mode, {}))
@@ -1395,11 +1420,8 @@ def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
     if fallbacks and not may_fall_back:
         raise AssertionError(f"{label}: the AGC fell back to the "
                              "sequential scan")
-    want = routed_kernels(cfg, kind != "single", r.params) | set(need)
-    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
-    if wrong:
-        raise AssertionError(f"{label}: launches {wrong} do not match the "
-                             f"kernels its configuration routes to {want}")
+    check_routed(label, launches,
+                 routed_kernels(cfg, kind != "single", r.params) | set(need))
     if check is not None:
         check(launches, tiers, len(blocks))
     if not all(np.all(np.isfinite(a)) for blk in audio for a in blk):
@@ -1690,11 +1712,7 @@ def check_session(gpu_label: str, periods: int = resampler.SINC_PERIODS,
     re, im, hits = session_planes(cfg, n, SEED)
     packet = bs * 8
     n_packets = n // packet
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    agc.STATS["scan_fallbacks"] = 0
-    for stats in (fm.STATS, sam.STATS):
-        stats.update(dict.fromkeys(stats, 0))
+    reset_counts()
     sess = ReceiverSession(cfg)
     sess.audio_queue = RecordingQueue(stereo=cfg.stereo)
     sess.precompile([m for m, _ in walk])
@@ -1774,10 +1792,7 @@ def check_session(gpu_label: str, periods: int = resampler.SINC_PERIODS,
     want = set().union(*(routed_kernels(dataclasses.replace(cfg, mode=mode),
                                         False, sess.receiver.params)
                          for mode, _ in walk))
-    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
-    if wrong:
-        raise AssertionError(f"session: launches {wrong} do not match the "
-                             f"kernels its configuration routes to {want}")
+    check_routed("session", launches, want)
     return launches
 
 
@@ -1810,6 +1825,565 @@ def profile_session(gpu_label: str) -> None:
     profile_report("session usb nb", ms, prof, 8, gpu_label)
 
 
+# --- the serving surface: probe taps, the probe scope and its server, the
+# diversity receivers, the bank session.  Their inputs come from a
+# generator of their own, so that the earlier paths keep theirs.
+FULL = dict(input_rate=2e6, tune_freq=100e3, frames_per_block=256)
+DIVERSITY_GAIN = 0.8 * np.exp(1j * np.deg2rad(40.0))
+ARRAY_GAINS = (1.0, 0.9 * np.exp(1j * np.deg2rad(30.0)),
+               0.6 * np.exp(-1j * np.deg2rad(60.0)),
+               0.3 * np.exp(1j * np.deg2rad(120.0)))
+
+
+def event_ms(fn, steps) -> float:
+    """Milliseconds a call of ``fn(step)`` over ``steps``, on CUDA
+    events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for st in steps:
+        fn(st)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(steps)
+
+
+def check_usb_probes(gen, gpu_label) -> dict:
+    """``usb probes``: the flagship with probes on over the flagship's
+    blocks, next to the flagship without them from the same (fresh)
+    state: p1-p5 there with the JAX package's shapes and dtypes (the
+    decimated block complex64 for p1-p3, float32 for p4, the audio
+    capacity for p5) and finite, the audio, n_audio and S-meters the same
+    bits, the same kernels launched the same number of times.  Times a
+    step of each."""
+    off_cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    on_cfg = dataclasses.replace(off_cfg, probes=True)
+    blocks = stimulus(off_cfg, 5, gen, carriers=(dict(offset_hz=1000.0),))
+    runs = {}
+    for name, cfg in (("off", off_cfg), ("on", on_cfg)):
+        r = rx.Receiver(cfg)
+        reset_counts()
+        outs = [r.process(b) for b in blocks[:3]]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ms = event_ms(r.process, blocks[3:])
+        runs[name] = (outs, launches, r, ms)
+    (off, l_off, _, ms_off), (on, l_on, r_on, ms_on) = runs["off"], runs["on"]
+    phase(f"usb probes launches {l_on} (probes off {l_off}); step "
+          f"{ms_on:.3f} ms with probes, {ms_off:.3f} ms without "
+          f"({gpu_label})")
+    if l_on != l_off:
+        raise AssertionError("usb probes: the launches differ from the "
+                             "flagship's without probes")
+    check_routed("usb probes", l_on, routed_kernels(on_cfg, False,
+                                                    r_on.params))
+    n = on_cfg.fastfir_valid * on_cfg.frames_per_block
+    want = {"p1_downconvert": ((n,), torch.complex64),
+            "p2_fastfir": ((n,), torch.complex64),
+            "p3_agc": ((n,), torch.complex64),
+            "p4_demod": ((n,), torch.float32),
+            "p5_resampled": ((on_cfg.audio_block_cap,), torch.float32)}
+    for a, b in zip(off, on):
+        got = {k: (tuple(v.shape), v.dtype) for k, v in b.probes.items()}
+        if got != want:
+            raise AssertionError(f"usb probes: taps {got}, want {want}")
+        if not all(bool(torch.isfinite(torch.view_as_real(v) if v.is_complex()
+                                       else v).all())
+                   for v in b.probes.values()):
+            raise AssertionError("usb probes: a tap is not finite")
+        for f in ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"usb probes: {f} differs from the "
+                                     "step without probes")
+    tone_ratio(np.concatenate([channel_audio(o)[0] for o in on[1:]]),
+               on_cfg.audio_rate, 1000.0, "usb probes")
+    return l_on
+
+
+def check_fm_probes(gen, gpu_label) -> dict:
+    """``fm probes``: full-width FM with probes on, on carrier-less noise
+    (the chunked tier, as ``fm noise``): each block's p6_pll a finite
+    float32 series of the decimated length and its pll_tier the tier
+    demod/fm.STATS counted for it; one K7 launch for each block off the
+    linear tier, and at least every block past the first off it."""
+    cfg = rx.ReceiverConfig(mode="fm", probes=True, **FULL)
+    blocks = stimulus(cfg, 4, gen, carriers=(), noise_db=-60.0)
+    r = rx.Receiver(cfg)
+    n = cfg.fastfir_valid * cfg.frames_per_block
+    reset_counts()
+    tiers = []
+    for b in blocks:
+        before, k7 = dict(fm.STATS), kernels.LAUNCHES["seqloop_fm"]
+        out = r.process(b)
+        tier, p6 = out.probes["pll_tier"], out.probes["p6_pll"]
+        taken = [k for k, v in fm.STATS.items() if v != before[k]]
+        if taken != [fm.TIER_NAMES[tier]]:
+            raise AssertionError(f"fm probes: pll_tier {tier}, STATS moved "
+                                 f"{taken}")
+        if kernels.LAUNCHES["seqloop_fm"] - k7 != int(tier != fm.TIER_LINEAR):
+            raise AssertionError("fm probes: K7 launches do not follow the "
+                                 "tiers")
+        if (tuple(p6.shape) != (n,) or p6.dtype != torch.float32
+                or not bool(torch.isfinite(p6).all())):
+            raise AssertionError(f"fm probes: p6 {tuple(p6.shape)} "
+                                 f"{p6.dtype}")
+        tiers.append(tier)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase(f"fm probes: tiers {tiers}, launches {launches} ({gpu_label})")
+    if sum(t != fm.TIER_LINEAR for t in tiers) < len(blocks) - 1:
+        raise AssertionError("fm probes: the noise blocks kept the linear "
+                             "tier")
+    check_routed("fm probes", launches,
+                 routed_kernels(cfg, False, r.params) | {"seqloop_fm"})
+    return launches
+
+
+def http_json(port: int, path: str, body=None) -> dict:
+    """GET (body None) or POST a JSON body to the loopback server."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def check_session_probes(gpu_label: str) -> dict:
+    """``session probe scope``: the session walk's configuration (2 MSPS
+    USB with the blanker, one frame a block) fed ``session_planes``
+    through pump_planes while set_probe walks p7 as a spectrum (its peak
+    at the tone), p2 as a scope on a positive trigger (a record arrives),
+    p6 after set_mode("fm") (the tier counts move), then off (the
+    receiver without probes back).  No input sample dropped; prints the
+    real-time factor.  Then a SpectrumServer on 127.0.0.1 (port 0) wired
+    to the session round-trips POST /probe, GET /spectrum.json (with a
+    probe frame) and POST /tune.  Returns the launch counts of the
+    walk."""
+    from cutesdr_tpu_torch.serve import SpectrumServer
+    cfg = session_cfg()
+    bs = cfg.block_size
+    packet = bs * 8
+    seg_packets = 8
+    n = packet * seg_packets * 4
+    re, im, _ = session_planes(cfg, n, SEED + 9)
+    reset_counts()
+    sess = ReceiverSession(cfg)
+    sess.start()
+    steps = (("p7", dict(view="spectrum")),
+             ("p2", dict(view="scope", trigger_mode="pos",
+                         trigger_level=0.0)),
+             ("p6", dict(view="spectrum")), ("off", {}))
+    frames, t0 = [], time.perf_counter()
+    for k, (tap, kw) in enumerate(steps):
+        if tap == "p6":
+            sess.set_mode("fm")
+        sess.set_probe(tap, **kw)
+        for i in range(k * seg_packets, (k + 1) * seg_packets):
+            sl = slice(i * packet, (i + 1) * packet)
+            sess.pump_planes(re[sl], im[sl])
+        sess.flush()
+        frames.append(sess.probe_frame())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    m = sess.metrics
+    phase(f"session probe scope: {n / cfg.input_rate:.2f} s of signal in "
+          f"{wall:.2f} s wall, {n / cfg.input_rate / wall:.3f}x real time; "
+          f"samples_in {m.samples_in} of {n}, pll tiers "
+          f"{m.pll_tier_blocks}; launches {launches} ({gpu_label})")
+    if m.samples_in != n:
+        raise AssertionError(f"session probe scope dropped input: "
+                             f"{m.samples_in} of {n}")
+    p7, p2, p6, off = frames
+    db = np.asarray(p7["db"])
+    f_peak = (int(np.argmax(db)) - len(db) // 2) * p7["sample_rate"] / len(db)
+    phase(f"session probe p7 spectrum: peak {db.max():.1f} dB at "
+          f"{f_peak:.0f} Hz; p2 record "
+          f"{None if p2['record'] is None else len(p2['record'])} samples")
+    if (p7["tap"] != "p7_blanker"
+            or abs(f_peak - (cfg.tune_freq + 1000.0))
+            > 2 * p7["sample_rate"] / len(db)):
+        raise AssertionError("session probe scope: the p7 peak is not the "
+                             "tone")
+    if p2["tap"] != "p2_fastfir" or p2["record"] is None:
+        raise AssertionError("session probe scope: no p2 record")
+    if p6["tap"] != "p6_pll" or sum(m.pll_tier_blocks) < seg_packets * 8:
+        raise AssertionError("session probe scope: p6 / tier counts "
+                             f"{m.pll_tier_blocks}")
+    if off is not None or sess.cfg.probes:
+        raise AssertionError("session probe scope: off left probes on")
+    want = set().union(*(routed_kernels(dataclasses.replace(cfg, mode=mode),
+                                        False, sess.receiver.params)
+                         for mode in ("usb", "fm")))
+    check_routed("session probe scope", launches, want)
+
+    srv = SpectrumServer(host="127.0.0.1", port=0,
+                         sample_rate=cfg.input_rate,
+                         on_tune=sess.tune_clicked,
+                         on_probe=sess.set_probe).start()
+    try:
+        sess.on_spectrum = lambda db: srv.update(
+            db, smeter_db=sess.metrics.smeter_ave_db,
+            probe=sess.probe_frame())
+        applied = http_json(srv.port, "/probe", {"tap": "p2",
+                                                 "view": "spectrum"})
+        if applied != {"tap": "p2_fastfir"}:
+            raise AssertionError(f"server /probe: {applied}")
+        for i in range(4):
+            sl = slice(i * packet, (i + 1) * packet)
+            sess.pump_planes(re[sl], im[sl])
+        sess.flush()
+        frame = http_json(srv.port, "/spectrum.json")
+        tuned = http_json(srv.port, "/tune",
+                          {"freq_hz": cfg.tune_freq + 49.0})
+        probe = frame.get("probe") or {}
+        phase(f"server round trip: frame of {len(frame['db'])} bins, probe "
+              f"{probe.get('tap')} ({len(probe.get('db', []))} bins), tune "
+              f"-> {tuned}")
+        if (probe.get("tap") != "p2_fastfir"
+                or len(probe.get("db", [])) != 2048
+                or tuned != {"tune_hz": sess.current_tune}):
+            raise AssertionError("server round trip failed")
+        http_json(srv.port, "/probe", {"tap": "off"})
+    finally:
+        srv.stop()
+        sess.stop()
+    return launches
+
+
+def tone_snr_db(audio: np.ndarray, rate: float, tone_hz: float) -> float:
+    """Power within +-5 bins of the tone over the rest of the band below
+    ``rate``/2 (Hann window), in dB."""
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
+    k = int(round(tone_hz * len(audio) / rate))
+    sig = spec[k - 5:k + 6].sum()
+    return 10 * np.log10(sig / (spec[1:].sum() - sig))
+
+
+def diversity_block(cfg, gen, b: int, gains, snr_db: float,
+                    noise_scale=None) -> torch.Tensor:
+    """One block of coherent branches on the card: branch i = gains[i] x a
+    -20 dBFS carrier 1 kHz above the tune, plus independent complex noise
+    ``snr_db`` below the carrier, scaled by ``noise_scale[i]`` (equal SNR:
+    |gains[i]|)."""
+    n = cfg.block_size
+    t = (torch.arange(n, dtype=torch.float64, device="cuda") + b * n) \
+        / cfg.input_rate
+    amp = 32767.0 * 10 ** (-20 / 20)
+    s = torch.polar(torch.full_like(t, amp), torch.remainder(
+        2 * np.pi * (cfg.tune_freq + 1000.0) * t, 2 * np.pi))
+    sigma = amp * 10 ** (-snr_db / 20) / np.sqrt(2)
+    rows = []
+    for i, g in enumerate(gains):
+        scale = 1.0 if noise_scale is None else noise_scale[i]
+        noise = torch.complex(
+            torch.randn(n, generator=gen, device="cuda", dtype=torch.float64),
+            torch.randn(n, generator=gen, device="cuda", dtype=torch.float64))
+        rows.append(complex(g) * s + (sigma * scale) * noise)
+    return torch.stack(rows).to(torch.complex64)
+
+
+def check_diversity(gen, gpu_label: str) -> dict:
+    """``diversity usb 2br``: a DiversitySession at the flagship's width,
+    two branches of 8,388,608 samples a block (branch 1 = 0.8 at 40
+    degrees x branch 0's carrier, independent noise at equal SNR, 20 dB
+    in the 2 MHz band), 6 blocks, each block's own gain estimate
+    (``smoothing_blocks=1``: an EMA still settling steps the combined
+    carrier's phase at every block edge, and those clicks, not the noise,
+    would set the audio's tone SNR).  Checks: the gain within 0.05 of the
+    injected one; the combined audio's tone SNR >= branch 0 alone + 2 dB,
+    branch 0 through a plain Receiver; the session combiner's gain within
+    1e-5 relative of the float64 EMA of its blocks, and the combiner at
+    its default smoothing over two chained blocks (gain and combined
+    stream) within 1e-5 relative of its float64 value; the session's host
+    reads a block no more than a ReceiverSession's on branch 0.  Returns
+    the session's launch counts."""
+    from cutesdr_tpu_torch.session import DiversitySession
+    from cutesdr_tpu_torch.shard import coherent
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    gains, scale = (1.0, DIVERSITY_GAIN), (1.0, abs(DIVERSITY_GAIN))
+    n_blocks = 6
+    blocks = [diversity_block(cfg, gen, b, gains, 20.0, scale)
+              for b in range(n_blocks + 2)]
+    sess = DiversitySession(cfg, smoothing_blocks=1.0)
+    sess.audio_queue = RecordingQueue(stereo=False)
+    sess.start()
+    reset_counts()
+    t0 = time.perf_counter()
+    for x in blocks[:n_blocks]:
+        sess.pump(x.cpu().numpy())
+    sess.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_routed("diversity usb 2br", launches,
+                 routed_kernels(cfg, False, sess.receiver.params))
+    g = sess.gain
+    # the first two blocks hold the filters' fill and the AGC's settling
+    combined = np.concatenate(sess.audio_queue.blocks[2:]).astype(np.float64)
+    plain = rx.Receiver(cfg)
+    alone = [channel_audio(plain.process(x[0]))[0] for x in blocks[:n_blocks]]
+    alone = np.concatenate(alone[2:])
+    snr_c = tone_snr_db(combined, 48_000.0, 1000.0)
+    snr_0 = tone_snr_db(alone, 48_000.0, 1000.0)
+    signal_s = n_blocks * cfg.block_size / cfg.input_rate
+    phase(f"diversity usb 2br: gain {abs(g):.4f} at "
+          f"{np.degrees(np.angle(g)):.2f} deg (injected 0.8 at 40); tone "
+          f"SNR combined {snr_c:.2f} dB, branch 0 alone {snr_0:.2f} dB; "
+          f"{signal_s:.2f} s of signal in {wall:.2f} s wall, "
+          f"{signal_s / wall:.3f}x real time, host input; launches "
+          f"{launches} ({gpu_label})")
+    if abs(g - DIVERSITY_GAIN) > 0.05:
+        raise AssertionError("diversity: gain estimate off")
+    if snr_c < snr_0 + 2.0:
+        raise AssertionError("diversity: the combine gained < 2 dB")
+
+    # the session's own combiner: its carried gain against the float64
+    # EMA of the blocks it combined (at alpha = 1 the last block's estimate)
+    def g_block64(x64):
+        return (x64[1] * x64[0].conj()).sum() / (x64[0].abs() ** 2).sum()
+
+    a = sess.receiver.comb_params.alpha
+    g64 = torch.tensor(1.0, dtype=torch.complex128, device="cuda")
+    for x in blocks[:n_blocks]:
+        g64 = (1 - a) * g64 + a * g_block64(x.to(torch.complex128))
+    g_sess = sess.receiver.comb_state.gain.to(torch.complex128)
+    rel_sess = float((g_sess - g64).abs() / g64.abs())
+    # the combiner at its default smoothing (alpha = 1/8) over two chained
+    # blocks: the second starts from a carried gain that is not 1, so the
+    # EMA update runs on the card at full width; the gain and the second
+    # block's combined stream against their float64 values
+    cp, cc = coherent.init(device="cuda")
+    g64 = torch.tensor(1.0, dtype=torch.complex128, device="cuda")
+    for x in blocks[:2]:
+        cc, y = coherent.process(cp, cc, x)
+        x64 = x.to(torch.complex128)
+        g64 = (1 - cp.alpha) * g64 + cp.alpha * g_block64(x64)
+    y64 = (x64[0] + g64.conj() * x64[1]) / torch.sqrt(1 + g64.abs() ** 2)
+    rel = float((y.to(torch.complex128) - y64).abs().max() / y64.abs().max())
+    rel_g = float((cc.gain.to(torch.complex128) - g64).abs() / g64.abs())
+    phase(f"diversity combine vs float64: session gain {rel_sess:.3e}, "
+          f"EMA gain after 2 blocks at alpha {cp.alpha:g} {rel_g:.3e}, "
+          f"combined stream {rel:.3e} relative (bar 1e-5 each)")
+    if max(rel_sess, rel_g, rel) > 1e-5:
+        raise AssertionError("diversity: combine off its float64 value")
+
+    # host reads a block: the diversity session against a receiver session
+    from chip_kernel_times import call_counts
+    rsess = ReceiverSession(cfg)
+    rsess.start()
+    for x in blocks[:2]:
+        rsess.pump(x[0].cpu().numpy())
+    div_in = blocks[n_blocks].cpu().numpy()
+    rs_in = blocks[n_blocks + 1][0].cpu().numpy()
+    _, div_reads = call_counts(lambda: sess.pump(div_in))
+    _, rs_reads = call_counts(lambda: rsess.pump(rs_in))
+    phase(f"diversity host reads a block {div_reads:g}, receiver session "
+          f"{rs_reads:g}")
+    if div_reads > rs_reads:
+        raise AssertionError("diversity: more host reads than a receiver "
+                             "session")
+    sess.stop()
+    rsess.stop()
+    return launches
+
+
+def check_diversity_array(gen, gpu_label: str) -> dict:
+    """``diversity array 4br``: DiversityReceiver(n_branches=4) at the
+    flagship's width (4 x 8,388,608 samples a block, 30 dB SNR in the
+    band), two blocks: gains[0] exactly 1, the others within 0.05 of the
+    injected ones, the tone in the audio."""
+    from cutesdr_tpu_torch.shard.coherent import DiversityReceiver
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    drx = DiversityReceiver(cfg, smoothing_blocks=1.0, n_branches=4)
+    reset_counts()
+    outs = [drx.process(diversity_block(cfg, gen, b, ARRAY_GAINS, 30.0))
+            for b in range(3)]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    gains = drx.last_gains
+    phase(f"diversity array 4br: gains "
+          f"{[f'{abs(v):.4f}@{np.degrees(np.angle(v)):.2f}' for v in gains]}"
+          f" ({gpu_label})")
+    if gains[0] != 1.0 or max(abs(a - complex(b)) for a, b in
+                              zip(gains[1:], ARRAY_GAINS[1:])) > 0.05:
+        raise AssertionError("diversity array: gains off")
+    check_routed("diversity array 4br", launches,
+                 routed_kernels(cfg, False, drx.params))
+    tone_ratio(np.concatenate([channel_audio(o)[0] for o in outs[1:]]),
+               48_000.0, 1000.0, "diversity array 4br")
+    return launches
+
+
+def check_bank_session(gen, gpu_label: str) -> dict:
+    """``bank session usb 64ch``: a BankSession over the JAX package's
+    config 4 (64 USB channels at -4.5 MHz + 140 kHz * i of one 10 MSPS
+    stream, one frame a block), tones 1000, 1500 and 700 Hz above
+    channels 3, 20 and 50 (-30 dBFS, noise -60 dBFS).  Checks: those
+    channels' S-meters > 30 dB above every other channel's, their
+    mini-spectra peak where their tones land, after select(20) the
+    monitor's audio carries 1500 Hz, and the p2 probe frame reports the
+    monitor channel.  Prints the real-time factor."""
+    from cutesdr_tpu_torch.bank import SPECTRA_BINS, BankSession
+    grid = [-4.5e6 + 140e3 * i for i in range(64)]
+    tones = {3: 1000.0, 20: 1500.0, 50: 700.0}
+    cfg = rx.ReceiverConfig(input_rate=10e6, mode="usb")
+    n_blocks = 32
+    blocks = stimulus(cfg, n_blocks, gen, noise_db=-60.0, carriers=tuple(
+        dict(freq_hz=grid[c] + f) for c, f in tones.items()))
+    sess = BankSession(cfg, grid)
+    sess.audio_queue = RecordingQueue(stereo=False)
+    sess.start()
+    reset_counts()
+    t0 = time.perf_counter()
+    for x in blocks[:8]:
+        sess.pump(x.cpu().numpy())
+    sess.flush()
+    sess.select(20)
+    mark = len(sess.audio_queue.blocks)
+    for x in blocks[8:24]:
+        sess.pump(x.cpu().numpy())
+    sess.flush()
+    end = len(sess.audio_queue.blocks)
+    sess.set_probe("p2")       # rebuilds the bank: its carries restart
+    for x in blocks[24:]:
+        sess.pump(x.cpu().numpy())
+    sess.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    frame = sess.probe_frame()
+    signal_s = n_blocks * cfg.block_size / cfg.input_rate
+    others = max(v for c, v in enumerate(sess.smeter_db) if c not in tones)
+    phase(f"bank session usb 64ch: {signal_s:.3f} s of signal in "
+          f"{wall:.2f} s wall, {signal_s / wall:.3f}x real time (host "
+          f"input); S-meters {[round(float(sess.smeter_db[c]), 1) for c in tones]}"
+          f" dB, others <= {others:.1f} dB; probe frame channel "
+          f"{frame['channel']} of monitor {sess.monitor} ({gpu_label})")
+    for c in tones:
+        if sess.smeter_db[c] < others + 30.0:
+            raise AssertionError(f"bank session: channel {c}'s S-meter")
+    n_aud = len(sess.audio_queue.blocks[-1])
+    k = max(1, ((n_aud // 2 + 1) // 8) // SPECTRA_BINS)
+    for c, f in tones.items():
+        want = int(f / (k * 48_000.0 / n_aud))
+        got = int(np.argmax(sess.channel_spectra[c]))
+        if abs(got - want) > 1:
+            raise AssertionError(f"bank session: channel {c}'s mini-spectrum "
+                                 f"peaks at bin {got}, the tone at {want}")
+    audio = np.concatenate(sess.audio_queue.blocks[mark + 1:end]).astype(
+        np.float64)
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio))))
+    f_peak = float(np.argmax(spec)) * 48_000.0 / len(audio)
+    snr = tone_snr_db(audio, 48_000.0, 1500.0)
+    phase(f"bank session monitor 20 audio: {len(audio)} samples, peak at "
+          f"{f_peak:.1f} Hz, tone SNR {snr:.1f} dB")
+    if abs(f_peak - 1500.0) > 48_000.0 / len(audio) or snr < 30.0:
+        raise AssertionError("bank session: the monitor's audio is not "
+                             "channel 20's tone")
+    if frame["channel"] != sess.monitor or frame["tap"] != "p2_fastfir":
+        raise AssertionError("bank session: the probe frame's channel")
+    check_routed("bank session usb 64ch", launches,
+                 routed_kernels(cfg, True, sess.bank.params))
+    sess.stop()
+    return launches
+
+
+def check_serving(gen, gpu_label: str) -> dict:
+    """Every serving-surface path; returns their launches summed."""
+    total = dict.fromkeys(KERNELS, 0)
+    for fn in (check_usb_probes, check_fm_probes, check_diversity,
+               check_diversity_array, check_bank_session):
+        for k, v in fn(gen, gpu_label).items():
+            total[k] += v
+    for k, v in check_session_probes(gpu_label).items():
+        total[k] += v
+    return total
+
+
+def profile_serving(gen, gpu_label: str) -> None:
+    """``--profile`` of the serving surface: one JSON line each for the
+    flagship with probes on feeding its p2 tap to a ProbeSpectrum on the
+    card, full-width FM with probes on noise, the probe scope's session
+    (p2 spectrum), the diversity session, the 4-branch receiver and the
+    bank session with the monitor's p2 spectrum (per block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cutesdr_tpu_torch.bank import BankSession
+    from cutesdr_tpu_torch.session import DiversitySession
+    from cutesdr_tpu_torch.shard.coherent import DiversityReceiver
+    from cutesdr_tpu_torch.testbench.probes import ProbeSpectrum
+
+    def measure(label, step, inputs, warm, steps, blocks_per_call=1):
+        for x in inputs[:warm]:
+            step(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in inputs[warm:warm + steps]:
+            step(x)
+        torch.cuda.synchronize()
+        per_block = steps * blocks_per_call
+        ms = (time.perf_counter() - t0) * 1e3 / per_block
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in inputs[warm + steps:warm + 2 * steps]:
+                step(x)
+            torch.cuda.synchronize()
+        profile_report(label, ms, prof, per_block, gpu_label)
+
+    usb = rx.ReceiverConfig(mode="usb", probes=True, **FULL)
+    r = rx.Receiver(usb)
+    spec = ProbeSpectrum(usb.output_rate)
+    measure("usb probes (p2 spectrum)",
+            lambda x: spec.feed(r.process(x).probes["p2_fastfir"]),
+            stimulus(usb, 8, gen, carriers=(dict(offset_hz=1000.0),)), 2, 3)
+    fmc = rx.ReceiverConfig(mode="fm", probes=True, **FULL)
+    r = rx.Receiver(fmc)
+    measure("fm probes", r.process,
+            stimulus(fmc, 8, gen, carriers=(), noise_db=-60.0), 2, 3)
+
+    cfg = session_cfg()
+    packet = cfg.block_size * 8
+    re, im, _ = session_planes(cfg, packet * 12, SEED + 9)
+    sess = ReceiverSession(cfg)
+    sess.start()
+    sess.set_probe("p2")
+    measure("session probe scope (p2 spectrum)",
+            lambda i: sess.pump_planes(re[i * packet:(i + 1) * packet],
+                                       im[i * packet:(i + 1) * packet])
+            or sess.flush(), list(range(12)), 4, 4, blocks_per_call=8)
+    sess.stop()
+
+    full = rx.ReceiverConfig(mode="usb", **FULL)
+    div_in = [diversity_block(full, gen, b, (1.0, DIVERSITY_GAIN), 20.0,
+                              (1.0, abs(DIVERSITY_GAIN))).cpu().numpy()
+              for b in range(6)]
+    dsess = DiversitySession(full, smoothing_blocks=1.0)
+    dsess.start()
+    measure("diversity usb 2br", dsess.pump, div_in, 2, 2)
+    dsess.stop()
+    del div_in
+    drx = DiversityReceiver(full, smoothing_blocks=1.0, n_branches=4)
+    measure("diversity array 4br", drx.process,
+            [diversity_block(full, gen, b, ARRAY_GAINS, 30.0)
+             for b in range(6)], 2, 2)
+    del drx
+
+    grid = [-4.5e6 + 140e3 * i for i in range(64)]
+    bcfg = rx.ReceiverConfig(input_rate=10e6, mode="usb")
+    bsess = BankSession(bcfg, grid)
+    bsess.start()
+    bsess.set_probe("p2")
+    measure("bank session usb 64ch (p2 spectrum)", bsess.pump,
+            [x.cpu().numpy() for x in stimulus(bcfg, 24, gen, noise_db=-60.0,
+                                                carriers=(dict(
+                                                    freq_hz=grid[20] + 1500.0),
+                                                ))], 8, 8)
+    bsess.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1835,8 +2409,11 @@ def main() -> int:
     gen_new.manual_seed(SEED + 6)
     gen_pll = torch.Generator(device="cuda")         # K7/K8's newer checks
     gen_pll.manual_seed(SEED + 8)
+    gen_serve = torch.Generator(device="cuda")       # the serving paths'
+    gen_serve.manual_seed(SEED + 9)
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
+        profile_serving(gen_serve, smi)
         return 0
     results: dict = {}
     check_mixdec(gen, results, 2e6, "")
@@ -1863,6 +2440,8 @@ def main() -> int:
         launches[k] += v
     # an odd sinc length: the session's banded tails through K9 at P = 29
     for k, v in check_session(smi, 29, SESSION_WALK[:2]).items():
+        launches[k] += v
+    for k, v in check_serving(gen_serve, smi).items():
         launches[k] += v
     never = [k for k, v in launches.items() if v == 0]
     if never:

@@ -8,8 +8,11 @@ has its own copies under ``design/``.
 
 Ported so far: the receiver chain (``pipeline.receiver``) in all seven
 demod modes, mono and stereo, with the noise blanker, migrated state
-across mode and rate changes, the channel banks, the spectrum display and
-the live session (``session.ReceiverSession``), with the kernels
+across mode and rate changes, the channel banks, the spectrum display,
+the live session (``session.ReceiverSession``) and its serving surface
+(the probe taps and scope, ``session.DiversitySession`` over
+``shard.coherent``, ``bank.BankSession``, ``serve.SpectrumServer``), with
+the kernels
 ``mixdec``, ``fastfir``, ``scan`` (two modes), ``smeter``, ``seqloop``
 (the FM and SAM PLL loops) and ``resamp`` (the banded resampler).
 """

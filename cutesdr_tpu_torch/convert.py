@@ -20,6 +20,9 @@ the port's NamedTuples of the same names.
 ``from_jax_bank`` does the same for a JAX channel bank (every leaf with a
 leading channel axis): channel by channel through ``from_jax``, then
 stacked as ``shard.channels`` stacks a bank.
+
+``from_jax_combiner`` carries a JAX diversity combiner's params and carry
+(``shard/coherent``: two-branch or M-branch) into the port's.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from cutesdr_tpu_torch.kernels import mixdec
 from cutesdr_tpu_torch.ops import decimator, fastfir, nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
-from cutesdr_tpu_torch.shard import channels
+from cutesdr_tpu_torch.shard import channels, coherent
 from cutesdr_tpu_torch.types import CDTYPE, complex_tensor
 
 
@@ -132,3 +135,19 @@ def from_jax_bank(cfg: rx.ReceiverConfig, params, state, device):
             for c in range(n_ch)]
     return (channels.stack_params([p for p, _ in rows], device),
             channels.stack_state([s for _, s in rows]))
+
+
+def from_jax_combiner(params, carry, device):
+    """(port CombinerParams, port carry) from a JAX combiner's
+    ``CombinerParams`` and ``CombinerCarry`` or ``ArrayCombinerCarry`` of
+    numpy arrays."""
+    dev = torch.device(device)
+    out_p = coherent.CombinerParams(
+        alpha=float(np.float32(params.alpha)),
+        manual=bool(np.asarray(params.manual)),
+        fixed_gain=complex_tensor(params.fixed_gain, dev))
+    if hasattr(carry, "gains"):
+        return out_p, coherent.ArrayCombinerCarry(
+            gains=complex_tensor(carry.gains, dev))
+    return out_p, coherent.CombinerCarry(gain=complex_tensor(carry.gain,
+                                                             dev))

@@ -82,12 +82,9 @@ def history_len(cfg: BlankerConfig) -> int:
                (cfg.width_samples - 1) + (cfg.mag_samples + 1))
 
 
-def process_planes(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,
-                   im: torch.Tensor):
-    """One block as float32 planes: returns (carry', re', im') with the
-    blanked samples zero and the output delayed by delay_samples+1."""
-    if not cfg.on:
-        return carry, re, im
+def _gate(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,
+          im: torch.Tensor):
+    """The blanker's carry', keep mask and delayed planes of one block."""
     n = re.shape[-1]
     mag = torch.maximum(re.abs(), im.abs())
     mag_sum, mag_tail = moving_sum(mag, cfg.mag_samples + 1, carry.mag_tail)
@@ -96,17 +93,40 @@ def process_planes(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,
                                           carry.trig_tail)
     zr = torch.cat([carry.sig_tail.real, re], -1)      # delay line
     zi = torch.cat([carry.sig_tail.imag, im], -1)
-    keep = blank <= 0.5
+    carry = BlankerCarry(mag_tail=mag_tail, trig_tail=trig_tail,
+                         sig_tail=torch.complex(zr[..., n:], zi[..., n:]))
+    return carry, blank <= 0.5, zr[..., :n], zi[..., :n]
+
+
+def process_planes(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,
+                   im: torch.Tensor):
+    """One block as float32 planes: returns (carry', re', im') with the
+    blanked samples zero and the output delayed by delay_samples+1."""
+    if not cfg.on:
+        return carry, re, im
+    carry, keep, zr, zi = _gate(cfg, carry, re, im)
     zero = zr.new_zeros(())
-    return (BlankerCarry(mag_tail=mag_tail, trig_tail=trig_tail,
-                         sig_tail=torch.complex(zr[..., n:], zi[..., n:])),
-            torch.where(keep, zr[..., :n], zero),
-            torch.where(keep, zi[..., :n], zero))
+    return carry, torch.where(keep, zr, zero), torch.where(keep, zi, zero)
+
+
+def process_joined(cfg: BlankerConfig, carry: BlankerCarry,
+                   re: torch.Tensor, im: torch.Tensor):
+    """``process_planes`` with the two output planes written into one
+    complex64 block: returns (carry', blanked block); its ``.real`` and
+    ``.imag`` views are the planes ``process_planes`` returns."""
+    if not cfg.on:
+        return carry, torch.complex(re, im)
+    carry, keep, zr, zi = _gate(cfg, carry, re, im)
+    zero = zr.new_zeros(())
+    y = torch.empty(zr.shape, dtype=CDTYPE, device=zr.device)
+    planes = torch.view_as_real(y)
+    torch.where(keep, zr, zero, out=planes[..., 0])
+    torch.where(keep, zi, zero, out=planes[..., 1])
+    return carry, y
 
 
 def process(cfg: BlankerConfig, carry: BlankerCarry, x: torch.Tensor):
     """One complex64 block: returns (carry', blanked block)."""
     if not cfg.on:
         return carry, x
-    carry, re, im = process_planes(cfg, carry, x.real, x.imag)
-    return carry, torch.complex(re, im)
+    return process_joined(cfg, carry, x.real, x.imag)

@@ -33,6 +33,7 @@ from cutesdr_tpu_torch.kernels.resamp import SINC_PERIOD_PTS  # noqa: F401
 from cutesdr_tpu_torch.types import RDTYPE
 
 SINC_PERIODS = 28            # reference-exact default (fractresampler.cpp:50)
+MAX_SOUNDCARDVAL = 32767.0   # int16 full scale of the sound card's samples
 
 _DT_SPLIT = 4096.0           # dt_hi quantum 2^-12
 _K_SPLIT = 2048.0            # two-level split of k (see _times)
@@ -261,3 +262,15 @@ def process(params: ResamplerParams, carry: ResamplerCarry, x: torch.Tensor,
         if (params.dt_hi, params.dt_lo) == split_rate(p / q):
             return _rational_process(p, q, params, carry, x, max_out, interp)
     return _banded_process(params, carry, x, max_out, interp)
+
+
+def to_int16(y: torch.Tensor, gain, stereo: bool = False) -> torch.Tensor:
+    """Gain + clip + int16 quantize (the sound card's format).  Complex
+    input maps re -> left, im -> right ([..., 2]); real input gives mono.
+    ``stereo`` is the JAX package's signature; the dtype decides."""
+    if y.is_complex():
+        g = torch.view_as_real(y) * gain
+    else:
+        g = y * gain
+    g = torch.clamp(g, -MAX_SOUNDCARDVAL, MAX_SOUNDCARDVAL)
+    return g.to(torch.int16)

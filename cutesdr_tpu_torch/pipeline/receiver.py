@@ -18,7 +18,8 @@ mode's rounds) and the AGC's sequential fallback (kernel N1) take every
 size, single stream and bank.  Tensors on the CPU run every
 kernel's plain version; CUDA tensors launch the kernels.  A mode, rate or
 filter-size change keeps the stream: ``migrate_state`` carries the state
-into the new configuration's (``Receiver.reconfigure``).
+into the new configuration's (``Receiver.reconfigure``).  With
+``probes`` on, the step also returns the testbench's named taps (p1-p7).
 
 ``bank_receiver_step`` runs C channels of one configuration at once (a
 leading channel axis on the state and on the per-channel params): one
@@ -152,14 +153,6 @@ class ReceiverConfig:
         return MODE_IDS[self.mode]
 
 
-def check_supported(cfg: ReceiverConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks,
-    naming the ROADMAP item that brings it."""
-    if cfg.probes:
-        raise NotImplementedError("not ported yet: probes (ROADMAP Queue 1: "
-                                  "probe taps)")
-
-
 class ReceiverParams(NamedTuple):
     """A bank has one phase increment, channel-filter H and DC cal per
     channel (a leading channel axis); the other params are shared."""
@@ -191,7 +184,7 @@ class StepOutput(NamedTuple):
     n_audio: torch.Tensor            # valid audio samples (int32 0-dim)
     smeter_ave_db: torch.Tensor
     smeter_peak_db: torch.Tensor
-    probes: Any                      # always None in this slice
+    probes: Any                      # dict of taps if cfg.probes else None
 
 
 def _agc_cfg(cfg: ReceiverConfig) -> agc.AgcConfig:
@@ -219,18 +212,29 @@ def _demod_init(cfg: ReceiverConfig, device):
 _DEMODS = {DEMOD_AM: am_demod, DEMOD_SAM: sam_demod, DEMOD_FM: fm_demod}
 
 
-def _demod_apply(cfg: ReceiverConfig, params, carry, x: torch.Tensor):
+def _demod_apply(cfg: ReceiverConfig, params, carry, x: torch.Tensor,
+                 probes=None):
+    """Demodulate one block; with a probes dict and a mono PLL mode (SAM,
+    FM) also records the P6 tap, the per-sample phase error x100 (the
+    reference's PROFILE_6 sites, dsp/samdemod.cpp:92, dsp/fmdemod.cpp:120),
+    and ``pll_tier``, the tier taken (a host int: the demods pick it on
+    the host)."""
     mod = _DEMODS.get(cfg.mode_id)
     if mod is None:
         f = ssb_demod.process_stereo if cfg.stereo else ssb_demod.process
         return f(carry, x)
+    if (probes is not None and not cfg.stereo
+            and cfg.mode_id in (DEMOD_SAM, DEMOD_FM)):
+        c, y, p6, tier = mod.process_probed(params, carry, x)
+        probes["p6_pll"] = p6
+        probes["pll_tier"] = tier
+        return c, y
     f = mod.process_stereo if cfg.stereo else mod.process
     return f(params, carry, x)
 
 
 def init(cfg: ReceiverConfig, device) -> tuple[ReceiverParams, ReceiverState]:
     """Build (params, state) for a configuration on ``device``."""
-    check_supported(cfg)
     device = torch.device(device)
     fs_out = cfg.plan.out_rate
     # the mixer shifts the tuned station to +cw_offset inside the channel
@@ -331,28 +335,46 @@ def migrate_state(old_cfg: ReceiverConfig, old: ReceiverState,
                          resamp=rs_c)
 
 
+def _blank(cfg: ReceiverConfig, carry, re: torch.Tensor, im: torch.Tensor,
+           probes):
+    """The noise blanker over one block of planes.  With a probes dict its
+    output is one complex64 block, recorded as ``p7_blanker``, whose
+    real and imaginary views go on as the planes."""
+    nb = _nb_cfg(cfg)
+    if probes is None:
+        return noiseblanker.process_planes(nb, carry, re, im)
+    carry, y = noiseblanker.process_joined(nb, carry, re, im)
+    probes["p7_blanker"] = y
+    return carry, y.real, y.imag
+
+
 def _front_prefilter(cfg: ReceiverConfig, params: ReceiverParams,
                      state: ReceiverState, re: torch.Tensor,
-                     im: torch.Tensor):
+                     im: torch.Tensor, probes=None):
     """Blanker -> DC cal -> mix + decimate (everything before the channel
     filter).  A bank's blanker carry has a channel axis, as the JAX bank's
     vmapped one does; over a block shared by the channels the blanker runs
     once, on the first channel's carry, and every channel takes its
-    result."""
+    result (so the bank's ``p7_blanker`` is that block expanded over the
+    channel axis, a view)."""
     nb_c = state.blanker
     if cfg.nb_on:
-        nb = _nb_cfg(cfg)
         shared = re.dim() == 1 and nb_c.mag_tail.dim() == 2
         if shared:
+            n_ch = nb_c.mag_tail.shape[0]
             c0 = noiseblanker.BlankerCarry(*(t[0] for t in nb_c))
-            c0, re, im = noiseblanker.process_planes(nb, c0, re, im)
+            c0, re, im = _blank(cfg, c0, re, im, probes)
             nb_c = noiseblanker.BlankerCarry(*(
-                t.expand((nb_c.mag_tail.shape[0],) + t.shape).clone()
-                for t in c0))
+                t.expand((n_ch,) + t.shape).clone() for t in c0))
+            if probes is not None:
+                p7 = probes["p7_blanker"]
+                probes["p7_blanker"] = p7.expand((n_ch,) + p7.shape)
         else:
-            nb_c, re, im = noiseblanker.process_planes(nb, nb_c, re, im)
+            nb_c, re, im = _blank(cfg, nb_c, re, im, probes)
     dec_c, base = mixdec.process_planes(cfg.plan, params.dec, state.dec, re,
                                         im, params.dc_offset)
+    if probes is not None:
+        probes["p1_downconvert"] = base
     return nb_c, dec_c, base
 
 
@@ -368,9 +390,12 @@ def _levels(cfg: ReceiverConfig, params: ReceiverParams,
 
 
 def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
-          audio: torch.Tensor, sm_c: smeter.SMeterCarry, fast: bool):
+          audio: torch.Tensor, sm_c: smeter.SMeterCarry, fast: bool,
+          probes=None):
     """Resample -> gain -> output assembly.  Only the single stream
-    (``fast``) takes the rational resampler, as in the JAX package."""
+    (``fast``) takes the rational resampler, as in the JAX package.  With
+    a probes dict the resampled audio is the ``p5_resampled`` tap, which
+    becomes the output's ``probes``."""
     if cfg.audio_rate is not None:
         cap = resampler.max_out_for(audio.shape[-1],
                                     cfg.output_rate / cfg.audio_rate)
@@ -381,6 +406,8 @@ def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
             rational=(resampler.rational_for(cfg.output_rate, cfg.audio_rate)
                       if use_rat else None))
         audio_out = audio_out * params.audio_gain
+        if probes is not None:
+            probes["p5_resampled"] = audio_out
     else:
         rs_c, audio_out = state.resamp, audio * params.audio_gain
         n_audio = torch.full(audio.shape[:-1], audio.shape[-1],
@@ -388,21 +415,35 @@ def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
     sm_c, peak = smeter.get_peak(sm_c)
     out = StepOutput(audio=audio_out, n_audio=n_audio,
                      smeter_ave_db=smeter.get_ave(sm_c),
-                     smeter_peak_db=peak, probes=None)
+                     smeter_peak_db=peak, probes=probes)
     return sm_c, rs_c, out
+
+
+def _tap(probes, name: str, t: torch.Tensor) -> None:
+    if probes is not None:
+        probes[name] = t
 
 
 def receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
                          state: ReceiverState, re: torch.Tensor,
                          im: torch.Tensor
                          ) -> tuple[ReceiverState, StepOutput]:
-    """One block of cfg.block_size samples given as float32 re/im planes."""
-    nb_c, dec_c, base = _front_prefilter(cfg, params, state, re, im)
+    """One block of cfg.block_size samples given as float32 re/im planes.
+    With ``cfg.probes`` the output's ``probes`` holds the testbench's
+    named taps (gui/testbench.h:29-38): references to tensors the step
+    computes anyway, never copies, never read on the host."""
+    probes = {} if cfg.probes else None
+    nb_c, dec_c, base = _front_prefilter(cfg, params, state, re, im, probes)
     ff_c, filt = fastfir_k.process(params.chan_filter, state.chan_filter,
                                    base)
+    _tap(probes, "p2_fastfir", filt)
     sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=True)
-    dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
-    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=True)
+    _tap(probes, "p3_agc", leveled)
+    dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled,
+                               probes)
+    _tap(probes, "p4_demod", audio)
+    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=True,
+                            probes=probes)
     return ReceiverState(blanker=nb_c, dec=dec_c, chan_filter=ff_c,
                          agc=agc_c, smeter=sm_c, demod=dm_c,
                          resamp=rs_c), out
@@ -419,10 +460,9 @@ def receiver_step(cfg: ReceiverConfig, params: ReceiverParams,
 
 
 def bank_safe_config(cfg: ReceiverConfig) -> ReceiverConfig:
-    """The configuration a channel bank runs: every ported configuration
-    runs as a bank unchanged (the JAX package's hook, kept as its entry
-    point for banks)."""
-    check_supported(cfg)
+    """The configuration a channel bank runs: every configuration runs as
+    a bank unchanged (the JAX package's hook, kept as its entry point for
+    banks)."""
     return cfg
 
 
@@ -433,18 +473,26 @@ def bank_receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
     """One block of a channel bank, as float32 planes: [block_size] shared
     by every channel (``shared_input``, a ChannelBank) or [C, block_size],
     one stream per channel (a StackedReceiver).  The demods take a bank as
-    they are (FM and SAM vote their PLL tier bank-wide)."""
+    they are (FM and SAM vote their PLL tier bank-wide).  With
+    ``cfg.probes`` the taps p1-p5 and p7 come with a leading channel axis,
+    and no p6 (the bank-voted PLL has no probed form), as in the JAX
+    package's bank."""
     n_ch = state.chan_filter.tail.shape[0]
     want = (cfg.block_size,) if shared_input else (n_ch, cfg.block_size)
     if tuple(re.shape) != want or tuple(im.shape) != want:
         raise ValueError(f"bank input: expected planes of {want}, got "
                          f"{tuple(re.shape)} and {tuple(im.shape)}")
-    nb_c, dec_c, base = _front_prefilter(cfg, params, state, re, im)
+    probes = {} if cfg.probes else None
+    nb_c, dec_c, base = _front_prefilter(cfg, params, state, re, im, probes)
     ff_c, filt = fastfir_k.batch_call(params.chan_filter, state.chan_filter,
                                       base)
+    _tap(probes, "p2_fastfir", filt)
     sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=False)
+    _tap(probes, "p3_agc", leveled)
     dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
-    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=False)
+    _tap(probes, "p4_demod", audio)
+    sm_c, rs_c, out = _tail(cfg, params, state, audio, sm_c, fast=False,
+                            probes=probes)
     return ReceiverState(blanker=nb_c, dec=dec_c, chan_filter=ff_c,
                          agc=agc_c, smeter=sm_c, demod=dm_c,
                          resamp=rs_c), out

@@ -79,17 +79,24 @@ def init(cfg: SpectrumConfig, device, dtype=RDTYPE) -> SpectrumState:
                                            device=device))
 
 
+def frame_power(cfg: SpectrumConfig, x: torch.Tensor,
+                rdtype=RDTYPE) -> torch.Tensor:
+    """|FFT(window*x)|^2 of each fft_size frame of ``x`` [..., fft_size],
+    fftshifted."""
+    win = torch.from_numpy(window_table(cfg.window, cfg.fft_size,
+                                        with_gain=True)).to(x.device, rdtype)
+    spec = torch.fft.fftshift(torch.fft.fft(x * win, dim=-1), dim=-1)
+    return (spec.real * spec.real + spec.imag * spec.imag).to(rdtype)
+
+
 def accumulate(cfg: SpectrumConfig, state: SpectrumState,
                x: torch.Tensor) -> tuple[SpectrumState, torch.Tensor]:
     """Feed one fft_size block of complex input; returns (state',
     overload).  Takes [..., fft_size]: leading axes average as further
     frames, in order."""
     rdtype = state.pwr_ave.dtype
-    win = torch.from_numpy(window_table(cfg.window, cfg.fft_size,
-                                        with_gain=True)).to(x.device, rdtype)
     overload = (x.real > OVER_LIMIT).any()
-    spec = torch.fft.fftshift(torch.fft.fft(x * win, dim=-1), dim=-1)
-    pwr = (spec.real * spec.real + spec.imag * spec.imag).to(rdtype)
+    pwr = frame_power(cfg, x, rdtype)
     ave, total, count = state
     for p in pwr.reshape(-1, cfg.fft_size):
         count = torch.clamp(count + 1, max=cfg.ave_size)
@@ -98,6 +105,33 @@ def accumulate(cfg: SpectrumConfig, state: SpectrumState,
         total = torch.where(count < cfg.ave_size, total + p, total - ave + p)
         ave = total / count.to(rdtype)
     return SpectrumState(pwr_ave=ave, pwr_sum=total, count=count), overload
+
+
+def accumulate_frames(cfg: SpectrumConfig, state: SpectrumState,
+                      x: torch.Tensor, counted: int) -> SpectrumState:
+    """``accumulate`` over the frames of ``x`` [F, fft_size], in order,
+    for a caller that knows how many frames the state has counted
+    (``counted``, a host count, so nothing is read from the device).  The
+    frames until the average is full go through ``accumulate``; after
+    that the sum-replace recurrence is linear, sum <- a*sum + p with
+    a = 1 - 1/ave_size, and the rest take its closed form in one weighted
+    sum: a^M*sum + sum_j a^(M-1-j)*p_j (the same value up to the order of
+    the float32 sums)."""
+    head = max(0, min(x.shape[0], cfg.ave_size - counted))
+    if head:
+        state, _ = accumulate(cfg, state, x[:head])
+    rest = x[head:]
+    m = rest.shape[0]
+    if m == 0:
+        return state
+    rdtype = state.pwr_ave.dtype
+    pwr = frame_power(cfg, rest, rdtype)
+    a = 1.0 - 1.0 / cfg.ave_size
+    w = torch.pow(a, torch.arange(m - 1, -1, -1, dtype=torch.float64,
+                                  device=x.device)).to(rdtype)
+    total = (a ** m) * state.pwr_sum + (w[:, None] * pwr).sum(0)
+    return SpectrumState(pwr_ave=total / cfg.ave_size, pwr_sum=total,
+                         count=state.count)
 
 
 def db_spectrum(cfg: SpectrumConfig, state: SpectrumState) -> torch.Tensor:

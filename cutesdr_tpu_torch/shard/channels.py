@@ -8,7 +8,7 @@ of one configuration, run as one batched step.
 
 Both hold their params and state on one explicit device and run
 ``pipeline.receiver.bank_receiver_step``; spreading a bank over several
-cards is not ported (ROADMAP Queue 1, item 20).
+cards is not ported (ROADMAP Queue 1, item 7).
 
 A bank's params and state are the single receiver's NamedTuples with a
 leading channel axis on every state tensor and on the per-channel params

@@ -24,8 +24,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    cutesdr_tpu_torch.__path__, 'cutesdr_tpu_torch.')]\n"
-        "assert 'cutesdr_tpu_torch.session' in names, names\n"
-        "assert len(names) >= 40, names\n"
+        "for want in ('session', 'bank', 'serve', 'shard.coherent',\n"
+        "             'testbench.probes', 'design.latency'):\n"
+        "    assert 'cutesdr_tpu_torch.' + want in names, names\n"
+        "assert len(names) >= 46, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cutesdr_tpu' or m.startswith('cutesdr_tpu.')]\n"
         "assert not bad, bad\n")
@@ -193,3 +195,35 @@ def test_design_copies_match_reference():
         for n, gain in ((4096, True), (1025, False)):
             eq(t_win.window_table(name, n, with_gain=gain),
                j_win.window_table(name, n, with_gain=gain))
+
+
+def test_numpy_copies_match_reference():
+    """serve.py (the page and every class) and testbench/probes.py's
+    TriggerMode and TriggeredCapture are the JAX package's numpy code,
+    line for line; the re-declared constants of the serving surface are
+    the JAX package's."""
+    import inspect
+
+    from cutesdr_tpu import bank as j_bank
+    from cutesdr_tpu import serve as j_serve
+    from cutesdr_tpu import session as j_session
+    from cutesdr_tpu.design import latency as j_lat
+    from cutesdr_tpu.ops import resampler as j_rs
+    from cutesdr_tpu.testbench import probes as j_probes
+    from cutesdr_tpu_torch import bank as t_bank
+    from cutesdr_tpu_torch import serve as t_serve
+    from cutesdr_tpu_torch import session as t_session
+    from cutesdr_tpu_torch.design import latency as t_lat
+    from cutesdr_tpu_torch.ops import resampler as t_rs
+    from cutesdr_tpu_torch.testbench import probes as t_probes
+
+    body = lambda m: inspect.getsource(m).split("\n_PAGE = ", 1)[1]
+    assert body(t_serve) == body(j_serve)
+    for name in ("TriggerMode", "_TrigState", "TriggeredCapture"):
+        assert (inspect.getsource(getattr(t_probes, name))
+                == inspect.getsource(getattr(j_probes, name))), name
+    assert t_bank.SPECTRA_BINS == j_bank.SPECTRA_BINS
+    assert t_session.PROBE_TAPS == j_session.ReceiverSession.PROBE_TAPS
+    assert t_rs.MAX_SOUNDCARDVAL == j_rs.MAX_SOUNDCARDVAL
+    assert (t_lat.MIN_NFFT, t_lat.MAX_NFFT) == (j_lat.MIN_NFFT,
+                                                j_lat.MAX_NFFT)

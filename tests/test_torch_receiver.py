@@ -294,13 +294,6 @@ def test_port_matches_jax_receiver_hang_agc():
     assert agc.STATS["scan_fallbacks"] == before
 
 
-@pytest.mark.parametrize("kw", [dict(probes=True),
-                                dict(probes=True, nb_on=True)])
-def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trx.Receiver(trx.ReceiverConfig(**kw), "cpu")
-
-
 def test_config_geometry_matches_jax():
     assert set(trx.PORTED_MODES) == set(jrx.MODE_LIMITS)
     for kw in (dict(), dict(mode="lsb", input_rate=250_000.0),

@@ -221,28 +221,30 @@ def test_controls_match_jax():
     assert "Msps" in t.status_line()
 
 
-def test_unported_parts_raise():
-    sess = ts.ReceiverSession(trx.ReceiverConfig(**KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.set_probe("p7")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.probe_frame()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.DiversitySession(trx.ReceiverConfig(**KW))
-
-
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Receiver, ChannelBank, StackedReceiver, ReceiverSession and the
-    SpectrumAnalyzer run on "cuda" unless told otherwise: with no CUDA
-    device and no device asked for they raise, never falling back to the
-    CPU."""
+    """Receiver, ChannelBank, StackedReceiver, ReceiverSession, the
+    SpectrumAnalyzer, DiversityReceiver, the combiners' init/array_init,
+    DiversitySession, BankSession and ProbeSpectrum run on "cuda" unless
+    told otherwise: with no CUDA device and no device asked for they
+    raise, never falling back to the CPU."""
+    from cutesdr_tpu_torch.bank import BankSession
+    from cutesdr_tpu_torch.shard import coherent
+    from cutesdr_tpu_torch.shard.coherent import DiversityReceiver
+    from cutesdr_tpu_torch.testbench.probes import ProbeSpectrum
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = trx.ReceiverConfig(**KW)
     for make in (lambda: trx.Receiver(cfg),
                  lambda: t_ch.ChannelBank(cfg, [0.0]),
                  lambda: t_ch.StackedReceiver(cfg, [0.0]),
                  lambda: ts.ReceiverSession(cfg),
-                 lambda: t_sp.SpectrumAnalyzer(t_sp.SpectrumConfig())):
+                 lambda: t_sp.SpectrumAnalyzer(t_sp.SpectrumConfig()),
+                 lambda: DiversityReceiver(cfg),
+                 lambda: coherent.init(),
+                 lambda: coherent.array_init(4),
+                 lambda: ts.DiversitySession(cfg),
+                 lambda: BankSession(cfg, [0.0, 1000.0]),
+                 lambda: ProbeSpectrum(48_000.0)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert trx.Receiver(cfg, "cpu").device.type == "cpu"
