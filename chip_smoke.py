@@ -54,7 +54,17 @@ audio (``path_specs``):
   over the 64-channel grid (S-meters, mini-spectra, the monitor's audio
   after ``select``, the probe frame's channel), and the session's probe
   scope walked through p7, p2, p6 and off, then a ``SpectrumServer`` on
-  127.0.0.1 round-tripping /probe, /spectrum.json and /tune.
+  127.0.0.1 round-tripping /probe, /spectrum.json and /tune;
+* the command line (``check_cli``: ``cli.main`` in this process, as
+  ``python -m cutesdr_tpu_torch.cli`` runs it): ``run`` from a fake
+  NetSDR at 2 MSPS (a helper process of this script, ``--fake-netsdr``)
+  and from the native UDP ingest at 20 MSPS (``--udp-feed``), each at the
+  10 ms default and at --target-latency-ms 0, with their real-time
+  factors and lost packets or samples; ``run --dual``; ``record`` to
+  SigMF and to a legacy file, played back by ``run`` bitwise equal to
+  ``Receiver.process``; ``serve`` (single with a mode switch to FM, 8
+  channels, dual-RX) with its settings file; ``spectrum``, ``latency``
+  and ``discover``.  Nothing leaves 127.0.0.1.
 
 The scans (K3, K5) are also held to the float64 solve of their float32
 inputs (no farther from it than 1.5x their plain versions), N1 to its
@@ -72,21 +82,28 @@ needs a CUDA device; it never imports jax.
 
     python3 chip_smoke.py --profile
 
-builds the kernels and profiles the same receiver paths, the session
-and the serving paths instead (step time, device busy time, launches and
-host reads per step; see ``profile_paths`` and ``profile_serving``).
+builds the kernels and profiles the same receiver paths, the session,
+the serving paths and the command line's ``run`` paths instead (step
+time, device busy time, launches and host reads per step or block; see
+``profile_paths``, ``profile_serving`` and ``profile_cli``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
+import wave
 
 import numpy as np
 import torch
@@ -101,11 +118,12 @@ from cutesdr_tpu_torch.design.decimation_plan import (  # noqa: E402
     plan_decimation)
 from cutesdr_tpu_torch.design.fastfir_design import (  # noqa: E402
     design_fastfir)
+from cutesdr_tpu_torch.design.latency import latency_report  # noqa: E402
 from cutesdr_tpu_torch.io.audio_sink import RateLockedQueue  # noqa: E402
 from cutesdr_tpu_torch.kernels import (  # noqa: E402
     _build, agcseq, fastfir, mixdec, resamp, scan, seqloop)
 from cutesdr_tpu_torch.ops import (  # noqa: E402
-    agc, nco, noiseblanker, resampler)
+    agc, decimator, nco, noiseblanker, resampler)
 from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
 from cutesdr_tpu_torch.ops.util import (  # noqa: E402
     first_order_recurrence, max_affine_recurrence)
@@ -277,13 +295,23 @@ def mixdec_planes(gen, n: int, layout: str):
     return buf[0::3], buf[1::3]
 
 
+def held_tail(carry, recent: torch.Tensor) -> torch.Tensor:
+    """A mixdec carry's raw tail whose trailing samples, the L-1-d the sum
+    reads, are ``recent`` ([t] or [C, t]), zeros before them (the history
+    a longer plan would read; the draws stay those of a tail of t)."""
+    pad = carry.raw_tail.shape[-1] - recent.shape[-1]
+    return torch.cat([recent.new_zeros(recent.shape[:-1] + (pad,)), recent],
+                     -1)
+
+
 def check_mixdec(gen, results, input_rate, label, n=N_IN, layout="iq"):
     """K1 on one stream of n samples at the plan for ``input_rate``."""
     plan = plan_decimation(input_rate, 20_000.0)
     params, carry = mixdec.init(plan, input_rate / 17.0, "cuda")
+    t = decimator.tail_length(plan)
     carry = carry._replace(
-        raw_tail=torch.complex(randn(carry.raw_tail.numel(), gen, 1000.0),
-                               randn(carry.raw_tail.numel(), gen, 1000.0)),
+        raw_tail=held_tail(carry, torch.complex(randn(t, gen, 1000.0),
+                                                randn(t, gen, 1000.0))),
         phase=torch.tensor(2**32 - 12345, dtype=torch.int64, device="cuda"))
     re, im = mixdec_planes(gen, n, layout)
     dc = torch.tensor(0.37 - 0.21j, dtype=torch.complex64, device="cuda")
@@ -300,7 +328,7 @@ def check_mixdec(gen, results, input_rate, label, n=N_IN, layout="iq"):
     # bytes: the two input planes, tail, taps, output; operations: the DC
     # cal (2), oscillator phase and sincos (counted 2) and complex mix (6)
     # per input sample, a complex-by-real tap (4) per tap and output
-    work = (8 * n + 8 * carry.raw_tail.numel() + 4 * L + 8 * n // D,
+    work = (8 * n + 8 * t + 4 * L + 8 * n // D,
             10 * n + 4 * L * n // D)
     compare("mixdec", [yk.real, yk.imag], [yp.real, yp.imag], 5e-5 * scale,
             results, run_k, run_p, label, work=work)
@@ -370,15 +398,15 @@ def check_mixdec_bank(gen):
                                          (2e6, 2, N_IN, False)):
         plan = plan_decimation(input_rate, 20_000.0)
         params, carry = mixdec.init(plan, 0.0, "cuda")
-        t = carry.raw_tail.numel()
+        t = decimator.tail_length(plan)
         params = params._replace(phase_inc=torch.tensor(
             [nco.phase_increment(-input_rate * (0.45 - 0.014 * c),
                                  input_rate) for c in range(n_ch)],
             dtype=torch.int64, device="cuda"))
         carry = mixdec.MixDecCarry(
-            raw_tail=torch.complex(randn(n_ch * t, gen, 1000.0),
-                                   randn(n_ch * t, gen, 1000.0)
-                                   ).reshape(n_ch, t),
+            raw_tail=held_tail(carry, torch.complex(
+                randn(n_ch * t, gen, 1000.0),
+                randn(n_ch * t, gen, 1000.0)).reshape(n_ch, t)),
             phase=2**32 - 12345 * torch.arange(1, n_ch + 1, device="cuda"))
         dc = torch.complex(randn(n_ch, gen), randn(n_ch, gen))
         rows = n if shared else n_ch * n
@@ -810,6 +838,41 @@ def check_guess_verify(gen, results):
     if bool(ok) or int(rounds) != 2:
         raise AssertionError("scan_solve: a solve cut at 2 rounds reported "
                              "convergence")
+
+
+def check_guess_verify_small(gen):
+    """The solve kernel at the small blocks that take it (every
+    single-stream size): 256 samples (the CLI's 10 ms default at 2 and 20
+    MSPS) and 1,024 (the session's block), both averagers over a
+    10 -> 1,000 step of seeded noise: the same ok and rounds within one as
+    the plain version, x no farther from the float64 solve of its pattern
+    than 1.5x the plain version, or 2 ulps of the output's scale (the
+    scans' bar: the kernel sums in another order)."""
+    cfg = agc.AgcConfig(True, False, 62_500.0)
+    p = agc.make_params(cfg, -100.0, 30.0, 0.0, 200.0)
+    for n in (256, 1024):
+        env = torch.where(torch.arange(n, device="cuda") < n // 2, 10.0,
+                          1000.0)
+        x = torch.complex(randn(n, gen), randn(n, gen)) * env
+        pk = agc._prefix(cfg, agc.init_carry(cfg, "cuda"), x)[2]
+        for name, rise, fall in (
+                ("attack", p.attack_rise_alpha, p.attack_fall_alpha),
+                ("decay", p.decay_rise_alpha, p.decay_fall_alpha)):
+            args = (pk, torch.tensor(-5.0, device="cuda"), rise, fall,
+                    agc.GUESS_ITERS)
+            xk, okk, rk = scan.guess_verify_solve(*args)
+            xp, okp, rp = scan.guess_verify_solve_plain(*args)
+            okk, rk, okp = bool(okk), int(rk), bool(okp)
+            err_k = float((xk.double() - exact_solve(args, xk)).abs().max())
+            err_p = float((xp.double() - exact_solve(args, xp)).abs().max())
+            phase(f"  scan_solve {n} {name}: ok {okk} (plain {okp}), rounds "
+                  f"{rk} (plain {rp}), from the float64 solve kernel "
+                  f"{err_k:.3e}, plain {err_p:.3e}")
+            ulp = float(xp.abs().max()) * 2.0 ** -23
+            if (okk != okp or abs(rk - rp) > 1
+                    or err_k > max(1.5 * err_p, 2 * ulp)):
+                raise AssertionError(f"scan_solve at {n} ({name}) disagrees "
+                                     "with its plain version")
 
 
 def resamp_case(gen, n_streams: int, n: int, ratio: float, nominal: float,
@@ -1291,7 +1354,7 @@ def routed_kernels(cfg, bank: bool, params) -> set[str]:
         want.add("fastfir_batch" if bank else "fastfir")
     if banded_tail(cfg, bank, params):
         want.add("resamp")
-    if not bank and cfg.agc_on and scan.supported(n):
+    if not bank and cfg.agc_on:
         want.add("scan_solve")
     if cfg.mode in ("am", "sam", "fm") or (cfg.agc_on and cfg.agc_hang):
         want.add("scan_plain")
@@ -1327,9 +1390,9 @@ def fallback_check(launches, tiers, n_blocks):
 
 
 def tone_ratio(audio: np.ndarray, rate: float, tone_hz: float,
-               label: str) -> float:
+               label: str, tol_hz: float = 2.0) -> float:
     """Peak/floor of the audio spectrum; raises unless the peak is the
-    modulating tone at > 60 dB."""
+    modulating tone (within ``tol_hz``) at > 60 dB."""
     if not np.all(np.isfinite(audio)):
         raise AssertionError(f"{label}: non-finite audio")
     spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
@@ -1339,7 +1402,7 @@ def tone_ratio(audio: np.ndarray, rate: float, tone_hz: float,
     ratio = 10 * np.log10(spec[k] / floor)
     phase(f"{label} audio: {len(audio)} samples, peak at {f[k]:.2f} Hz, "
           f"peak/floor {ratio:.1f} dB")
-    if abs(f[k] - tone_hz) > 2.0 or ratio < 60.0:
+    if abs(f[k] - tone_hz) > tol_hz or ratio < 60.0:
         raise AssertionError(f"{label}: the {tone_hz:g} Hz tone was not "
                              "recovered")
     return ratio
@@ -2384,7 +2447,607 @@ def profile_serving(gen, gpu_label: str) -> None:
     bsess.stop()
 
 
+# --------------------------------------------------------- the command line
+# ``check_cli`` drives the port's ``cli.main`` in this process, as a user's
+# ``python -m cutesdr_tpu_torch.cli`` would, with its radio inputs made by
+# helper processes of this script (``--fake-netsdr``, ``--udp-feed``), so
+# that they do not share the run loop's interpreter lock.  Nothing leaves
+# the machine: the radio, the UDP ingest and the web server are on
+# 127.0.0.1, and ``discover`` sends its request to 127.0.0.1.
+
+CLI_DIR = os.path.join(ROOT, "build", "chip_cli")
+CLI_FS = 2e6              # NetSDR bandwidth index 3: 80 MHz / 40
+CLI_FS_UDP = 20e6         # BASELINE config 5's rate, the native ingest
+CLI_TUNE = 100e3
+CLI_TONE = CLI_TUNE + 1000.0   # 1 kHz above the tune: 1 kHz audio
+CLI_AMP = 3000.0          # int16 wire amplitude of the tone
+PKT_SAMPLES = 256         # complex samples of a 1,028-byte 16-bit packet
+CLI_TONE_TOL = 50.0       # Hz: a live run that falls behind drops blocks,
+                          # and the seams spread the tone's peak
+
+
+def tone_stream(fs: float, seconds: float) -> np.ndarray:
+    """``seconds`` of the CLI tone at ``fs`` as whole 1,028-byte 16-bit
+    packets, headers and a radio's sequence numbers (0 first, then
+    1..65535 round) in place: [packets, 1028] bytes, built ahead of the
+    stream (the payloads repeat after lcm(period, 256) samples)."""
+    total = int(seconds * fs / PKT_SAMPLES)
+    period = int(round(fs / np.gcd(int(CLI_TONE), int(fs))))
+    cycle = int(np.lcm(period, PKT_SAMPLES)) // PKT_SAMPLES
+    t = np.arange(min(cycle, total) * PKT_SAMPLES)
+    iq = CLI_AMP * np.exp(2j * np.pi * (CLI_TONE / fs) * t)
+    data = np.empty(2 * len(t), "<i2")
+    data[0::2], data[1::2] = np.round(iq.real), np.round(iq.imag)
+    payload = data.view(np.uint8).reshape(-1, 4 * PKT_SAMPLES)
+    buf = np.empty((total, 4 + 4 * PKT_SAMPLES), np.uint8)
+    buf[:, 4:] = np.resize(payload, (total, payload.shape[1]))
+    k = np.arange(total)
+    seq = np.where(k == 0, 0, (k - 1) % 65535 + 1)
+    buf[:, 0], buf[:, 1] = 0x04, 0x82          # 0x8204 little-endian
+    buf[:, 2], buf[:, 3] = seq & 0xFF, seq >> 8
+    return buf
+
+
+def paced_send(send, pkts: np.ndarray, fs: float, stop) -> int:
+    """Send the packets one by one through ``send``, paced to ``fs``
+    against the wall clock, until ``stop`` (an Event) is set; returns the
+    packets sent."""
+    t0 = time.perf_counter()
+    sent = 0
+    while sent < len(pkts) and not stop.is_set():
+        due = min(len(pkts), int((time.perf_counter() - t0) * fs
+                                 / PKT_SAMPLES) + 1)
+        while sent < due:
+            send(pkts[sent])
+            sent += 1
+        time.sleep(0.0002)
+    return sent
+
+
+def fake_netsdr(seconds: float) -> int:
+    """``--fake-netsdr SECONDS``: a NetSDR on 127.0.0.1 (its port printed
+    on the first line) for one client after another: it answers the
+    handshake, acks sets and, once a client sets RX_STATE on, streams up
+    to ``seconds`` of the CLI tone at 2 MSPS as 1,028-byte 16-bit packets
+    to the client's UDP port (the NetSDR's: the TCP port), until the
+    client sets RX_STATE idle or disconnects.  Runs until it is
+    stopped."""
+    import asyncio
+
+    from cutesdr_tpu_torch.io import ascp
+    from cutesdr_tpu_torch.io.ascp import AscpMessage, StreamAssembler, ci
+
+    async def serve():
+        udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        pkts = tone_stream(CLI_FS, seconds)
+
+        async def handle(reader, writer):
+            asm, stop, streams = StreamAssembler(), threading.Event(), []
+
+            def stream():
+                n = paced_send(lambda p: udp.sendto(p, ("127.0.0.1", port)),
+                               pkts, CLI_FS, stop)
+                print(f"fake netsdr: sent {n} packets", flush=True)
+
+            while True:
+                try:
+                    data = await reader.read(4096)
+                except ConnectionResetError:
+                    break
+                if not data:
+                    break
+                for msg in asm.feed(data):
+                    item = msg.citem() if len(msg.body) >= 2 else None
+                    if msg.msg_type == ascp.TYPE_HOST_REQ_CITEM:
+                        m = AscpMessage(ascp.TYPE_TARG_RESP_CITEM)
+                        m.add_citem(item)
+                        if item == ci.GENERAL_INTERFACE_NAME:
+                            m.body += b"NetSDR\0"
+                        elif item == ci.GENERAL_INTERFACE_SERIALNUM:
+                            m.body += b"SMOKE001\0"
+                        elif item == ci.GENERAL_HARDFIRM_VERSION:
+                            msg.rewind()
+                            m.add_u8(msg.get_u8()).add_u16(123)
+                        elif item == ci.GENERAL_STATUS_CODE:
+                            m.add_u8(ci.STATUS_IDLE)
+                        writer.write(m.to_bytes())
+                    elif msg.msg_type == ascp.TYPE_HOST_SET_CITEM:
+                        if item == ci.RX_STATE:
+                            msg.rewind()
+                            msg.get_u8()
+                            if msg.get_u8() == ci.RX_STATE_ON:
+                                if not streams:
+                                    streams.append(threading.Thread(
+                                        target=stream, daemon=True))
+                                    streams[0].start()
+                            else:
+                                stop.set()
+                        writer.write(msg.to_bytes())   # sets are acked
+                    await writer.drain()
+            stop.set()
+            for t in streams:
+                t.join()
+
+        server = await asyncio.start_server(handle, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        print(port, flush=True)
+        await server.serve_forever()
+
+    asyncio.run(serve())
+    return 0
+
+
+def udp_feed(port: int, seconds: float) -> int:
+    """``--udp-feed PORT SECONDS``: print a line when ready, wait until the
+    native ingest has bound 127.0.0.1:PORT (a 1-byte probe, which the
+    ingest ignores, is refused until then), then send ``seconds`` of the
+    CLI tone at 20 MSPS as 1,028-byte 16-bit packets (78,125 a second),
+    paced to the wall clock.  The packets are built ahead and sent in
+    batches through libc's sendmmsg (one call a batch): a Python call a
+    packet does not reach that rate."""
+    import ctypes
+    import ctypes.util
+
+    libc = ctypes.CDLL(ctypes.util.find_library("c"), use_errno=True)
+    libc.sendmmsg.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                              ctypes.c_int]
+    pkts = tone_stream(CLI_FS_UDP, seconds)
+    total, size = pkts.shape
+    # struct iovec {base, len} and struct mmsghdr {msghdr (56 bytes: name,
+    # namelen, iov, iovlen, control, controllen, flags), msg_len} on
+    # 64-bit Linux; a connected socket needs no name
+    iov = np.zeros((total, 2), np.uint64)
+    iov[:, 0] = pkts.ctypes.data + size * np.arange(total, dtype=np.uint64)
+    iov[:, 1] = size
+    msgs = np.zeros((total, 8), np.uint64)
+    msgs[:, 2] = iov.ctypes.data + 16 * np.arange(total, dtype=np.uint64)
+    msgs[:, 3] = 1
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.connect(("127.0.0.1", port))
+        print("ready", flush=True)
+        deadline, ok = time.time() + 120.0, 0
+        while ok < 3:
+            if time.time() > deadline:
+                print("udp feed: the ingest never bound", flush=True)
+                return 1
+            try:
+                s.send(b"\0")
+                time.sleep(0.005)
+                s.send(b"\0")          # raises if the first was refused
+                ok += 1
+            except ConnectionRefusedError:
+                ok = 0
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        sent = 0
+        while sent < total:
+            due = min(total, int((time.perf_counter() - t0) * CLI_FS_UDP
+                                 / PKT_SAMPLES) + 1)
+            while sent < due:
+                k = libc.sendmmsg(s.fileno(), msgs.ctypes.data + 64 * sent,
+                                  min(due - sent, 1024), 0)
+                if k < 0:                # refused: the run has what it needs
+                    break
+                sent += k
+            if k < 0:
+                break
+            time.sleep(0.0002)
+        print(f"udp feed: sent {sent} packets in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return 0
+
+
+@contextlib.contextmanager
+def helper(*args):
+    """A helper process of this script (``--fake-netsdr`` or
+    ``--udp-feed``) whose first line of output has been read; yields
+    (process, that line).  On leaving, a feeder is waited for and a fake
+    radio stopped; their last line is printed."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             *map(str, args)], stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        yield proc, proc.stdout.readline().strip()
+    finally:
+        if args[0] == "--fake-netsdr":
+            proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        tail = proc.stdout.read().strip()
+        if tail:
+            phase(f"  ({tail.splitlines()[-1]})")
+        proc.stdout.close()
+
+
+def free_port(kind=socket.SOCK_DGRAM) -> int:
+    with socket.socket(socket.AF_INET, kind) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Tee(io.TextIOBase):
+    """Standard error, also kept for the script to read."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(argv, profiler=None) -> str:
+    """``cli.main(argv)`` in this process (under ``profiler`` if given);
+    raises unless it returns 0; returns what it wrote to standard
+    error."""
+    from cutesdr_tpu_torch import cli
+    tee = _Tee(sys.stderr)
+    with contextlib.redirect_stderr(tee):
+        with profiler if profiler is not None else contextlib.nullcontext():
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: rc {rc}")
+    return tee.buf.getvalue()
+
+
+RUN_LINE = re.compile(r"processed (\d+) samples in ([\d.]+)s \(([\d.]+) Msps, "
+                      r"([\d.]+)x real time\)(.*) -> ")
+
+
+def run_summary(err: str) -> dict:
+    """The numbers of ``cli run``'s closing line: samples, seconds, Msps,
+    the real-time factor and the source's counters (name=value)."""
+    m = RUN_LINE.search(err)
+    if m is None:
+        raise AssertionError(f"cli run printed no closing line:\n{err}")
+    out = {"samples": int(m[1]), "seconds": float(m[2]),
+           "msps": float(m[3]), "realtime": float(m[4])}
+    out.update((k, int(v)) for k, v in re.findall(r"(\w+)=(\d+)", m[5]))
+    gain = re.search(r"rx2 gain ([\d.]+) ∠(-?[\d.]+)°", m[5])
+    if gain:
+        out["rx2_gain"] = float(gain[1]) * np.exp(1j * np.deg2rad(
+            float(gain[2])))
+    return out
+
+
+def wav_audio(path: str) -> np.ndarray:
+    with wave.open(path) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def cli_cfg(argv):
+    """The receiver configuration the CLI builds from ``argv`` (radio:
+    sources take their rate table and centre first)."""
+    from cutesdr_tpu_torch import cli
+    args = cli.build_parser().parse_args(argv)
+    with contextlib.redirect_stderr(io.StringIO()):
+        cli._apply_radio_rate(args)
+        return cli._cfg_from_args(args)
+
+
+def cli_routes(cfgs, bank: bool = False) -> set:
+    """The kernels that the configurations' receivers route to (their
+    single-stream params from ``rx.init``; a bank's are not read)."""
+    return set().union(*(routed_kernels(
+        c, bank, None if bank else rx.init(c, "cuda")[0]) for c in cfgs))
+
+
+def cli_run_specs(seconds: float, radio_port: str):
+    """The ``cli run`` paths: (label, argv without --out, the seconds a
+    UDP feeder sends, or None): ``seconds`` of the live sources, half as
+    much of the dual-RX generator.  ``PORT`` in an argv is the feeder's
+    port."""
+    radio = ["run", "--source", f"radio:127.0.0.1:{radio_port}",
+             "--bw-index", "3", "--center", "0", "--freq", str(CLI_TUNE),
+             "--mode", "usb", "--seconds", str(seconds)]
+    udp = ["run", "--source", "udp:PORT", "--fs", str(CLI_FS_UDP),
+           "--freq", str(CLI_TUNE), "--mode", "usb", "--seconds",
+           str(seconds)]
+    lat0 = ["--target-latency-ms", "0"]
+    return [("cli run netsdr 2msps", radio, None),
+            ("cli run netsdr 2msps lat0", radio + lat0, None),
+            ("cli run udp 20msps", udp, seconds),
+            ("cli run udp 20msps lat0", udp + lat0, seconds),
+            ("cli run dual", ["run", "--dual", "--source",
+                              f"dualtone:{CLI_TONE:.0f}:40:0.8", "--fs",
+                              str(CLI_FS), "--freq", str(CLI_TUNE),
+                              "--mode", "usb", "--seconds",
+                              str(seconds / 2)], None)]
+
+
+def drive_cli_run(label, argv, feed_seconds, profiler=None):
+    """One ``cli run`` path from zeroed counts, with a UDP feeder beside it
+    where ``feed_seconds`` is given: returns (argv as run, its standard
+    error, the WAV's path, the launch counts)."""
+    out = os.path.join(CLI_DIR, label.replace(" ", "_") + ".wav")
+    argv = argv + ["--out", out]
+    reset_counts()
+    if feed_seconds is None:
+        err = run_cli(argv, profiler)
+    else:
+        port = str(free_port())
+        argv = [a.replace("PORT", port) for a in argv]
+        with helper("--udp-feed", port, feed_seconds):
+            err = run_cli(argv, profiler)
+    return argv, err, out, dict(kernels.LAUNCHES)
+
+
+def check_cli_run(label, argv, feed_seconds, gpu_label):
+    """A ``cli run`` path: the tone at 1 kHz > 60 dB over the floor in the
+    WAV's second half, the kernels its configuration routes to (and no
+    other), and its numbers: Msps, the real-time factor, the source's
+    lost packets or blocks, launches a block.  Returns (launches, the
+    closing line's numbers)."""
+    argv, err, out, launches = drive_cli_run(label, argv, feed_seconds)
+    s = run_summary(err)
+    cfg = cli_cfg(argv)
+    blocks = s["samples"] // cfg.block_size
+    extra = {k: v for k, v in s.items()
+             if k not in ("samples", "seconds", "msps", "realtime",
+                          "rx2_gain")}
+    phase(f"{label}: block {cfg.block_size} (fastfir {cfg.fastfir_nfft}/"
+          f"{cfg.fastfir_ntaps}), {blocks} blocks in {s['seconds']:.2f} s, "
+          f"{s['msps']:.3f} Msps, {s['realtime']:.3f}x real time, {extra}, "
+          f"{sum(launches.values()) / max(blocks, 1):.2f} launches a block "
+          f"{launches} (host reads a block: its --profile line; "
+          f"{gpu_label})")
+    if blocks == 0:
+        raise AssertionError(f"{label}: no block ran")
+    audio = wav_audio(out).astype(np.float64)
+    tone_ratio(audio[len(audio) // 2:], 48000.0, 1000.0, label,
+               CLI_TONE_TOL)
+    check_routed(label, launches, cli_routes([cfg]))
+    return launches, s
+
+
+def check_cli_file(fmt: str, radio_port: str, add) -> None:
+    """``cli record`` of 1 s from the fake radio (SigMF cf32, or a legacy
+    int16 file), then ``cli run`` over the capture twice: both WAVs and
+    the WAV of ``Receiver.process`` block by block over the same file are
+    equal, byte for byte."""
+    from cutesdr_tpu_torch.io.filesource import FileSource, WavSink
+    from cutesdr_tpu_torch.io.recorder import open_sigmf
+
+    legacy = fmt == "int16"
+    path = os.path.join(CLI_DIR, "capture.raw" if legacy else "capture")
+    reset_counts()
+    run_cli(["record", "--source", f"radio:127.0.0.1:{radio_port}",
+             "--bw-index", "3", "--center", "0", "--freq", str(CLI_TUNE),
+             "--seconds", "1", "--fmt", fmt, "--out", path]
+            + (["--legacy"] if legacy else []))
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"cli record launched {kernels.LAUNCHES}")
+    source = f"{path}:int16" if legacy else f"{path}.sigmf-data"
+    argv = ["run", "--source", f"file:{source}", "--fs", str(CLI_FS),
+            "--freq", str(CLI_TUNE), "--mode", "usb", "--seconds", "1",
+            "--target-latency-ms", "0"]
+    cfg = cli_cfg(argv)
+    wavs = []
+    for k in range(2):
+        wavs.append(os.path.join(CLI_DIR, f"play_{fmt}_{k}.wav"))
+        reset_counts()
+        err = run_cli(argv + ["--out", wavs[-1]])
+        add(kernels.LAUNCHES)
+        check_routed(f"cli run file {fmt}", kernels.LAUNCHES,
+                     cli_routes([cfg]))
+    r = rx.Receiver(cfg)
+    r.set_volume(99)
+    src = FileSource(path, "int16") if legacy else open_sigmf(source)[0]
+    direct = os.path.join(CLI_DIR, f"direct_{fmt}.wav")
+    with WavSink(direct, 48000) as wav:
+        for _ in range(int(CLI_FS / cfg.block_size)):
+            out = r.process(src.next_block(cfg.block_size))
+            wav.write(out.audio[:int(out.n_audio)].cpu().numpy())
+    blobs = [open(p, "rb").read() for p in wavs + [direct]]
+    s = run_summary(err)
+    phase(f"cli record -> run ({'legacy int16' if legacy else 'SigMF cf32'}"
+          f"): {len(blobs[0])} WAV bytes a play, {s['msps']:.2f} Msps from "
+          f"the file; the plays equal {blobs[0] == blobs[1]}, equal to "
+          f"Receiver.process {blobs[0] == blobs[2]}")
+    if not blobs[0] == blobs[1] == blobs[2]:
+        raise AssertionError(f"cli record -> run ({fmt}): the WAVs differ")
+    audio = wav_audio(wavs[0]).astype(np.float64)
+    tone_ratio(audio[len(audio) // 2:], 48000.0, 1000.0,
+               f"cli run file {fmt}")
+
+
+def wait_for_server(port: int, thread) -> None:
+    deadline = time.time() + 120
+    while True:
+        try:
+            http_json(port, "/spectrum.json")
+            return
+        except OSError:
+            if time.time() > deadline or not thread.is_alive():
+                raise
+            time.sleep(0.05)
+
+
+def check_cli_serve(gpu_label: str, add) -> None:
+    """``cli serve`` with --realtime, each from zeroed counts: the single
+    session over the sweep generator (its modes' receivers built and
+    warmed at start) with a GET of /spectrum.json, a volume, a tune and a
+    switch to FM (whose noise-only channel takes K7); a bank of 8
+    channels (K6); the dual-RX session.  Each prints its status line and
+    real-time factor.  The first serve's --settings file is loaded by a
+    second serve, which saves it again."""
+    settings = os.path.join(CLI_DIR, "settings.json")
+    if os.path.exists(settings):
+        os.remove(settings)
+    single = ["serve", "--source", "sweep", "--freq", str(CLI_TUNE),
+              "--realtime", "--settings", settings]
+
+    def act_single(port):
+        http_json(port, "/volume", {"volume": 42})
+        frame = http_json(port, "/spectrum.json")
+        tuned = http_json(port, "/tune", {"freq_hz": CLI_TUNE + 500.0})
+        time.sleep(1.0)
+        mode = http_json(port, "/mode", {"mode": "fm"})
+        phase(f"cli serve: /spectrum.json {len(frame.get('db', []))} bins, "
+              f"/tune -> {tuned}, /mode -> {mode}")
+        if tuned != {"tune_hz": CLI_TUNE + 500.0} or mode != {"mode": "fm"}:
+            raise AssertionError("cli serve: the server round trip failed")
+
+    cfg = cli_cfg(single)
+    sess = ReceiverSession(cfg)
+    singles = [sess._mode_cfg(m) for m in ("am", "sam", "fm", "usb", "lsb",
+                                           "cwu", "cwl")]
+    singles.append(dataclasses.replace(cfg, probes=True))
+    del sess
+    freqs = ",".join(f"{CLI_TUNE + 20e3 * i:.0f}" for i in range(8))
+    bank = ["serve", "--source", f"tone:{CLI_TONE:.0f}", "--freq",
+            str(CLI_TUNE), "--realtime", "--channels", freqs]
+    dual = ["serve", "--dual", "--source", f"dualtone:{CLI_TONE:.0f}:40:0.8",
+            "--freq", str(CLI_TUNE), "--realtime"]
+    for label, argv, seconds, cfgs, is_bank, act in (
+            ("cli serve", single, 2.5, singles, False, act_single),
+            ("cli serve 8 channels", bank, 1.5, [cli_cfg(bank)], True, None),
+            ("cli serve dual", dual, 1.5, [cli_cfg(dual)], False, None)):
+        port = free_port(socket.SOCK_STREAM)
+        reset_counts()
+        box = {}
+        th = threading.Thread(target=lambda: box.update(err=run_cli(
+            argv + ["--seconds", str(seconds), "--port", str(port)])),
+            daemon=True)
+        th.start()
+        if act is not None:
+            wait_for_server(port, th)
+            act(port)
+        th.join(180)
+        if th.is_alive() or "err" not in box:
+            raise AssertionError(f"{label}: serve did not end cleanly")
+        launches = dict(kernels.LAUNCHES)
+        add(launches)
+        status = box["err"].strip().splitlines()[-1]
+        phase(f"{label}: {status}; launches {launches} ({gpu_label})")
+        need = {"seqloop_fm"} if label == "cli serve" else set()
+        check_routed(label, launches, cli_routes(cfgs, is_bank) | need)
+    with open(settings) as f:
+        saved = json.load(f)
+    run_cli(single + ["--seconds", "0.5", "--no-precompile", "--port",
+                      str(free_port(socket.SOCK_STREAM))])
+    with open(settings) as f:
+        again = json.load(f)
+    phase(f"cli serve --settings: saved mode {saved['demod_mode']}, volume "
+          f"{saved['volume']}, tune {saved['radio']['demod_frequency']}; a "
+          f"second serve loaded it and saved volume {again['volume']}")
+    if (saved["demod_mode"], saved["volume"], again["volume"]) != (
+            "fm", 42, 42):
+        raise AssertionError("cli serve: the settings did not round-trip")
+
+
+def check_cli_tools() -> None:
+    """``cli spectrum`` (the tone's peak bin), ``cli latency`` (its JSON is
+    ``latency_report``'s) and ``cli discover`` (its request sent to
+    127.0.0.1: rc 0, no devices found); none launches a kernel."""
+    from cutesdr_tpu_torch.io import discover
+
+    reset_counts()
+    lat_argv = ["latency", "--mode", "fm", "--target-latency-ms", "10"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli(["spectrum", "--source", f"tone:{CLI_TONE:.0f}", "--fs",
+                 str(CLI_FS), "--fft-size", "4096"])
+        run_cli(lat_argv + ["--with-queue"])
+    spec, lat = (json.loads(x) for x in buf.getvalue().strip().splitlines())
+    bin_hz = CLI_FS / 4096
+    want = {k: round(v * 1e3, 3) for k, v in latency_report(
+        cli_cfg(lat_argv), include_queue=True).items()}
+    phase(f"cli spectrum: peak {spec['peak_db']:.1f} dB at "
+          f"{spec['peak_freq_hz']:.0f} Hz (tone {CLI_TONE:.0f}, bin "
+          f"{bin_hz:.0f} Hz), floor {spec['noise_floor_db']:.1f} dB; cli "
+          f"latency: {lat}")
+    if abs(spec["peak_freq_hz"] - CLI_TONE) > bin_hz:
+        raise AssertionError("cli spectrum: the peak is not the tone")
+    if {k: lat[k] for k in want} != want:
+        raise AssertionError("cli latency: not latency_report's")
+
+    class Loopback(socket.socket):
+        def sendto(self, data, addr):     # never a broadcast from here
+            return super().sendto(data, ("127.0.0.1", addr[1]))
+
+    kept = discover.socket
+    discover.socket = types.SimpleNamespace(
+        **{k: getattr(socket, k) for k in dir(socket) if k.isupper()},
+        socket=Loopback, timeout=socket.timeout)
+    try:
+        err = run_cli(["discover", "--timeout", "0.2"])
+    finally:
+        discover.socket = kept
+    phase(f"cli discover (its request to 127.0.0.1): {err.strip()}")
+    if "no devices found" not in err:
+        raise AssertionError("cli discover: unexpected answer")
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"cli spectrum/latency/discover launched "
+                             f"{kernels.LAUNCHES}")
+
+
+def check_cli(gpu_label: str) -> dict:
+    """The command line on the card (``cli.main`` in this process): the
+    ``run`` paths (a fake NetSDR at 2 MSPS and the native UDP ingest at 20
+    MSPS, each at the 10 ms default and at --target-latency-ms 0; the
+    dual-RX generator, its gain against 0.8/40 degrees), ``record`` to
+    SigMF and to a legacy file played back by ``run``, ``serve``,
+    ``spectrum``, ``latency`` and ``discover``.  Every path starts from
+    zeroed counts and launches the kernels its configurations route to,
+    and no other.  Returns the launches summed over the paths."""
+    os.makedirs(CLI_DIR, exist_ok=True)
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    with helper("--fake-netsdr", 2.0) as (_, radio_port):
+        for label, argv, feed in cli_run_specs(2.0, radio_port):
+            launches, s = check_cli_run(label, argv, feed, gpu_label)
+            add(launches)
+            if label == "cli run dual":
+                err = abs(s["rx2_gain"] - DIVERSITY_GAIN)
+                phase(f"{label}: rx2 gain off 0.8/40 degrees by {err:.4f} "
+                      "(bar 0.05, as check_diversity's)")
+                if err > 0.05:
+                    raise AssertionError("cli run dual: gain estimate off")
+        for fmt in ("cf32", "int16"):
+            check_cli_file(fmt, radio_port, add)
+    check_cli_serve(gpu_label, add)
+    check_cli_tools()
+    return total
+
+
+def profile_cli(gpu_label: str) -> None:
+    """``--profile`` of the ``cli run`` paths (half a second of signal
+    each) under torch.profiler: a line per path, per block: busy ms,
+    launches, host reads (aten::_local_scalar_dense); and the run loop's
+    staged copies waited on (cudaEventSynchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(CLI_DIR, exist_ok=True)
+    with helper("--fake-netsdr", 0.5) as (_, radio_port):
+        for label, argv, feed in cli_run_specs(0.5, radio_port):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            argv, err, _, _ = drive_cli_run(label, argv, feed, prof)
+            s = run_summary(err)
+            blocks = s["samples"] // cli_cfg(argv).block_size
+            waits = {e.key: e.count for e in prof.key_averages()}.get(
+                "cudaEventSynchronize", 0)
+            phase(f"{label}: {s}; {waits / blocks:.2f} event waits a block")
+            profile_report(label, s["seconds"] * 1e3 / blocks, prof, blocks,
+                           gpu_label)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--fake-netsdr"]:
+        return fake_netsdr(float(sys.argv[2]))
+    if sys.argv[1:2] == ["--udp-feed"]:
+        return udp_feed(int(sys.argv[2]), float(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2411,9 +3074,12 @@ def main() -> int:
     gen_pll.manual_seed(SEED + 8)
     gen_serve = torch.Generator(device="cuda")       # the serving paths'
     gen_serve.manual_seed(SEED + 9)
+    gen_small = torch.Generator(device="cuda")       # K4 at small blocks
+    gen_small.manual_seed(SEED + 10)
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
         profile_serving(gen_serve, smi)
+        profile_cli(smi)
         return 0
     results: dict = {}
     check_mixdec(gen, results, 2e6, "")
@@ -2426,6 +3092,7 @@ def main() -> int:
     check_fastfir_batch(gen, results)
     check_scans(gen, results, gen_new)
     check_guess_verify(gen_new, results)
+    check_guess_verify_small(gen_small)
     check_agcseq(gen_new, results)
     check_resamp(gen, results, gen_new)
     check_seqloops(gen, results)
@@ -2443,6 +3110,10 @@ def main() -> int:
         launches[k] += v
     for k, v in check_serving(gen_serve, smi).items():
         launches[k] += v
+    t0 = time.perf_counter()
+    for k, v in check_cli(smi).items():
+        launches[k] += v
+    phase(f"command line: {time.perf_counter() - t0:.1f} s")
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise AssertionError(f"kernels never launched on a path: {never}")

@@ -5,11 +5,12 @@ as nested NamedTuples of numpy arrays (the caller maps ``np.asarray`` over
 them; this module never imports jax) and returns the port's, so a stream
 can continue on the port mid-way.  Both JAX decimator layouts are taken:
 
-* the Pallas mixdec carry (``raw_tail``, ``phase_base``): the last L-1-d
-  raw samples and the phase;
+* the Pallas mixdec carry (``raw_tail``, ``phase_base``): the raw tail,
+  the port's own layout and length, and the phase;
 * the fused XLA carry (``NcoCarry.phase_acc`` plus a ``FusedCarry.tail`` of
-  MIXED, DC-removed samples): the raw tail is rebuilt as
-  tail * conj(osc_backdated) + dc.
+  the last L-1-d MIXED, DC-removed samples): the raw tail is rebuilt as
+  tail * conj(osc_backdated) + dc, with zeros before it for the history
+  that carry does not hold.
 
 The Pallas four-step filter's pre-permuted ``h2`` is mapped back to
 natural-order H.  The AGC, S-meter, resampler and demodulator params and
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from cutesdr_tpu_torch.kernels import mixdec
-from cutesdr_tpu_torch.ops import decimator, fastfir, nco
+from cutesdr_tpu_torch.ops import fastfir, nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
 from cutesdr_tpu_torch.shard import channels, coherent
 from cutesdr_tpu_torch.types import CDTYPE, complex_tensor
@@ -79,16 +80,16 @@ def from_jax(cfg: rx.ReceiverConfig, params, state, device):
     dc = complex(np.asarray(params.dc_offset))
 
     # decimator: raw tail + phase, in either JAX layout
-    t_len = decimator.tail_length(cfg.plan)
+    t_len = mixdec.raw_tail_length(cfg.plan)
     if hasattr(state.dec, "raw_tail"):
         inc = int(params.dec.phase_inc)
         phase = int(state.dec.phase_base)
-        raw = np.asarray(state.dec.raw_tail)[-t_len:] if t_len else \
-            np.zeros(0, np.complex64)
+        raw = np.asarray(state.dec.raw_tail)
     elif hasattr(state.dec, "tail"):
         inc = int(params.nco.phase_inc)
         phase = int(state.nco.phase_acc)
         raw = _raw_tail_from_fused(state.dec.tail, phase, inc, dc)
+        raw = np.concatenate([np.zeros(t_len - len(raw), raw.dtype), raw])
     else:
         raise NotImplementedError(
             "the cascade decimator layout is not ported yet")

@@ -4,8 +4,8 @@
 // (_kernel_bs / _kernel_planes, shared body _compute), which the JAX
 // channel bank runs under vmap.
 //
-// y[c, n] = sum_j h[j] * m[c, D*n + j] over z_c = [raw tail_c (L-1-d) |
-// block_c], with m[c, i] = (z_c[i] - dc_c) * e^{j*phase_c(i)}, phase from
+// y[c, n] = sum_j h[j] * m[c, D*n + j] over z_c = [raw tail_c (L-1-d;
+// rows tail_cstride apart) | block_c], with m[c, i] = (z_c[i] - dc_c) * e^{j*phase_c(i)}, phase from
 // the exact uint32 DDS accumulator acc = base_c + (i - tail_len)*inc_c
 // (mod 2^32; the tail samples take back-dated phases through unsigned
 // wraparound) and h the composed taps, flipped to correlation order.
@@ -186,6 +186,7 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
               long long re_cstride, long long im_cstride,
               long long re_stride, long long im_stride,
               const float2* __restrict__ tail, int tail_len,
+              long long tail_cstride,
               const float* __restrict__ taps, int ntaps,
               const float2* __restrict__ dc,
               const long long* __restrict__ phase,
@@ -201,7 +202,7 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
     const int ch = blockIdx.y;
     re += ch * re_cstride;
     im += ch * im_cstride;
-    tail += (long long)ch * tail_len;
+    tail += ch * tail_cstride;
     const int o0 = blockIdx.x * tile_out;
     y += (long long)ch * n_out + o0;
     const int outs = min(tile_out, n_out - o0);
@@ -307,18 +308,18 @@ template <int P>
 int launch(bool il, dim3 grid, int threads, size_t smem, cudaStream_t st,
            const float* re, const float* im, long long re_cstride,
            long long im_cstride, long long re_stride, long long im_stride,
-           const float2* tail, int tail_len, const float* taps, int ntaps,
-           const float2* dc, const long long* phase, const long long* incs,
-           unsigned int inc0, float scale, int dec, int n_out, int tile_out,
-           int K, float2* y) {
+           const float2* tail, int tail_len, long long tail_cstride,
+           const float* taps, int ntaps, const float2* dc,
+           const long long* phase, const long long* incs, unsigned int inc0,
+           float scale, int dec, int n_out, int tile_out, int K, float2* y) {
     auto kern = il ? mixdec_kernel<P, true> : mixdec_kernel<P, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, threads, smem, st>>>(
         re, im, re_cstride, im_cstride, re_stride, im_stride, tail, tail_len,
-        taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out, tile_out, K,
-        y);
+        tail_cstride, taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out,
+        tile_out, K, y);
     return (int)cudaGetLastError();
 }
 
@@ -333,7 +334,8 @@ CUTESDR_API int cutesdr_mixdec(const float* re, const float* im,
                                long long re_cstride, long long im_cstride,
                                long long re_stride, long long im_stride,
                                const void* tail, int tail_len,
-                               const float* taps, int ntaps, const void* dc,
+                               long long tail_cstride, const float* taps,
+                               int ntaps, const void* dc,
                                const long long* phase, const long long* incs,
                                unsigned int inc0, float scale, int dec,
                                int n_out, int n_ch, int tile_out, int threads,
@@ -357,7 +359,7 @@ CUTESDR_API int cutesdr_mixdec(const float* re, const float* im,
     cudaStream_t st = (cudaStream_t)stream;
 #define CUTESDR_MIX_ARGS                                                    \
     il, grid, threads, smem, st, re, im, re_cstride, im_cstride, re_stride, \
-        im_stride, (const float2*)tail, tail_len, taps, ntaps,              \
+        im_stride, (const float2*)tail, tail_len, tail_cstride, taps, ntaps,\
         (const float2*)dc, phase, incs, inc0, scale, dec, n_out, tile_out,  \
         K, (float2*)y
     switch (P) {

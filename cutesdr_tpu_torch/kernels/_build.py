@@ -41,9 +41,9 @@ F32 = ctypes.c_float
 # C signatures: name -> argument types (every entry returns a cudaError_t)
 SIGNATURES = {
     # re, im, re_cstride, im_cstride, re_stride, im_stride, tail, tail_len,
-    # taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out, n_ch,
-    # tile_out, threads, y, stream
-    "cutesdr_mixdec": [P, P, I64, I64, I64, I64, P, I32, P, I32, P, P,
+    # tail_cstride, taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out,
+    # n_ch, tile_out, threads, y, stream
+    "cutesdr_mixdec": [P, P, I64, I64, I64, I64, P, I32, I64, P, I32, P, P,
                        P, U32, F32, I32, I32, I32, I32, I32, P, P],
     # tail, block, h, twiddles, y, nfft, ntaps, n_frames, n_ch,
     # frames_per_block, tail_cstride, block_cstride, h_cstride, y_cstride,

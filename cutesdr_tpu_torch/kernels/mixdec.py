@@ -2,10 +2,14 @@
 ``cutesdr_tpu/kernels/mixdec.py``, ``MixDecimate.process_planes``).
 
 The carry is one layout on both devices: the RAW input tail (taken before
-the DC cal) of L-1-d samples and the uint32 DDS phase at the block start,
-held as int64.  Tail samples take back-dated phases acc_0 - k*inc through
-unsigned wraparound, so the history is mixed with exactly the phases it
-would have had.  CUDA tensors run ``csrc/mixdec.cu``; CPU tensors the plain
+the DC cal) and the uint32 DDS phase at the block start, held as int64.
+The tail holds as much history as the JAX package's Pallas tail
+(``raw_tail_length``: L-1-d samples rounded up to whole 8-row groups of
+lanes), so a switch to a plan with a longer tail carries real samples;
+the kernel and the plain version read only its trailing L-1-d samples.
+Tail samples take back-dated phases acc_0 - k*inc through unsigned
+wraparound, so the history is mixed with exactly the phases it would have
+had.  CUDA tensors run ``csrc/mixdec.cu``; CPU tensors the plain
 version, which rebuilds the mixed history and calls
 ``ops.decimator.fused_process``.  ``launch_plan`` chooses each call's tile
 (outputs per CUDA block) and block size from the output count, D, the
@@ -40,7 +44,8 @@ class MixDecParams(NamedTuple):
 
 
 class MixDecCarry(NamedTuple):
-    raw_tail: torch.Tensor   # [L-1-d] complex64, raw (pre-DC-cal) input
+    raw_tail: torch.Tensor   # [raw_tail_length] complex64, raw (pre-DC-cal)
+                             # input
     phase: torch.Tensor      # int64 0-dim, DDS accumulator at block start
 
 
@@ -49,13 +54,44 @@ def _column(v):
     return v.unsqueeze(-1) if isinstance(v, torch.Tensor) else v
 
 
+LANE = 128              # the JAX kernel's lane width
+
+
+def raw_tail_length(plan: DecimationPlan) -> int:
+    """The raw history the carry holds: the JAX package's Pallas tail
+    (``cutesdr_tpu/kernels/mixdec.py``, ``MixDecimate.halo``), the L-1-d
+    samples the sum reads rounded up to whole lane rows, then to whole
+    groups of 8 rows.  Its lanes are 128, or D where D is a multiple of
+    128 whose composed taps are too long for a 128-column band."""
+    D = plan.decimation
+    need = decimator.tail_length(plan)
+    L = len(plan.composed_taps())
+    lane = LANE
+    if D > LANE and -(-(-(-need // LANE) * LANE - need + L) // LANE) > LANE:
+        lane = D
+    rows = -(-need // lane)
+    return -(-rows // 8) * 8 * lane
+
+
 def init(plan: DecimationPlan, tune_freq: float,
          device) -> tuple[MixDecParams, MixDecCarry]:
-    fp, fc = decimator.fused_init(plan, device)
+    fp, _ = decimator.fused_init(plan, device)
     np_, nc = nco.init(tune_freq, plan.in_rate, device)
+    tail = torch.zeros(raw_tail_length(plan), dtype=CDTYPE, device=device)
     return (MixDecParams(h_eq=fp.h_eq, phase_inc=np_.phase_inc,
                          taps=fp.h_eq.flip(-1).contiguous()),
-            MixDecCarry(raw_tail=fc.tail, phase=nc.phase_acc))
+            MixDecCarry(raw_tail=tail, phase=nc.phase_acc))
+
+
+def read_tail(plan: DecimationPlan, params: MixDecParams,
+              carry: MixDecCarry) -> torch.Tensor:
+    """The trailing L-1-d samples of the carried tail that the sum reads,
+    as a view."""
+    t = carry.raw_tail.shape[-1]
+    need = params.h_eq.shape[-1] - 1 - decimator.total_offset(plan)
+    if t < need:
+        raise ValueError(f"mixdec tail {t} shorter than the plan's {need}")
+    return carry.raw_tail[..., t - need:]
 
 
 # the kernel's work split (csrc/mixdec.cu)
@@ -151,10 +187,10 @@ def process_planes_plain(plan: DecimationPlan, params: MixDecParams,
                          ) -> tuple[MixDecCarry, torch.Tensor]:
     """The plain version: (z - dc) * e^{j phase} over z = [raw tail | x]
     with the tail's phases back-dated, then the composed decimator."""
-    t = carry.raw_tail.shape[-1]
-    x = torch.complex(re, im).expand(carry.raw_tail.shape[:-1]
-                                     + re.shape[-1:])
-    z = torch.cat([carry.raw_tail, x], -1) - _column(dc.to(CDTYPE))
+    tail = read_tail(plan, params, carry)
+    t = tail.shape[-1]
+    x = torch.complex(re, im).expand(tail.shape[:-1] + re.shape[-1:])
+    z = torch.cat([tail, x], -1) - _column(dc.to(CDTYPE))
     k = torch.arange(-t, re.shape[-1], dtype=torch.int64, device=re.device)
     mixed = z * nco.oscillator(nco.accumulator(
         _column(carry.phase), _column(params.phase_inc), k))
@@ -179,16 +215,15 @@ def process_planes(plan: DecimationPlan, params: MixDecParams,
     if n % D:
         raise ValueError(f"mixdec block {n} not a multiple of {D}")
     L = params.h_eq.shape[-1]
-    t = carry.raw_tail.shape[-1]
-    if t != L - 1 - decimator.total_offset(plan):
-        raise ValueError(f"mixdec tail {t} does not fit the plan (L={L})")
+    tail = read_tail(plan, params, carry)
+    t = tail.shape[-1]
     bank = carry.raw_tail.dim() == 2
     C = carry.raw_tail.shape[0] if bank else 1
     rows = C if bank else None
     for name, a in (("re", re), ("im", im)):
         _build.require(a, name, RDTYPE, n, contiguous=False,
                        rows=rows if a.dim() == 2 else None)
-    _build.require(carry.raw_tail, "raw_tail", CDTYPE, t, rows=rows)
+    _build.require(carry.raw_tail, "raw_tail", CDTYPE, rows=rows)
     _build.require(params.h_eq, "h_eq", RDTYPE, L)
     _build.require(carry.phase.reshape(-1), "phase", torch.int64, C)
     dc = dc.to(CDTYPE).reshape(-1)
@@ -207,7 +242,7 @@ def process_planes(plan: DecimationPlan, params: MixDecParams,
     lib = _build.library()
     _build.check(lib.cutesdr_mixdec(
         re.data_ptr(), im.data_ptr(), cstride(re), cstride(im),
-        re.stride(-1), im.stride(-1), carry.raw_tail.data_ptr(), t,
+        re.stride(-1), im.stride(-1), tail.data_ptr(), t, cstride(tail),
         params.taps.data_ptr(), L, dc.data_ptr(), carry.phase.data_ptr(), incs_ptr,
         inc0, nco.PHASE_SCALE, D, n // D, C, plan_.tile_out, plan_.threads,
         y.data_ptr(), _build.stream(re)), "mixdec")

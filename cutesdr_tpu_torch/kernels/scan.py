@@ -23,10 +23,10 @@ CUDA tensors launch the kernels at every size; CPU tensors take the
 plain versions, which are the JAX package's XLA forms (``ops/util``
 solves, the open-coded guess-verify round and loop of
 ``ops/agc._two_rate_parallel``), so every CPU parity test sees the numbers
-the plain solves give.  Of the JAX package's size gates, ``supported``
-still routes the guess-verify solve (the single stream's kernel only
-from 65,536, as JAX's); ``smeter_supported`` is JAX's S-meter gate,
-which the CUDA S-meter does not need.
+the plain solves give.  The JAX package's size gates (``MIN_KERNEL_N``,
+``smeter_supported``), set by TPU timing, are kept for the parity tests;
+the CUDA kernels do not need them (the single stream's guess-verify
+solve takes the kernel at every size).
 """
 
 from __future__ import annotations
@@ -42,14 +42,10 @@ from cutesdr_tpu_torch.ops.util import first_order_recurrence
 from cutesdr_tpu_torch.types import RDTYPE
 
 ROWS_PER_STEP = 256           # the JAX kernels' block rows (S-meter gate)
-MIN_KERNEL_N = 65536          # below this the plain solve is taken
+MIN_KERNEL_N = 65536          # the JAX kernels' size gate (TPU-timed)
 CHUNK = 2048                  # elements per CUDA block (THREADS * ITEMS in
                               # csrc/scan_common.cuh)
 EPOCHS = 2**32 - 1            # status-word epochs: 1 .. 2^32 - 1
-
-
-def supported(n: int) -> bool:
-    return n >= MIN_KERNEL_N
 
 
 def smeter_supported(n: int) -> bool:

@@ -127,11 +127,12 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
         a[n] = rise if pk[n] > x[n-1] else fall.
     Every fixed-pattern trajectory lower-bounds the true one, so the
     iteration rises monotonically to the exact solution.  With ``fast``
-    (the single stream) from 65,536 samples up the solve kernel (one
-    launch, no host read), else the plain loop.  Returns (trajectory,
-    every row converged: a 0-dim device bool, or True where the plain
-    loop has read it)."""
-    if fast and scan.supported(peak.shape[-1]):
+    (the single stream) the solve kernel at every size (one launch, no
+    host read; the JAX package's TPU gate of 65,536 samples does not
+    apply on the card), else the plain loop.  Returns (trajectory, every
+    row converged: a 0-dim device bool, or True where the plain loop has
+    read it)."""
+    if fast:
         solve = scan.guess_verify_solve
     else:
         solve = scan.guess_verify_solve_plain
@@ -239,8 +240,7 @@ def _process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
 
 def process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
             x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
-    """One stream: the guess-verify solve kernel where its size gate
-    allows."""
+    """One stream: the guess-verify solve kernel on the card."""
     return _process(cfg, params, carry, x, fast=True)
 
 

@@ -11,11 +11,11 @@ resample (banded: the resamp kernel) -> gain.
 Numeric knobs (tune frequency, filter H, AGC constants, resample ratio,
 volume, DC cal) are plain values in ``ReceiverParams``, swapped between
 blocks; the stream state is one ``ReceiverState`` handed across blocks.
-The path choices are the JAX package's: the rational resampler from
-131,072 demodulated samples up, the AGC's guess-verify solve kernel from
-65,536.  The S-meter kernel, the affine scan (the demods' one-poles, hang
-mode's rounds) and the AGC's sequential fallback (kernel N1) take every
-size, single stream and bank.  Tensors on the CPU run every
+The rational resampler runs from 131,072 demodulated samples up, as in
+the JAX package.  The AGC's guess-verify solve kernel (single stream),
+the S-meter kernel, the affine scan (the demods' one-poles, hang mode's
+rounds) and the AGC's sequential fallback (kernel N1) take every size,
+single stream and bank where they apply.  Tensors on the CPU run every
 kernel's plain version; CUDA tensors launch the kernels.  A mode, rate or
 filter-size change keeps the stream: ``migrate_state`` carries the state
 into the new configuration's (``Receiver.reconfigure``).  With

@@ -634,10 +634,13 @@ class ReceiverSession(_LiveSession):
         """Build and warm the receivers of a set of modes ahead, so that
         set_mode() is glitch-free on first use."""
         for mode in modes:
-            key = self._cfg_key(self._mode_cfg(mode))
-            if key in self._receivers:
-                continue
-            self._receivers[key] = self._warm(self._mode_cfg(mode))
+            self._prebuild(self._mode_cfg(mode))
+
+    def _prebuild(self, cfg: ReceiverConfig) -> None:
+        """Build and warm the receiver of ``cfg`` unless it is cached."""
+        key = self._cfg_key(cfg)
+        if key not in self._receivers:
+            self._receivers[key] = self._warm(cfg)
             self._touch(key)
 
     # ----------------------------------------------------- probe scope ----

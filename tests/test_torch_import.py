@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -13,8 +14,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the port, and chip_smoke, imported in a fresh
-    process: neither jax nor any module of the JAX package is loaded."""
+    """Every module of the port (the command line and its I/O modules
+    too), and chip_smoke, imported in a fresh process: neither jax, nor
+    any module of the JAX package, nor its bench is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cutesdr_tpu_torch\n"
@@ -25,11 +27,15 @@ def test_port_and_chip_smoke_import_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    cutesdr_tpu_torch.__path__, 'cutesdr_tpu_torch.')]\n"
         "for want in ('session', 'bank', 'serve', 'shard.coherent',\n"
-        "             'testbench.probes', 'design.latency'):\n"
+        "             'testbench.probes', 'design.latency', 'cli',\n"
+        "             'testbench.generators', 'io.ascp', 'io.ad6620',\n"
+        "             'io.netsdr', 'io.filesource', 'io.recorder',\n"
+        "             'io.native_ingest', 'io.discover', 'io.audio_device'):\n"
         "    assert 'cutesdr_tpu_torch.' + want in names, names\n"
-        "assert len(names) >= 46, names\n"
+        "assert len(names) >= 56, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'cutesdr_tpu' or m.startswith('cutesdr_tpu.')]\n"
+        "       or m == 'cutesdr_tpu' or m.startswith('cutesdr_tpu.')\n"
+        "       or m == 'bench']\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -198,10 +204,10 @@ def test_design_copies_match_reference():
 
 
 def test_numpy_copies_match_reference():
-    """serve.py (the page and every class) and testbench/probes.py's
-    TriggerMode and TriggeredCapture are the JAX package's numpy code,
-    line for line; the re-declared constants of the serving surface are
-    the JAX package's."""
+    """serve.py (the page and every class), testbench/probes.py's
+    TriggerMode and TriggeredCapture and the native ingest's class are
+    the JAX package's numpy code, line for line; the re-declared constants
+    of the serving surface are the JAX package's."""
     import inspect
 
     from cutesdr_tpu import bank as j_bank
@@ -227,3 +233,31 @@ def test_numpy_copies_match_reference():
     assert t_rs.MAX_SOUNDCARDVAL == j_rs.MAX_SOUNDCARDVAL
     assert (t_lat.MIN_NFFT, t_lat.MAX_NFFT) == (j_lat.MIN_NFFT,
                                                 j_lat.MAX_NFFT)
+    # the native ingest's class (its build is the port's own)
+    from cutesdr_tpu.io import native_ingest as j_ing
+    from cutesdr_tpu_torch.io import native_ingest as t_ing
+    assert (inspect.getsource(t_ing.NativeIngest)
+            == inspect.getsource(j_ing.NativeIngest))
+
+
+IO_COPIES = ("io/ascp", "io/ad6620", "io/netsdr", "io/filesource",
+             "io/recorder", "io/discover", "io/audio_device",
+             "testbench/generators")
+
+
+def _code(path: str) -> str:
+    """A module's source after its docstring, with the port's package
+    name read as the JAX package's."""
+    with open(os.path.join(ROOT, path)) as f:
+        src = f.read()
+    body = src[src.index('"""', 3) + 3:]
+    return body.replace("cutesdr_tpu_torch", "cutesdr_tpu")
+
+
+@pytest.mark.parametrize("name", IO_COPIES)
+def test_io_copies_match_reference(name):
+    """The command line's numpy I/O modules and the signal generator are
+    the JAX package's code line for line; only their imports name the
+    port."""
+    assert _code(f"cutesdr_tpu_torch/{name}.py") == _code(
+        f"cutesdr_tpu/{name}.py")

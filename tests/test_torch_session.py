@@ -70,12 +70,11 @@ def test_session_matches_jax(planes, mode):
     Pallas mixdec interpreted, whose carry is the raw input tail like the
     port's.
 
-    The queued int16 audio: through LSB (same rates, every carry kept)
-    within 1 LSB, where the float32 audio of the two packages rounds apart.
-    Through AM (a new decimation plan) >= 60 dB: on the
-    switch to AM's longer decimator tail the port pads the history it does
-    not hold with zeros where JAX's row-padded tail holds samples, and the
-    AGC carries that transient for its ~0.2 s decay."""
+    The queued int16 audio within 1 LSB, where the float32 audio of the
+    two packages rounds apart: through LSB (same rates, every carry kept)
+    and through AM (a new decimation plan with a longer decimator tail,
+    which both packages fill from the same raw history: the port's tail
+    holds as many samples as JAX's row-padded one)."""
     x = _signal(120_000)
     if planes:
         x = (np.round(x.real) + 1j * np.round(x.imag)).astype(np.complex64)
@@ -95,11 +94,7 @@ def test_session_matches_jax(planes, mode):
     assert pending < tsess.cfg.block_size
     a, b = _queued(jsess.audio_queue), _queued(tsess.audio_queue)
     assert len(a) == len(b) > 10_000
-    if mode == "lsb":
-        assert np.abs(a - b).max() <= 1
-    else:
-        assert 10 * np.log10(np.mean(a.astype(float) ** 2)
-                             / np.mean((a - b).astype(float) ** 2)) >= 60.0
+    assert np.abs(a - b).max() <= 1
     assert tsess.cfg.mode == "usb" and tsess.settings.demod_mode == "usb"
     tsess.stop()
 
