@@ -55,6 +55,17 @@ audio (``path_specs``):
   after ``select``, the probe frame's channel), and the session's probe
   scope walked through p7, p2, p6 and off, then a ``SpectrumServer`` on
   127.0.0.1 round-tripping /probe, /spectrum.json and /tune;
+* the multi-device layer (``check_shard``, inputs from a generator of its
+  own): the flagship over four time shards on one card (two superblocks
+  of 33,554,432 samples against the single receiver over the same eight
+  blocks, each shard's mixdec and fastfir call and the gathered
+  1,048,576-sample S-meter and AGC solves held against their plain
+  versions), the two-stage ``PipelinedReceiver`` with its front on a
+  second stream (bitwise the single receiver one block late), the
+  64-channel bank over a 4-entry channel axis (bitwise the unsharded
+  bank), and the four shards across a one-rank NCCL world (a helper
+  process of this script, ``--timeshard-rank``), each path's time, Msps
+  and real-time factor beside its reference's;
 * the command line (``check_cli``: ``cli.main`` in this process, as
   ``python -m cutesdr_tpu_torch.cli`` runs it): ``run`` from a fake
   NetSDR at 2 MSPS (a helper process of this script, ``--fake-netsdr``)
@@ -83,9 +94,11 @@ needs a CUDA device; it never imports jax.
     python3 chip_smoke.py --profile
 
 builds the kernels and profiles the same receiver paths, the session,
-the serving paths and the command line's ``run`` paths instead (step
+the serving paths, the time shards and the pipeline, and the command
+line's ``run`` paths instead (step
 time, device busy time, launches and host reads per step or block; see
-``profile_paths``, ``profile_serving`` and ``profile_cli``).
+``profile_paths``, ``profile_serving``, ``profile_shard`` and
+``profile_cli``).
 """
 
 from __future__ import annotations
@@ -658,9 +671,11 @@ def check_scans(gen, results, gen_new):
         check_smeter(mag, aa, ad, s0, s0 + 3.0, results, label)
 
 
-def check_smeter(mag, aa, ad, a0, d0, results, label):
-    """K5 on ``mag`` ([n] or [C, n]) against its plain version and the
-    float64 solve of the same float32 magnitudes and alphas."""
+def smeter_tol(mag, aa, ad, a0, d0, label) -> tuple:
+    """K5 and its plain version on ``mag`` ([n] or [C, n]), each held to
+    the float64 solve of the same float32 magnitudes and alphas: (kernel
+    call, plain call, kernel outputs, plain outputs, tolerance of kernel
+    against plain)."""
     run_k = lambda: scan.smeter_last(mag, aa, ad, a0, d0)
     run_p = lambda: scan.smeter_last_plain(mag, aa, ad, a0, d0)
     ca = float(torch.as_tensor(1.0 - aa, dtype=torch.float32))
@@ -671,9 +686,15 @@ def check_smeter(mag, aa, ad, a0, d0, results, label):
     tol = max(float64_bar(f"smeter{label} {k}", g, p, e[..., -1])[2]
               for k, g, p, e in (("attack", ak, ap, a64),
                                  ("decay", dk, dp, d64)))
+    return run_k, run_p, [ak, dk], [ap, dp], tol
+
+
+def check_smeter(mag, aa, ad, a0, d0, results, label):
+    """K5 on ``mag`` against its plain version and the float64 solve."""
+    run_k, run_p, got, want, tol = smeter_tol(mag, aa, ad, a0, d0, label)
     # bytes: the magnitudes in; operations: two averager updates and the
     # snap a sample
-    compare("smeter", [ak, dk], [ap, dp], tol, results, run_k, run_p, label,
+    compare("smeter", got, want, tol, results, run_k, run_p, label,
             work=(4 * mag.numel(), 5 * mag.numel()))
 
 
@@ -784,6 +805,31 @@ def exact_solve(args, x: torch.Tensor) -> torch.Tensor:
     return first_order_recurrence(A.double(), B.double(), x0.double())
 
 
+def solve_errors(label: str, args) -> tuple:
+    """The guess-verify solve kernel and its plain version on ``args``:
+    the same ok, rounds within one, and the kernel no farther from the
+    float64 solve of its pattern than the plain version is from its own,
+    or 1e-5.  Returns (kernel x, plain x, kernel rounds, plain rounds,
+    the plain version's distance from its float64 solve)."""
+    (xk, okk, rk), (xp, okp, rp) = (scan.guess_verify_solve(*args),
+                                    scan.guess_verify_solve_plain(*args))
+    okk, rk, okp = bool(okk), int(rk), bool(okp)
+    phase(f"  scan_solve{label}: ok {okk} (plain {okp}), rounds {rk} "
+          f"(plain {rp})")
+    if okk != okp or abs(rk - rp) > 1:
+        raise AssertionError(f"scan_solve{label}: ok {okk} / {okp}, "
+                             f"rounds {rk} / {rp}")
+    err_k = float((xk.double() - exact_solve(args, xk)).abs().max())
+    err_p = float((xp.double() - exact_solve(args, xp)).abs().max())
+    phase(f"  scan_solve{label}: from the float64 solve of its pattern "
+          f"kernel {err_k:.3e}, plain {err_p:.3e}")
+    if err_k > max(err_p, 1e-5):
+        raise AssertionError(f"scan_solve{label}: the kernel is "
+                             f"{err_k:.3e} from the exact solve, the "
+                             f"plain version {err_p:.3e}")
+    return xk, xp, rk, rp, err_p
+
+
 def check_guess_verify(gen, results):
     """The guess-verify solve (one launch: warm start and every round)
     against its plain version (the per-round loop): the flagship's two
@@ -809,23 +855,9 @@ def check_guess_verify(gen, results):
     for label, args in cases:
         run_k = lambda: scan.guess_verify_solve(*args)
         run_p = lambda: scan.guess_verify_solve_plain(*args)
-        (xk, okk, rk), (xp, okp, rp) = run_k(), run_p()
-        okk, rk, okp = bool(okk), int(rk), bool(okp)
-        phase(f"  scan_solve{label}: ok {okk} (plain {okp}), rounds {rk} "
-              f"(plain {rp})")
-        if okk != okp or abs(rk - rp) > 1:
-            raise AssertionError(f"scan_solve{label}: ok {okk} / {okp}, "
-                                 f"rounds {rk} / {rp}")
+        xk, xp, rk, rp, err_p = solve_errors(label, args)
         if label == " envelope" and rp < 3:
             raise AssertionError(f"the envelope took {rp} rounds, not >= 3")
-        err_k = float((xk.double() - exact_solve(args, xk)).abs().max())
-        err_p = float((xp.double() - exact_solve(args, xp)).abs().max())
-        phase(f"  scan_solve{label}: from the float64 solve of its pattern "
-              f"kernel {err_k:.3e}, plain {err_p:.3e}")
-        if err_k > max(err_p, 1e-5):
-            raise AssertionError(f"scan_solve{label}: the kernel is "
-                                 f"{err_k:.3e} from the exact solve, the "
-                                 f"plain version {err_p:.3e}")
         n = args[0].numel()
         # bytes: the peaks in, x out; operations: per round run the two
         # branch updates and their comparison a sample, and the warm start
@@ -1389,20 +1421,26 @@ def fallback_check(launches, tiers, n_blocks):
                              f"{n_blocks} blocks")
 
 
+def tone_peak(audio: np.ndarray, rate: float) -> tuple[float, float]:
+    """The frequency of the audio spectrum's peak bin (Hann window) and
+    its peak/floor in dB (floor: the median outside +-20 bins)."""
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
+    f = np.fft.rfftfreq(len(audio), 1 / rate)
+    k = int(np.argmax(spec))
+    floor = np.median(np.delete(spec, np.s_[max(0, k - 20):k + 21]))
+    return float(f[k]), float(10 * np.log10(spec[k] / floor))
+
+
 def tone_ratio(audio: np.ndarray, rate: float, tone_hz: float,
                label: str, tol_hz: float = 2.0) -> float:
     """Peak/floor of the audio spectrum; raises unless the peak is the
     modulating tone (within ``tol_hz``) at > 60 dB."""
     if not np.all(np.isfinite(audio)):
         raise AssertionError(f"{label}: non-finite audio")
-    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
-    f = np.fft.rfftfreq(len(audio), 1 / rate)
-    k = int(np.argmax(spec))
-    floor = np.median(np.delete(spec, np.s_[max(0, k - 20):k + 21]))
-    ratio = 10 * np.log10(spec[k] / floor)
-    phase(f"{label} audio: {len(audio)} samples, peak at {f[k]:.2f} Hz, "
+    peak_hz, ratio = tone_peak(audio, rate)
+    phase(f"{label} audio: {len(audio)} samples, peak at {peak_hz:.2f} Hz, "
           f"peak/floor {ratio:.1f} dB")
-    if abs(f[k] - tone_hz) > tol_hz or ratio < 60.0:
+    if abs(peak_hz - tone_hz) > tol_hz or ratio < 60.0:
         raise AssertionError(f"{label}: the {tone_hz:g} Hz tone was not "
                              "recovered")
     return ratio
@@ -2447,6 +2485,362 @@ def profile_serving(gen, gpu_label: str) -> None:
     bsess.stop()
 
 
+# ------------------------------------------------------ the multi-device layer
+# ``check_shard`` drives the port's shard modules at the flagship's width:
+# four time shards on one card (``make_mesh(time=4, devices=[cuda:0] * 4)``),
+# the two-stage pipeline on two streams of one card, config 4's bank over a
+# 4-device channel axis, and the time shards across a one-rank NCCL world
+# (a helper process of this script, ``--timeshard-rank``: NCCL refuses two
+# ranks on one GPU).  Inputs come from a generator of their own (SEED + 11).
+
+SHARDS = 4
+SHARD_AUDIO_TOL = 5e-4    # x peak: the bar of JAX tests/test_shard.py
+SHARD_SMETER_TOL = 0.1    # dB
+PIPE_TOL = 1e-5           # x peak: JAX tests/test_pipeline_pp.py
+
+
+def hold_audio(label: str, out, refs, tol: float = SHARD_AUDIO_TOL
+               ) -> tuple[float, float]:
+    """``out``'s valid audio against the concatenated valid audio of the
+    outputs ``refs`` (within ``tol`` x their peak) and its S-meter against
+    the last one's (0.1 dB); returns (max abs error / peak, S-meter
+    difference in dB)."""
+    want = torch.cat([r.audio[:int(r.n_audio)] for r in refs]).double()
+    got = out.audio[:int(out.n_audio)].double()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: audio {tuple(got.shape)}, want "
+                             f"{tuple(want.shape)} finite")
+    err = float((got - want).abs().max() / want.abs().max())
+    sm = abs(float(out.smeter_ave_db) - float(refs[-1].smeter_ave_db))
+    if err > tol or sm > SHARD_SMETER_TOL:
+        raise AssertionError(f"{label}: audio {err:.3e} x peak (tol "
+                             f"{tol:g}), S-meter {sm:.4f} dB")
+    return err, sm
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """The calls of ``module.name`` made inside the block: their
+    arguments, in order (the call goes through)."""
+    seen, real = [], getattr(module, name)
+    setattr(module, name, lambda *a: seen.append(a) or real(*a))
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def superblocks(cfg, gen, n: int) -> list[torch.Tensor]:
+    """``n`` superblocks of SHARDS flagship blocks each (a tone 1 kHz above
+    the tune over -90 dBFS noise, phase-continuous)."""
+    blocks = stimulus(cfg, n * SHARDS, gen,
+                      carriers=(dict(offset_hz=1000.0),))
+    return [torch.cat(blocks[i * SHARDS:(i + 1) * SHARDS]) for i in range(n)]
+
+
+def rate_line(label: str, ms: float, n_in: int, fs: float, ref_ms: float,
+              gpu_label: str, ref: str = "the single receiver") -> None:
+    """One line of a path's time, Msps and real-time factor beside those of
+    ``ref`` over the same samples."""
+    msps = n_in / (ms * 1e-3) / 1e6
+    rt = n_in / fs * 1e3 / ms
+    phase(f"{label}: {ms:.3f} ms, {msps:.1f} Msps, {rt:.2f}x real time; "
+          f"{ref} over the same samples {ref_ms:.3f} ms, "
+          f"{n_in / (ref_ms * 1e-3) / 1e6:.1f} Msps, "
+          f"{n_in / fs * 1e3 / ref_ms:.2f}x ({gpu_label})")
+
+
+def wall_ms(fn, inputs) -> float:
+    """Host milliseconds a call of ``fn(x)`` over ``inputs``, ending in a
+    synchronize (work on more than one stream)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(inputs)
+
+
+def hold_shard_kernels(calls: dict) -> None:
+    """Each kernel call recorded on the time-shard path, held against its
+    plain version on the same inputs: K1 on a shard with its left
+    neighbour's raw halo and its own phase base, K2's stateless form on
+    [neighbour's decimated tail | shard], K5 and K4 on the gathered
+    1,048,576-sample block."""
+    for i, (plan, params, carry, re, im, dc) in enumerate(calls["mixdec"]):
+        (_, yk), (_, yp) = (mixdec.process_planes(plan, params, carry, re, im,
+                                                  dc),
+                            mixdec.process_planes_plain(plan, params, carry,
+                                                        re, im, dc))
+        err = max_err(f"mixdec timeshard shard {i}", [yk.real, yk.imag],
+                      [yp.real, yp.imag], 5e-5 * float(yp.abs().max()))
+        phase(f"kernel mixdec timeshard shard {i} (phase base "
+              f"{int(carry.phase)}): max_abs_err {err:.3e}")
+    for i, (h, z, ntaps) in enumerate(calls["filter_frames"]):
+        yk, yp = (fastfir.filter_frames(h, z, ntaps),
+                  fastfir.filter_frames_plain(h, z, ntaps))
+        err = max_err(f"fastfir timeshard shard {i}", [yk.real, yk.imag],
+                      [yp.real, yp.imag], 5e-5 * float(yp.abs().max()))
+        phase(f"kernel fastfir timeshard shard {i} ({z.shape[-1]} samples "
+              f"with the halo): max_abs_err {err:.3e}")
+    for mag, aa, ad, a0, d0 in calls["smeter_last"]:
+        label = f" timeshard {mag.shape[-1]:,}"
+        _, _, got, want, tol = smeter_tol(mag, aa, ad, a0, d0, label)
+        err = max_err("smeter" + label, got, want, tol)
+        phase(f"kernel smeter{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    for j, args in enumerate(calls["guess_verify_solve"]):
+        label = (f" timeshard {args[0].numel():,} "
+                 f"{'attack' if j % 2 == 0 else 'decay'}")
+        xk, xp, _, _, err_p = solve_errors(label, args)
+        err = max_err("scan_solve" + label, [xk], [xp], 1e-5 + err_p)
+        phase(f"kernel scan_solve{label}: max_abs_err {err:.3e}")
+
+
+def check_timeshard(gen, gpu_label: str) -> dict:
+    """``timeshard usb 4x``: the flagship over four time shards on one
+    card, two superblocks of 33,554,432 samples, against the single
+    receiver over the same eight blocks; then the recorded kernel calls
+    against their plain versions; then both timed over two more
+    superblocks."""
+    from cutesdr_tpu_torch.shard import ShardedReceiver, make_mesh
+    from cutesdr_tpu_torch.shard import timeshard
+    label = "timeshard usb 4x"
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    sbs = superblocks(cfg, gen, 4)
+    n = cfg.block_size
+    srx = ShardedReceiver(cfg, make_mesh(time=SHARDS,
+                                         devices=["cuda:0"] * SHARDS))
+    single = rx.Receiver(cfg)
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(recording(mod, name))
+                 for mod, name in ((timeshard.mixdec, "process_planes"),
+                                   (timeshard.fastfir_k, "filter_frames"),
+                                   (scan, "smeter_last"),
+                                   (scan, "guess_verify_solve"))}
+        outs = [srx.process(sb) for sb in sbs[:2]]
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    fallbacks = agc.STATS["scan_fallbacks"]
+    phase(f"{label} launches {launches}, agc scan fallbacks {fallbacks} "
+          "over 2 superblocks")
+    check_routed(label, launches, routed_kernels(cfg, False, srx.params))
+    for sb, out in zip(sbs[:2], outs):
+        refs = [single.process(sb[b * n:(b + 1) * n]) for b in range(SHARDS)]
+        err, sm = hold_audio(label, out, refs)
+        phase(f"{label} superblock: audio {err:.3e} x peak, S-meter "
+              f"{sm:.4f} dB from the single receiver's")
+    tone_ratio(channel_audio(outs[1])[0], cfg.audio_rate, 1000.0, label)
+    hold_shard_kernels({"mixdec": calls["process_planes"][SHARDS:],
+                        "filter_frames": calls["filter_frames"][SHARDS:],
+                        "smeter_last": calls["smeter_last"][-1:],
+                        "guess_verify_solve": calls["guess_verify_solve"][-2:]})
+    del calls
+    ms = wall_ms(srx.process, sbs[2:])
+    ref_ms = wall_ms(single.process, [sb[b * n:(b + 1) * n] for sb in sbs[2:]
+                                      for b in range(SHARDS)]) * SHARDS
+    rate_line(f"{label} per superblock", ms, SHARDS * n, cfg.input_rate,
+              ref_ms, gpu_label)
+    return launches
+
+
+def check_pipelined(gen, gpu_label: str) -> dict:
+    """``pipelined usb``: the flagship through ``PipelinedReceiver`` with
+    both stages on cuda:0 (the front on a stream of its own), four blocks
+    and a flush against the single receiver one block late: bitwise, or
+    else within 1e-5 x peak, said so."""
+    from cutesdr_tpu_torch.shard import PipelinedReceiver
+    label = "pipelined usb"
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    blocks = stimulus(cfg, 12, gen, carriers=(dict(offset_hz=1000.0),))
+    pp = PipelinedReceiver(cfg, "cuda:0", "cuda:0")
+    single = rx.Receiver(cfg)
+    reset_counts()
+    outs = [pp.process(b) for b in blocks[:4]] + [pp.flush()]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase(f"{label} launches {launches} over 4 blocks")
+    check_routed(label, launches, routed_kernels(cfg, False, pp.params))
+    if outs[0] is not None or any(o is None for o in outs[1:]):
+        raise AssertionError(f"{label}: the outputs are not one block late")
+    refs = [single.process(b) for b in blocks[:4]]
+    bitwise = all(torch.equal(getattr(o, f), getattr(r, f))
+                  for o, r in zip(outs[1:], refs)
+                  for f in ("audio", "n_audio", "smeter_ave_db",
+                            "smeter_peak_db"))
+    errs = [hold_audio(label, o, [r], PIPE_TOL)[0]
+            for o, r in zip(outs[1:], refs)]
+    phase(f"{label}: {'bitwise equal to' if bitwise else 'not bitwise'} the "
+          f"single receiver one block late (max {max(errs):.3e} x peak)")
+    tone_ratio(np.concatenate([channel_audio(o)[0] for o in outs[2:]]),
+               cfg.audio_rate, 1000.0, label)
+    ms = wall_ms(pp.process, blocks[4:])
+    pp.flush()
+    ref_ms = wall_ms(single.process, blocks[4:])
+    rate_line(f"{label} per block", ms, cfg.block_size, cfg.input_rate,
+              ref_ms, gpu_label)
+    return launches
+
+
+def check_bank_mesh(gen, gpu_label: str) -> dict:
+    """``bank usb 64ch mesh4``: BASELINE config 4 (64 USB channels of one
+    10 MSPS stream, one frame) over ``make_mesh(channels=4)`` on cuda:0,
+    against the unsharded bank over the same blocks: bitwise, or else at
+    the bank tests' 90 dB a channel, said so."""
+    label = "bank usb 64ch mesh4"
+    from cutesdr_tpu_torch.shard import make_mesh
+    grid = [-4.5e6 + 140e3 * i for i in range(64)]
+    cfg = rx.ReceiverConfig(input_rate=10e6, mode="usb")
+    blocks = stimulus(cfg, 16, gen, noise_db=-60.0,
+                      carriers=(dict(freq_hz=grid[0] + 1000.0),
+                                dict(freq_hz=grid[37] + 1000.0)))
+    sharded = channels.ChannelBank(
+        cfg, grid, mesh=make_mesh(channels=SHARDS,
+                                  devices=["cuda:0"] * SHARDS))
+    whole = channels.ChannelBank(cfg, grid)
+    reset_counts()
+    outs = [sharded.process(b) for b in blocks[:12]]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    phase(f"{label} launches {launches}, agc scan fallbacks "
+          f"{agc.STATS['scan_fallbacks']} over 12 blocks")
+    check_routed(label, launches,
+                 routed_kernels(cfg, True, sharded.parts[0].params))
+    refs = [whole.process(b) for b in blocks[:12]]
+    bitwise = all(torch.equal(getattr(o, f), getattr(r, f))
+                  for o, r in zip(outs, refs)
+                  for f in ("audio", "n_audio", "smeter_ave_db",
+                            "smeter_peak_db"))
+    if not bitwise:
+        for c in range(64):
+            want = np.concatenate([channel_audio(r)[c] for r in refs])
+            got = np.concatenate([channel_audio(o)[c] for o in outs])
+            if snr_db(want, got) < 90.0:
+                raise AssertionError(f"{label}: channel {c} at "
+                                     f"{snr_db(want, got):.1f} dB")
+    phase(f"{label}: {'bitwise equal to' if bitwise else 'within 90 dB of'}"
+          " the unsharded bank")
+    # Four blocks (2,516 samples at 48 kHz) give 19.08 Hz bins, the one
+    # nearest 1 kHz at 992.05 Hz, outside tone_ratio's 2 Hz: the tone is
+    # checked over ten blocks (7.63 Hz bins), and the four-block reading
+    # is printed for both banks.
+    for ch in (0, 37):
+        for name, res in (("sharded", outs), ("unsharded", refs)):
+            f, r = tone_peak(np.concatenate(
+                [channel_audio(o)[ch] for o in res[2:6]]), cfg.audio_rate)
+            phase(f"{label} channel {ch}, {name}, blocks 2-5: peak at "
+                  f"{f:.2f} Hz, peak/floor {r:.1f} dB")
+        tone_ratio(np.concatenate([channel_audio(o)[ch] for o in outs[2:]]),
+                   cfg.audio_rate, 1000.0, f"{label} channel {ch}")
+    ms = wall_ms(sharded.process, blocks[12:])
+    ref_ms = wall_ms(whole.process, blocks[12:])
+    rate_line(f"{label} per block", ms, cfg.block_size, cfg.input_rate,
+              ref_ms, gpu_label, "the unsharded bank")
+    return launches
+
+
+def timeshard_rank(port: int) -> int:
+    """``--timeshard-rank PORT``: the time shards across a one-rank NCCL
+    world (``shard.multihost``: ``initialize``, ``global_time_mesh``,
+    ``HostShardedStream``), two superblocks of the flagship against the
+    local ``ShardedReceiver``; prints one JSON line of its launches and
+    errors last."""
+    from cutesdr_tpu_torch.shard import ShardedReceiver, make_mesh, multihost
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        cfg = rx.ReceiverConfig(mode="usb", **FULL)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 12)
+        sbs = superblocks(cfg, gen, 3)
+        srx = ShardedReceiver(cfg, multihost.global_time_mesh(
+            ["cuda:0"] * SHARDS))
+        local = ShardedReceiver(cfg, make_mesh(time=SHARDS,
+                                               devices=["cuda:0"] * SHARDS))
+        hs = srx.host_stream()
+        reset_counts()
+        outs = [srx.process(hs.assemble(sb)) for sb in sbs[:2]]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        errs = [hold_audio("timeshard multihost 1rank", o,
+                           [local.process(sb)])
+                for o, sb in zip(outs, sbs[:2])]
+        ms = wall_ms(lambda sb: srx.process(hs.assemble(sb)), sbs[2:])
+        ref_ms = wall_ms(local.process, sbs[2:])
+        print(json.dumps({"launches": launches, "errors": errs, "ms": ms,
+                          "local_ms": ref_ms}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_timeshard_multihost(gpu_label: str) -> dict:
+    """``timeshard multihost 1rank``: ``timeshard_rank`` in a process of
+    its own (NCCL over 127.0.0.1)."""
+    label = "timeshard multihost 1rank"
+    port = free_port(socket.SOCK_STREAM)
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--timeshard-rank", str(port)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} failed:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = res["launches"]
+    phase(f"{label} launches {launches}; audio and S-meter from the local "
+          f"ShardedReceiver's {res['errors']}")
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    check_routed(label, launches, {"mixdec", "fastfir", "smeter",
+                                   "scan_solve"})
+    rate_line(f"{label} per superblock", res["ms"], SHARDS * cfg.block_size,
+              cfg.input_rate, res["local_ms"], gpu_label,
+              "the local ShardedReceiver")
+    return launches
+
+
+def check_shard(gen, gpu_label: str) -> dict:
+    """Every path of the multi-device layer; returns their launches
+    summed."""
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    for fn in (check_timeshard, check_pipelined, check_bank_mesh):
+        for k, v in fn(gen, gpu_label).items():
+            total[k] += v
+    for k, v in check_timeshard_multihost(gpu_label).items():
+        total[k] += v
+    phase(f"multi-device layer: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def profile_shard(gen, gpu_label: str) -> None:
+    """``--profile`` of ``timeshard usb 4x`` (per superblock) and
+    ``pipelined usb`` (per block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cutesdr_tpu_torch.shard import (PipelinedReceiver, ShardedReceiver,
+                                         make_mesh)
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    srx = ShardedReceiver(cfg, make_mesh(time=SHARDS,
+                                         devices=["cuda:0"] * SHARDS))
+    pp = PipelinedReceiver(cfg, "cuda:0", "cuda:0")
+    sbs = superblocks(cfg, gen, 5)
+    n = cfg.block_size
+    for label, step, inputs in (
+            ("timeshard usb 4x (per superblock)", srx.process, sbs),
+            ("pipelined usb", pp.process,
+             [sb[b * n:(b + 1) * n] for sb in sbs for b in range(SHARDS)])):
+        warm, steps = len(inputs) // 5, 2 * len(inputs) // 5
+        for x in inputs[:warm]:
+            step(x)
+        ms = wall_ms(step, inputs[warm:warm + steps])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in inputs[warm + steps:warm + 2 * steps]:
+                step(x)
+            torch.cuda.synchronize()
+        profile_report(label, ms, prof, steps, gpu_label)
+
+
 # --------------------------------------------------------- the command line
 # ``check_cli`` drives the port's ``cli.main`` in this process, as a user's
 # ``python -m cutesdr_tpu_torch.cli`` would, with its radio inputs made by
@@ -3051,6 +3445,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--timeshard-rank"]:
+        return timeshard_rank(int(sys.argv[2]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -3076,9 +3472,12 @@ def main() -> int:
     gen_serve.manual_seed(SEED + 9)
     gen_small = torch.Generator(device="cuda")       # K4 at small blocks
     gen_small.manual_seed(SEED + 10)
+    gen_shard = torch.Generator(device="cuda")       # the shard paths'
+    gen_shard.manual_seed(SEED + 11)
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
         profile_serving(gen_serve, smi)
+        profile_shard(gen_shard, smi)
         profile_cli(smi)
         return 0
     results: dict = {}
@@ -3109,6 +3508,8 @@ def main() -> int:
     for k, v in check_session(smi, 29, SESSION_WALK[:2]).items():
         launches[k] += v
     for k, v in check_serving(gen_serve, smi).items():
+        launches[k] += v
+    for k, v in check_shard(gen_shard, smi).items():
         launches[k] += v
     t0 = time.perf_counter()
     for k, v in check_cli(smi).items():

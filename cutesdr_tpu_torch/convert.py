@@ -23,7 +23,9 @@ leading channel axis): channel by channel through ``from_jax``, then
 stacked as ``shard.channels`` stacks a bank.
 
 ``from_jax_combiner`` carries a JAX diversity combiner's params and carry
-(``shard/coherent``: two-branch or M-branch) into the port's.
+(``shard/coherent``: two-branch or M-branch) into the port's, and
+``from_jax_timeshard`` a JAX time-sharded receiver's ``TimeShardCarry``
+(its Pallas-mixdec layout: raw tails) into ``shard.timeshard``'s.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from cutesdr_tpu_torch.kernels import mixdec
 from cutesdr_tpu_torch.ops import fastfir, nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
-from cutesdr_tpu_torch.shard import channels, coherent
+from cutesdr_tpu_torch.shard import channels, coherent, timeshard
 from cutesdr_tpu_torch.types import CDTYPE, complex_tensor
 
 
@@ -152,3 +154,18 @@ def from_jax_combiner(params, carry, device):
             gains=complex_tensor(carry.gains, dev))
     return out_p, coherent.CombinerCarry(gain=complex_tensor(carry.gain,
                                                              dev))
+
+
+def from_jax_timeshard(carry, device) -> timeshard.TimeShardCarry:
+    """The port's ``TimeShardCarry`` from a JAX one of numpy arrays (the
+    raw-tail layout of JAX's Pallas mixdec branch): the uint32
+    ``nco_base`` as int64, the tails as complex64, a zero-length blanker
+    tail as None."""
+    dev = torch.device(device)
+    nb = np.asarray(carry.nb_tail)
+    return timeshard.TimeShardCarry(
+        nco_base=torch.tensor(int(carry.nco_base), dtype=torch.int64,
+                              device=dev),
+        in_tail=complex_tensor(carry.in_tail, dev),
+        dec_tail=complex_tensor(carry.dec_tail, dev),
+        nb_tail=complex_tensor(nb, dev) if nb.size else None)

@@ -15,7 +15,9 @@ self-compare of its change detection (dsp/noiseproc.cpp:82) is not
 replicated.
 
 ``process_planes`` takes the float32 re/im planes the receiver's front end
-works on; ``process`` a complex block.  The carry is the JAX package's:
+works on; ``process`` a complex block; ``process_with_history`` the
+stateless form over [history | block] that the time-sharded receiver
+runs.  The carry is the JAX package's:
 magnitude and trigger histories and the complex delay-line tail.  A
 leading axis is a bank of streams.
 """
@@ -80,6 +82,31 @@ def history_len(cfg: BlankerConfig) -> int:
     dilation position needs a further mag-window of history."""
     return max(cfg.delay_samples + 1,
                (cfg.width_samples - 1) + (cfg.mag_samples + 1))
+
+
+def process_with_history(cfg: BlankerConfig, z: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """Stateless form over the complex64 z = [history | block]: the last
+    ``n`` outputs, exact where the history holds ``history_len`` samples.
+    The time-sharded receiver gives it a neighbour shard's tail as the
+    history in place of the carried tails."""
+    if not cfg.on:
+        return z[..., z.shape[-1] - n:]
+    total = z.shape[-1]
+    mag = torch.maximum(z.real.abs(), z.imag.abs())
+    # the moving sum at every position the dilation can see
+    need = n + cfg.width_samples - 1
+    wm = cfg.mag_samples + 1
+    c = torch.cumsum(mag[..., total - (need + wm - 1):], -1)
+    c = torch.cat([c.new_zeros(c.shape[:-1] + (1,)), c], -1)
+    sums = c[..., wm:] - c[..., :-wm]
+    trig = (mag[..., total - need:] * cfg.ratio > sums).to(RDTYPE)
+    blank, _ = sliding_window_max(trig[..., cfg.width_samples - 1:],
+                                  cfg.width_samples,
+                                  trig[..., :cfg.width_samples - 1])
+    delayed = z[..., total - n - (cfg.delay_samples + 1):
+                total - (cfg.delay_samples + 1)]
+    return torch.where(blank > 0.5, delayed.new_zeros(()), delayed)
 
 
 def _gate(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,

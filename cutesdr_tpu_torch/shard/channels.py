@@ -7,8 +7,10 @@ of one configuration, run as one batched step.
   (the two receivers of a dual-ADC radio, antenna-array elements).
 
 Both hold their params and state on one explicit device and run
-``pipeline.receiver.bank_receiver_step``; spreading a bank over several
-cards is not ported (ROADMAP Queue 1, item 7).
+``pipeline.receiver.bank_receiver_step``.  With a mesh (``shard.mesh``)
+the C channels split evenly into one sub-bank per device along its "ch"
+axis: the shared block is copied to each device (a StackedReceiver's
+rows go to theirs), and the outputs are concatenated on the first.
 
 A bank's params and state are the single receiver's NamedTuples with a
 leading channel axis on every state tensor and on the per-channel params
@@ -79,28 +81,66 @@ def bank_init(cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
     return params, stack_state([s0] * len(tune_freqs))
 
 
+def _cat_outputs(outs: list, device) -> rx.StepOutput:
+    """The sub-banks' outputs as one bank's, on ``device``."""
+    cat = lambda ts: torch.cat([t.to(device) for t in ts])
+    probes = None
+    if outs[0].probes is not None:
+        probes = {k: cat([o.probes[k] for o in outs]) for k in outs[0].probes}
+    return rx.StepOutput(*(cat(f) for f in zip(*(o[:-1] for o in outs))),
+                         probes=probes)
+
+
 class _Bank:
     """The bank entry points over ``bank_receiver_step``, on the card
     unless ``device`` says otherwise; host numpy input is moved to the
-    bank's device."""
+    bank's device.  With a ``mesh`` the channels split into one sub-bank
+    (``parts``) per device along its ``axis``."""
 
     shared_input: bool
 
     def __init__(self, cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
-                 device="cuda"):
+                 device="cuda", mesh=None, axis: str = "ch"):
         self.cfg = rx.bank_safe_config(cfg)
+        self.parts = None
+        if mesh is not None:
+            devices = mesh.axis_devices(axis)
+            k, rest = divmod(len(tune_freqs), len(devices))
+            if rest:
+                raise ValueError(f"{len(tune_freqs)} channels not divisible "
+                                 f"by {len(devices)} devices")
+            self.parts = [type(self)(cfg, tune_freqs[j * k:(j + 1) * k], d)
+                          for j, d in enumerate(devices)]
+            self.device = self.parts[0].device
+            return
         self.device = resolve_device(device)
         self.params, self.state = bank_init(self.cfg, tune_freqs,
                                             self.device)
 
     @property
     def n_channels(self) -> int:
+        if self.parts is not None:
+            return sum(p.n_channels for p in self.parts)
         return self.state.chan_filter.tail.shape[0]
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
+    def _split(self, call: str, *blocks) -> rx.StepOutput:
+        """``call`` on each sub-bank: the shared block whole, or a stack's
+        rows of that sub-bank's channels; the outputs joined."""
+        outs, row = [], 0
+        for part in self.parts:
+            k = part.n_channels
+            args = (blocks if self.shared_input
+                    else [b[row:row + k] for b in blocks])
+            outs.append(getattr(part, call)(*args))
+            row += k
+        return _cat_outputs(outs, self.device)
+
     def process(self, iq) -> rx.StepOutput:
+        if self.parts is not None:
+            return self._split("process", iq)
         self.state, out = rx.bank_receiver_step(
             self.cfg, self.params, self.state, self._to_device(iq, CDTYPE),
             self.shared_input)
@@ -109,6 +149,8 @@ class _Bank:
     def process_planes(self, re, im) -> rx.StepOutput:
         """The block as float32 or int16 planes (the radio's 16-bit wire
         format, cast on the device)."""
+        if self.parts is not None:
+            return self._split("process_planes", re, im)
         re, im = self._to_device(re, RDTYPE), self._to_device(im, RDTYPE)
         self.state, out = rx.bank_receiver_step_planes(
             self.cfg, self.params, self.state, re, im, self.shared_input)
@@ -119,6 +161,12 @@ class _Bank:
         if len(freqs) != self.n_channels:
             raise ValueError(f"{len(freqs)} frequencies for "
                              f"{self.n_channels} channels")
+        if self.parts is not None:
+            row = 0
+            for part in self.parts:
+                part.set_tune_freqs(freqs[row:row + part.n_channels])
+                row += part.n_channels
+            return
         incs = [nco.phase_increment(f - self.cfg.cw_offset,
                                     self.cfg.input_rate) for f in freqs]
         self.params = self.params._replace(dec=self.params.dec._replace(

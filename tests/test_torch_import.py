@@ -30,9 +30,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "             'testbench.probes', 'design.latency', 'cli',\n"
         "             'testbench.generators', 'io.ascp', 'io.ad6620',\n"
         "             'io.netsdr', 'io.filesource', 'io.recorder',\n"
-        "             'io.native_ingest', 'io.discover', 'io.audio_device'):\n"
+        "             'io.native_ingest', 'io.discover', 'io.audio_device',\n"
+        "             'shard.mesh', 'shard.timeshard', 'shard.pipeline',\n"
+        "             'shard.multihost'):\n"
         "    assert 'cutesdr_tpu_torch.' + want in names, names\n"
-        "assert len(names) >= 56, names\n"
+        "assert len(names) >= 63, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cutesdr_tpu' or m.startswith('cutesdr_tpu.')\n"
         "       or m == 'bench']\n"
@@ -41,6 +43,28 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_shard_entry_points_default_to_the_card(monkeypatch):
+    """make_mesh, PipelinedReceiver and global_time_mesh name the card:
+    with no CUDA device and no device given they raise, never falling
+    back to the CPU; given "cpu" they run there."""
+    from cutesdr_tpu_torch.pipeline import receiver as trx
+    from cutesdr_tpu_torch.shard import PipelinedReceiver, make_mesh
+    from cutesdr_tpu_torch.shard import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = trx.ReceiverConfig(input_rate=250_000.0)
+    for make in (lambda: make_mesh(time=2),
+                 lambda: PipelinedReceiver(cfg),
+                 lambda: PipelinedReceiver(cfg, device_front="cpu"),
+                 lambda: multihost.global_time_mesh(),
+                 lambda: multihost.initialize("127.0.0.1:1", 1, 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    mesh = make_mesh(time=2, devices=["cpu", "cpu"])
+    assert [d.type for d in mesh.axis_devices("t")] == ["cpu", "cpu"]
+    assert PipelinedReceiver(cfg, "cpu", "cpu").device_back.type == "cpu"
 
 
 def test_redeclared_constants_match_reference():
