@@ -75,7 +75,13 @@ audio (``path_specs``):
   SigMF and to a legacy file, played back by ``run`` bitwise equal to
   ``Receiver.process``; ``serve`` (single with a mode switch to FM, 8
   channels, dual-RX) with its settings file; ``spectrum``, ``latency``
-  and ``discover``.  Nothing leaves 127.0.0.1.
+  and ``discover``.  Nothing leaves 127.0.0.1;
+* the bench (``check_bench``): ``bench_torch.py`` in a process of its
+  own (the flagship's one JSON line over 10 reps) and the twelve suite
+  rows through ``cli bench --suite`` at 2 steps a rep, each row's
+  launches, PLL tiers and AGC fallbacks counted over its timed reps and
+  its wall time at or above its CUDA-event time; the rows together
+  launch K1-K9.
 
 The scans (K3, K5) are also held to the float64 solve of their float32
 inputs (no farther from it than 1.5x their plain versions), N1 to its
@@ -107,6 +113,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import socket
@@ -125,7 +132,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from chip_kernel_times import device_ms, event_counts, warm_up  # noqa: E402
-from cutesdr_tpu_torch import kernels  # noqa: E402
+from cutesdr_tpu_torch import bench_suite, kernels  # noqa: E402
 from cutesdr_tpu_torch.demod import fm, sam  # noqa: E402
 from cutesdr_tpu_torch.design.decimation_plan import (  # noqa: E402
     plan_decimation)
@@ -1373,14 +1380,17 @@ def banded_tail(cfg, bank: bool, params) -> bool:
             != resampler.split_rate(p / q))
 
 
-def routed_kernels(cfg, bank: bool, params) -> set[str]:
+def routed_kernels(cfg, bank: bool, params, counted=None) -> set[str]:
     """The kernels a configuration's path routes to, by the port's gates
     (the seqloops by the tiers the demods report as taken: FM's chunked
     and scan tiers are each one K7 launch; N1 by the AGC's fallbacks).
-    Every path runs the S-meter kernel; the affine scan runs the AM/SAM
-    DC block, FM's three EMAs and hang mode's decay rounds; a bank never
-    takes the single-stream guess-verify solve kernel."""
-    n = cfg.fastfir_valid * cfg.frames_per_block
+    ``counted``: the tiers and fallbacks to route by, in
+    ``bench_suite.counts()``'s form (a bench row's); default the counts as
+    they stand.  Every path runs the S-meter kernel; the affine scan runs
+    the AM/SAM DC block, FM's three EMAs and hang mode's decay rounds; a
+    bank never takes the single-stream guess-verify solve kernel."""
+    counted = counted or bench_suite.counts()
+    tiers = counted["pll_tiers"]
     want = {"mixdec", "smeter"}
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
         want.add("fastfir_batch" if bank else "fastfir")
@@ -1390,11 +1400,11 @@ def routed_kernels(cfg, bank: bool, params) -> set[str]:
         want.add("scan_solve")
     if cfg.mode in ("am", "sam", "fm") or (cfg.agc_on and cfg.agc_hang):
         want.add("scan_plain")
-    if fm.STATS["scan"] or fm.STATS["chunked"]:     # one K7 launch either
-        want.add("seqloop_fm")
-    if sam.STATS["scan"]:
+    if tiers.get("fm_scan") or tiers.get("fm_chunked"):   # one K7 launch
+        want.add("seqloop_fm")                             # either way
+    if tiers.get("sam_scan"):
         want.add("seqloop_sam")
-    if agc.STATS["scan_fallbacks"]:
+    if counted["agc_fallbacks"]:
         want.add("agcseq")
     return want
 
@@ -3437,6 +3447,94 @@ def profile_cli(gpu_label: str) -> None:
                            gpu_label)
 
 
+# ---------------------------------------------------------------- the bench
+# ``check_bench`` runs the port's bench as its users call it: the flagship
+# line from ``bench_torch.py`` in a process of its own, and the twelve suite
+# rows through ``cli.main(["bench", "--suite", ...])`` in this process, each
+# row's launches, PLL tiers and AGC fallbacks counted over its timed reps.
+
+BENCH_DIR = os.path.join(ROOT, "build", "chip_bench")
+BENCH_ITERS = 2           # chained steps a rep of a suite row
+FLAGSHIP_REPS = 10
+FLAGSHIP_ITERS = 8
+KERNELS_K1_K9 = {"mixdec", "fastfir", "scan_plain", "scan_solve", "smeter",
+                 "fastfir_batch", "seqloop_fm", "seqloop_sam", "resamp"}
+
+
+def bench_row_check(label: str, res: dict, cfg, bank: bool, ms_key: str,
+                    gpu_label: str) -> None:
+    """A bench line: no error, the kernels its configuration routes to (by
+    the tiers and fallbacks it counted) and no other, finite times with
+    the wall time at or above the CUDA-event time."""
+    if "error" in res:
+        raise AssertionError(f"{label}: {res['error']}")
+    params = rx.init(cfg, "cuda")[0]
+    check_routed(label, res["launches"],
+                 routed_kernels(cfg, bank, params, res))
+    ms, ev = res[ms_key], res["event_" + ms_key]
+    if not (0 < ev <= ms and math.isfinite(ms)):
+        raise AssertionError(f"{label}: wall {ms} ms against event {ev} ms")
+    if res["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"{label}: measured on {res['device']}")
+    phase(f"{label}: {ms:.3f} ms wall, {ev:.3f} ms event a "
+          f"{ms_key.split('_')[-1]} over {res.get('reps')} reps "
+          f"({gpu_label})")
+
+
+def check_bench(gpu_label: str) -> dict:
+    """The flagship line (``bench_torch.py --reps 10 --iters 8``: one JSON
+    line, n = 10) and every suite row at ``--iters 2`` (``cli bench
+    --suite``): each prints its line here, launches the kernels its
+    configuration routes to and no other, reports no error and a wall time
+    at or above its event time; the rows together launch K1-K9.  Returns
+    the launches summed over the rows and the flagship."""
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
+                           "--reps", str(FLAGSHIP_REPS), "--iters",
+                           str(FLAGSHIP_ITERS)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_torch.py: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    phase(f"bench flagship: {lines[0]}")
+    flag = json.loads(lines[0])
+    if (flag["metric"] != "iq_msps_per_gpu"
+            or flag["stats"]["n"] != FLAGSHIP_REPS):
+        raise AssertionError(f"bench flagship: {flag}")
+    flag_cfg = rx.ReceiverConfig(mode="usb", audio_rate=48000.0, **FULL)
+    bench_row_check("bench flagship", dict(flag, reps=FLAGSHIP_REPS),
+                    flag_cfg, False, "ms_per_step", gpu_label)
+
+    from cutesdr_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench", "--suite", "--iters", str(BENCH_ITERS),
+                       "--details", os.path.join(BENCH_DIR, "details.json")])
+    rows = [json.loads(x) for x in out.getvalue().strip().splitlines()]
+    for res in rows:
+        phase(f"bench row: {json.dumps(res)}")
+    table = bench_suite.rows()
+    if rc != 0 or [r["config"] for r in rows] != [
+            r.name for r in table.values()]:
+        raise AssertionError(f"bench suite: rc {rc}, rows "
+                             f"{[r['config'] for r in rows]}")
+    total = dict.fromkeys(KERNELS, 0)
+    for k, (row, res) in enumerate(zip(table.values(), rows), 1):
+        bench_row_check(f"bench row {k} {row.name}", res, row.cfg,
+                        row.kind == "bank",
+                        "ms_per_block" if row.kind == "session"
+                        else "ms_per_step", gpu_label)
+        for name, v in res["launches"].items():
+            total[name] += v
+    missing = KERNELS_K1_K9 - {k for k, v in total.items() if v}
+    if missing:
+        raise AssertionError(f"bench suite: {sorted(missing)} never launched")
+    for name, v in flag["launches"].items():
+        total[name] += v
+    return total
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--fake-netsdr"]:
         return fake_netsdr(float(sys.argv[2]))
@@ -3515,6 +3613,10 @@ def main() -> int:
     for k, v in check_cli(smi).items():
         launches[k] += v
     phase(f"command line: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in check_bench(smi).items():
+        launches[k] += v
+    phase(f"bench: {time.perf_counter() - t0:.1f} s")
     never = [k for k, v in launches.items() if v == 0]
     if never:
         raise AssertionError(f"kernels never launched on a path: {never}")

@@ -10,6 +10,8 @@ orchestration) — here a headless CLI:
   cutesdr-tpu-torch serve     the browser spectrum/waterfall UI with audio
   cutesdr-tpu-torch latency   the latency budget of a configuration
   cutesdr-tpu-torch discover  find RFSPACE radios on the LAN
+  cutesdr-tpu-torch bench     the flagship throughput line; --suite: the
+                              twelve-row suite (``bench_suite``)
 
 Every receiver, session and display analyzer it builds runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` asks for the CPU;
@@ -1026,6 +1028,18 @@ def cmd_discover(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The flagship throughput entry (``bench_torch.py``), or with
+    ``--suite`` the twelve rows (``--only``, ``--iters``)."""
+    from cutesdr_tpu_torch import bench_suite
+
+    if args.suite:
+        return bench_suite.run_suite(args.only, args.iters, args.device,
+                                     args.details)
+    return bench_suite.run_flagship(args.frames_per_block, args.reps,
+                                    args.iters, args.device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="cutesdr-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1096,6 +1110,15 @@ def build_parser() -> argparse.ArgumentParser:
     p_disc = sub.add_parser("discover", help="find radios on the LAN")
     p_disc.add_argument("--timeout", type=float, default=0.5)
     p_disc.set_defaults(fn=cmd_discover)
+
+    from cutesdr_tpu_torch import bench_suite
+    p_bench = sub.add_parser("bench", help="throughput benchmark")
+    bench_suite.add_flagship_args(p_bench)
+    p_bench.add_argument("--suite", action="store_true",
+                         help="the twelve-row suite (--only, --details) "
+                              "instead of the flagship line")
+    bench_suite.add_suite_args(p_bench)
+    p_bench.set_defaults(fn=cmd_bench)
     return ap
 
 

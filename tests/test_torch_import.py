@@ -1,10 +1,12 @@
 """The PyTorch port imports no jax, and its re-declared constants equal the
 JAX package's."""
 
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,16 +16,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Every module of the port (the command line and its I/O modules
-    too), and chip_smoke, imported in a fresh process: neither jax, nor
-    any module of the JAX package, nor its bench is loaded."""
+    """Every module of the port (the command line, its I/O modules and
+    the bench suite too), and chip_smoke, imported in a fresh process, and
+    ``bench_torch.py --help`` run in it: neither jax, nor any module of
+    the JAX package, nor its bench is loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, runpy, sys\n"
         "import cutesdr_tpu_torch\n"
         "for m in pkgutil.walk_packages(cutesdr_tpu_torch.__path__,\n"
         "                               'cutesdr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.argv = ['bench_torch.py', '--help']\n"
+        "try:\n"
+        "    runpy.run_path('bench_torch.py', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    cutesdr_tpu_torch.__path__, 'cutesdr_tpu_torch.')]\n"
         "for want in ('session', 'bank', 'serve', 'shard.coherent',\n"
@@ -32,9 +40,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "             'io.netsdr', 'io.filesource', 'io.recorder',\n"
         "             'io.native_ingest', 'io.discover', 'io.audio_device',\n"
         "             'shard.mesh', 'shard.timeshard', 'shard.pipeline',\n"
-        "             'shard.multihost'):\n"
+        "             'shard.multihost', 'bench_suite'):\n"
         "    assert 'cutesdr_tpu_torch.' + want in names, names\n"
-        "assert len(names) >= 63, names\n"
+        "assert len(names) >= 64, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cutesdr_tpu' or m.startswith('cutesdr_tpu.')\n"
         "       or m == 'bench']\n"
@@ -43,6 +51,35 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert "--frames-per-block" in proc.stdout     # the help was printed
+
+
+def test_bench_entry_points_default_to_the_card(monkeypatch, capsys):
+    """The flagship, the suite, each kind of row and the CLI's bench name
+    the card: with no CUDA device and no device given they raise (the
+    flagship's line reports the error and exits 1), never running on the
+    CPU."""
+    from cutesdr_tpu_torch import bench_suite as bs
+    from cutesdr_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = bs.rows()
+    for make in (bs.bench_receiver, bs.run_suite,
+                 lambda: bs.bench_receiver_cfg("x", table[2].cfg,
+                                               np.zeros(4)),
+                 lambda: bs.bench_channel_bank(table[4].cfg),
+                 lambda: bs.bench_latency_mode(table[9]),
+                 lambda: bs.session_breakdown(table[6].cfg),
+                 lambda: bs.bench_session_streaming(table[7].cfg, 8, 2),
+                 lambda: bs.chain_step(table[2].cfg, np.zeros(4), "cuda"),
+                 lambda: cli.main(["bench"]),
+                 lambda: cli.main(["bench", "--suite"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    capsys.readouterr()
+    assert bs.flagship_main([]) == 1
+    line = json.loads(capsys.readouterr().out)
+    assert "no CUDA device" in line["error"] and "value" not in line
 
 
 def test_shard_entry_points_default_to_the_card(monkeypatch):

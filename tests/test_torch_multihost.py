@@ -1,9 +1,11 @@
 """The port's time sharding across processes: two gloo processes on the
 CPU, each with two local "cpu" shards, form one 4-shard "t" axis
-(``shard.multihost``).  The workers import only torch and the port."""
+(``shard.multihost``).  The workers import only torch and the port, and
+meet through a file store in the test's temporary directory, so that no
+loopback port has to stay free between the test's choice and the store's
+bind."""
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -12,20 +14,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _HEAD = textwrap.dedent("""
     import os, sys
-    pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    pid, nproc, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     import numpy as np
     import torch
     torch.set_num_threads(1)
     from cutesdr_tpu_torch.shard import multihost
-    multihost.initialize(f"127.0.0.1:{port}", nproc, pid, device="cpu")
+    multihost.initialize(store, nproc, pid, device="cpu")
     mesh = multihost.global_time_mesh(["cpu", "cpu"])
     assert mesh.devices.size == 2 * nproc
     assert mesh.ranks.reshape(-1).tolist() == [0, 0, 1, 1]
 """)
 
+# every rank leaves the group together and tears it down before exiting:
+# left to the interpreter's exit, the gloo group's threads were destroyed
+# while still joinable now and then ("terminate called without an active
+# exception", SIGABRT) after the rank had printed its result
 _NO_JAX = textwrap.dedent("""
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "cutesdr_tpu")]
     assert not bad, bad
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 """)
 
 _ASSEMBLE = _HEAD + textwrap.dedent("""
@@ -76,20 +84,15 @@ _RECEIVER = _HEAD + textwrap.dedent("""
 """) + _NO_JAX
 
 
-def _free_port() -> str:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return str(s.getsockname()[1])
-
-
-def _run_two(src: str, ok: str) -> None:
-    """Two worker processes on a free loopback port; each must print
-    ``ok``.  A hang fails after 120 s instead of blocking the suite."""
+def _run_two(src: str, ok: str, tmp_path) -> None:
+    """Two worker processes meeting at a ``file://`` store under
+    ``tmp_path``; each must print ``ok`` and exit 0.  A hang fails after
+    120 s instead of blocking the suite."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
-    port = _free_port()
+    store = f"file://{tmp_path / 'store'}"
     procs = [subprocess.Popen([sys.executable, "-c", src, str(pid), "2",
-                               port], env=env, cwd=ROOT, text=True,
+                               store], env=env, cwd=ROOT, text=True,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT)
              for pid in range(2)]
@@ -105,17 +108,17 @@ def _run_two(src: str, ok: str) -> None:
         assert ok in out, out[-3000:]
 
 
-def test_two_process_assemble():
+def test_two_process_assemble(tmp_path):
     """Each process contributes its half of a ramp through
     ``HostShardedStream.assemble``; the sum over both processes is the
     whole ramp's."""
-    _run_two(_ASSEMBLE, "OK sum=")
+    _run_two(_ASSEMBLE, "OK sum=", tmp_path)
 
 
-def test_two_process_sharded_receiver():
+def test_two_process_sharded_receiver(tmp_path):
     """``ShardedReceiver`` over the 2 x 2 mesh, three superblocks: the
     halos across the process boundary go by ``batch_isend_irecv``, the
     carries by broadcast, the filtered stream by ``all_gather``; each
     process's audio within 5e-4 of the single receiver's peak and its
     S-meter within 0.1 dB."""
-    _run_two(_RECEIVER, "RECEIVER OK")
+    _run_two(_RECEIVER, "RECEIVER OK", tmp_path)
