@@ -112,6 +112,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -148,7 +149,7 @@ from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
 from cutesdr_tpu_torch.ops.util import (  # noqa: E402
     first_order_recurrence, max_affine_recurrence)
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
-from cutesdr_tpu_torch.pipeline import spectrum  # noqa: E402
+from cutesdr_tpu_torch.pipeline import spectrum, stepgraph  # noqa: E402
 from cutesdr_tpu_torch.session import ReceiverSession  # noqa: E402
 from cutesdr_tpu_torch.shard import channels  # noqa: E402
 
@@ -769,19 +770,77 @@ def check_agcseq(gen, results):
                          "library_ms": None}
 
 
+def check_skips(gen):
+    """The device-decided forms of N1, K7 and K8 (the flag they read
+    themselves; the receiver's step replays as a CUDA graph through
+    them), each against its plain version with the same flag: set, the
+    kernel leaves ``out`` as it was (K7's flag 0) and N1 counts nothing;
+    clear, the kernel writes what its plain version returns over ``out``
+    and N1 counts one run.  4,096 samples: window peaks under a stepping
+    envelope (both AGC modes), PLL phases of noise at 62.5 kHz."""
+    fs = 62_500.0
+    peak = envelope_peak(gen, 4096)
+    theta = pll_theta("noise", 4096, fs, 150.0, gen)
+    fm_p, _ = fm.init(fs, "cuda")
+    sam_p, _ = sam.init(fs, "cuda")
+    zero = torch.zeros((), device="cuda")
+    sentinel = lambda t: torch.full_like(t, 7)
+    for flag in (True, False):
+        skip = torch.tensor(flag, device="cuda")
+        for hang in (False, True):
+            p = agc.make_params(agc.AgcConfig(True, hang, fs), -100.0, 30.0,
+                                0.0, 200.0)
+            timer0 = torch.zeros((), dtype=torch.int32, device="cuda")
+            a = (peak, zero - 5.0, zero - 4.0, timer0,
+                 (p.attack_rise_alpha, p.attack_fall_alpha),
+                 (p.decay_rise_alpha, p.decay_fall_alpha),
+                 p.hang_time if hang else None)
+            runs = []
+            for fn in (agcseq.averager_scan, agcseq.averager_scan_plain):
+                out = (sentinel(zero), sentinel(zero),
+                       sentinel(timer0) if hang else timer0,
+                       sentinel(peak))
+                count = torch.zeros((), dtype=torch.int32, device="cuda")
+                runs.append((fn(*a, out=out, skip=skip, count=count), count))
+            (got, nk), (want, np_) = runs
+            if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                    and int(nk) == int(np_) == (not flag)):
+                raise AssertionError(f"agcseq skip={flag} hang={hang}: the "
+                                     "kernel differs from its plain form")
+        for name, p, fn, plain, series in (
+                ("seqloop_fm", fm_p, seqloop.fm_pll_chunked,
+                 seqloop.fm_pll_chunked_plain, 2),
+                ("seqloop_sam", sam_p, seqloop.sam_pll_scan,
+                 seqloop.sam_pll_scan_plain, 1)):
+            a = (p.pll_alpha, p.pll_beta, p.nco_limit, 0.5, 0.001, theta)
+            runs = []
+            for f in (fn, plain):
+                out = (sentinel(zero), sentinel(zero),
+                       *(sentinel(theta) for _ in range(series)))
+                runs.append(f(*a, skip=skip, out=out))
+            got, want = runs
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name} skip={flag}: the kernel "
+                                     "differs from its plain form")
+        phase(f"kernel agcseq, seqloop_fm, seqloop_sam with the skip flag "
+              f"{'set' if flag else 'clear'}: bitwise their plain forms "
+              "(4,096 samples)")
+
+
 def flagship_agc_inputs(gen) -> list[tuple]:
     """The two-rate averagers' inputs of a flagship USB block after one
     warm block: (peak, x0, rise, fall, n_iters) of each solve the AGC
-    launches, recorded at the solve's entry."""
+    launches, recorded at the solve's entry (the eager step, which a
+    graphed receiver replays)."""
     cfg = rx.ReceiverConfig(mode="usb", input_rate=2e6, tune_freq=100e3,
                             frames_per_block=256)
-    r = rx.Receiver(cfg)
+    params, state = rx.init(cfg, "cuda")
     blocks = stimulus(cfg, 2, gen, carriers=({"offset_hz": 1000.0},))
-    r.process(blocks[0])
+    state, _ = rx.receiver_step(cfg, params, state, blocks[0])
     seen, real = [], scan.guess_verify_solve
     scan.guess_verify_solve = lambda *a: seen.append(a) or real(*a)
     try:
-        r.process(blocks[1])
+        rx.receiver_step(cfg, params, state, blocks[1])
     finally:
         scan.guess_verify_solve = real
     torch.cuda.synchronize()
@@ -1371,26 +1430,24 @@ def banded_tail(cfg, bank: bool, params) -> bool:
     nominal p/q (the audio rate lock's correction)."""
     if cfg.audio_rate is None:
         return False
-    rational = resampler.rational_for(cfg.output_rate, cfg.audio_rate)
-    n = cfg.fastfir_valid * cfg.frames_per_block
-    if bank or n < rx.RATIONAL_MIN_SAMPLES or rational is None:
-        return True
-    p, q = rational
-    return ((params.resamp.dt_hi, params.resamp.dt_lo)
-            != resampler.split_rate(p / q))
+    return bank or not rx.rational_tail(cfg, params)
 
 
 def routed_kernels(cfg, bank: bool, params, counted=None) -> set[str]:
-    """The kernels a configuration's path routes to, by the port's gates
-    (the seqloops by the tiers the demods report as taken: FM's chunked
-    and scan tiers are each one K7 launch; N1 by the AGC's fallbacks).
-    ``counted``: the tiers and fallbacks to route by, in
-    ``bench_suite.counts()``'s form (a bench row's); default the counts as
-    they stand.  Every path runs the S-meter kernel; the affine scan runs
-    the AM/SAM DC block, FM's three EMAs and hang mode's decay rounds; a
-    bank never takes the single-stream guess-verify solve kernel."""
+    """The kernels a configuration's path routes to, by the port's gates.
+    The choices JAX makes with ``lax.cond`` are made on the card: every
+    FM block launches K7 and every SAM block K8 (a kernel that returns at
+    once where the linear tier held), and every single-stream block with
+    the two-rate AGC launches N1 (which returns at once where the solve
+    converged); a bank's AGC votes its fallback on the host, and hang
+    mode reads its flag there, so they launch N1 only where they fell
+    back (``counted``: the fallbacks to
+    route by, in ``bench_suite.counts()``'s form, a bench row's; default
+    the counts as they stand).  Every path runs the S-meter kernel; the
+    affine scan runs the AM/SAM DC block, FM's three EMAs and hang mode's
+    decay rounds; a bank never takes the single-stream guess-verify solve
+    kernel."""
     counted = counted or bench_suite.counts()
-    tiers = counted["pll_tiers"]
     want = {"mixdec", "smeter"}
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
         want.add("fastfir_batch" if bank else "fastfir")
@@ -1398,11 +1455,13 @@ def routed_kernels(cfg, bank: bool, params, counted=None) -> set[str]:
         want.add("resamp")
     if not bank and cfg.agc_on:
         want.add("scan_solve")
+        if not cfg.agc_hang:
+            want.add("agcseq")
     if cfg.mode in ("am", "sam", "fm") or (cfg.agc_on and cfg.agc_hang):
         want.add("scan_plain")
-    if tiers.get("fm_scan") or tiers.get("fm_chunked"):   # one K7 launch
-        want.add("seqloop_fm")                             # either way
-    if tiers.get("sam_scan"):
+    if cfg.mode == "fm":
+        want.add("seqloop_fm")
+    if cfg.mode == "sam":
         want.add("seqloop_sam")
     if counted["agc_fallbacks"]:
         want.add("agcseq")
@@ -1423,7 +1482,18 @@ def guess_rounds(n_iters):
 
 def fallback_check(launches, tiers, n_blocks):
     """A path with one guess-verify round allowed: the AGC fell back on
-    at least one block, and each fallback was one launch of N1."""
+    at least one block, and each block was one launch of N1 (which ran
+    the recurrence on the blocks that fell back)."""
+    fallbacks = agc.STATS["scan_fallbacks"]
+    if not (fallbacks >= 1 and launches["agcseq"] == n_blocks):
+        raise AssertionError(f"agc fallback path: {fallbacks} fallbacks, "
+                             f"{launches['agcseq']} agcseq launches over "
+                             f"{n_blocks} blocks")
+
+
+def hang_fallback_check(launches, tiers, n_blocks):
+    """``fallback_check`` in hang mode, which reads its flag on the host:
+    one launch of N1 on each block that fell back, and none on another."""
     fallbacks = agc.STATS["scan_fallbacks"]
     if not (fallbacks >= 1 and launches["agcseq"] == fallbacks):
         raise AssertionError(f"agc fallback path: {fallbacks} fallbacks, "
@@ -1563,13 +1633,13 @@ def drive_path(label, kind, cfg, freqs, blocks, timed, gpu_label, tones=(),
 def fm_monitor_check(cfg):
     """The 8-channel FM monitor: once the AGC delay line has filled (its
     all-zero blocks lock trivially), the bank-wide vote sends every block
-    to K7 over the 8 streams, one launch per block."""
+    to K7's loop over the 8 streams; one K7 launch every block."""
     n = cfg.fastfir_valid * cfg.frames_per_block
     fill = -(-agc.AgcConfig(True, False, cfg.output_rate).delay_samples // n)
 
     def check(launches, tiers, n_blocks):
         if not (tiers["scan"] >= n_blocks - fill
-                and launches["seqloop_fm"] == tiers["scan"]
+                and launches["seqloop_fm"] == n_blocks
                 and tiers["chunked"] == 0):
             raise AssertionError(f"fm monitor: tiers {tiers}, K7 launches "
                                  f"{launches['seqloop_fm']} over {n_blocks} "
@@ -1579,17 +1649,17 @@ def fm_monitor_check(cfg):
 
 def fm_noise_check(launches, tiers, n_blocks):
     """FM on carrier-less noise at full width: every block past the first
-    leaves the linear tier and takes the chunked tier, each one launch of
-    K7 (the torch chunked scan never runs on the card)."""
+    leaves the linear tier and takes the chunked tier, and every block is
+    one launch of K7 (the torch chunked scan never runs on the card)."""
     if not (tiers["chunked"] >= n_blocks - 1
-            and launches["seqloop_fm"] == tiers["chunked"] + tiers["scan"]):
+            and launches["seqloop_fm"] == n_blocks):
         raise AssertionError(f"fm noise: tiers {tiers}, K7 launches "
                              f"{launches['seqloop_fm']} over {n_blocks} "
                              "blocks")
 
 
 def sam_acquire_check(launches, tiers, n_blocks):
-    if not (tiers["scan"] >= 1 and launches["seqloop_sam"] == tiers["scan"]):
+    if not (tiers["scan"] >= 1 and launches["seqloop_sam"] == n_blocks):
         raise AssertionError(f"bank sam: tiers {tiers}, K8 launches "
                              f"{launches['seqloop_sam']}")
 
@@ -1664,7 +1734,7 @@ def path_specs() -> list:
          tone(offset_hz=1000.0), 3,
          dict(tones=((0, 1000.0),), steps=2, may_fall_back=False)),
         # one guess-verify round allowed: the AGC's sequential fallback,
-        # one launch of N1 a block, two-rate and hang mode
+        # one launch of N1 a block (two-rate), a block that fell back (hang)
         ("usb agc fallback", "single", usb_cfg, None,
          tone(offset_hz=1000.0), 2,
          dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
@@ -1673,13 +1743,285 @@ def path_specs() -> list:
          rx.ReceiverConfig(mode="usb", agc_hang=True, **full), None,
          tone(offset_hz=1000.0), 2,
          dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
-              need=("agcseq",), check=fallback_check)),
+              need=("agcseq",), check=hang_fallback_check)),
         # carrier-less noise at full width: the chunked tier every block,
         # one K7 launch each (last, so the paths before keep their inputs)
         ("fm noise", "single", rx.ReceiverConfig(mode="fm", **full), None,
          dict(carriers=(), noise_db=-60.0), 3,
          dict(steps=4, need=("seqloop_fm",), check=fm_noise_check)),
     ]
+
+
+# ---------------------------------------------------------------- graphs
+# ``check_graph``: the single-stream step replayed as one CUDA graph
+# (``Receiver``) against the eager step (``rx.receiver_step_planes``) from
+# the same state over the same blocks, bitwise.
+
+GRAPH_BLOCKS = 12         # blocks each run of a path
+GRAPH_CHANGE = 6          # the block a retune, volume and ratio change
+GRAPH_STEPS = 20          # chained steps timed each way
+
+
+def graph_specs() -> list:
+    """(label, config, stimulus arguments, guess-verify rounds) of every
+    path ``check_graph`` drives: the tiers and fallbacks the card decides
+    (N1, K7's chunked and scan tiers, K8) and the resampler's two routes."""
+    fm_cfg = rx.ReceiverConfig(mode="fm", **FULL)
+    usb_cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    tone = lambda **kw: dict(carriers=(kw,))
+    return [
+        ("flagship usb", usb_cfg, tone(offset_hz=1000.0), None),
+        ("am", rx.ReceiverConfig(mode="am", **FULL),
+         tone(mod_hz=1000.0, am_depth=0.5), None),
+        ("fm locked", fm_cfg, tone(fm_dev_hz=3000.0, mod_hz=1000.0), None),
+        ("fm noise", fm_cfg, dict(carriers=(), noise_db=-60.0), None),
+        # a clean carrier 3 Hz off the tune: the loop acquires, and its
+        # chunks almost never bit-sync (K7's scan tier)
+        ("fm never-syncing tone", fm_cfg,
+         dict(carriers=(dict(offset_hz=3.0),), noise_db=-140.0), None),
+        ("fm idle channel", rx.ReceiverConfig(
+            mode="fm", input_rate=2e6, tune_freq=100e3, frames_per_block=1,
+            fastfir_nfft=512, fastfir_ntaps=257),
+         dict(carriers=(), noise_db=-60.0), None),
+        ("sam acquiring", rx.ReceiverConfig(mode="sam", **FULL),
+         tone(offset_hz=100.0, mod_hz=400.0, am_depth=0.5), None),
+        ("usb agc fallback", usb_cfg, tone(offset_hz=1000.0), 1),
+        ("cw", rx.ReceiverConfig(mode="cwu", **FULL),
+         tone(offset_hz=0.0), None),
+        ("usb ratelock", usb_cfg, tone(offset_hz=1000.0), None),
+    ]
+
+
+# the device symbols (``cutesdr::``) of each counted wrapper's kernels;
+# fastfir_batch launches fastfir's kernel, and is counted under it
+KERNEL_SYMBOLS = {
+    "mixdec": "mixdec_kernel", "fastfir": "fastfir_kernel",
+    "scan_plain": "affine_scan_kernel", "scan_solve": "solve_kernel",
+    "smeter": "smeter_kernel",
+    "seqloop_fm": "fm_chunked_kernel|pll_walk_kernel<true>",
+    "seqloop_sam": "pll_walk_kernel<false>", "resamp": "resamp_kernel",
+    "agcseq": "agc_seq_kernel"}
+
+
+def device_kernel_counts(events) -> dict:
+    """How many times the card ran each wrapper's kernels in a profile,
+    from the kernel events' names (a graph's nodes included)."""
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in events:
+        if "CUDA" not in str(e.device_type):
+            continue
+        for k, sym in KERNEL_SYMBOLS.items():
+            if re.search(rf"cutesdr::(?:{sym})(?=[<(])", e.key):
+                counts[k] += e.count
+    return counts
+
+
+def captured_kernel_counts(launches: dict) -> dict:
+    """``launches`` (a graph's counts a replay) in ``device_kernel_counts``'
+    keys."""
+    counts = {k: launches.get(k, 0) for k in KERNEL_SYMBOLS}
+    counts["fastfir"] += launches.get("fastfir_batch", 0)
+    return counts
+
+
+def step_counts() -> dict:
+    """The launches, PLL tiers and AGC fallbacks counted since the last
+    reset (after the card is idle)."""
+    torch.cuda.synchronize()
+    return {"launches": dict(kernels.LAUNCHES), "fm": dict(fm.STATS),
+            "sam": dict(sam.STATS), "fallbacks": agc.STATS["scan_fallbacks"]}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (NaN and the sign of zero included)."""
+    view = lambda t: (torch.view_as_real(t) if t.is_complex() else t
+                      ).reshape(-1).view(torch.uint8)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        view(a), view(b))
+
+
+def step_ms(step, blocks) -> float:
+    """The median wall ms of ``step(re, im)`` over chained blocks, each
+    step ended by a synchronize."""
+    times = []
+    for re, im in blocks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(re, im)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def graph_path(label, cfg, stim, iters, gen, gpu_label) -> dict:
+    """One path of ``check_graph``: GRAPH_BLOCKS blocks eager and graphed
+    from one state, the retune, volume and ratio change on GRAPH_CHANGE;
+    outputs, carries and counts bitwise equal; one replay under the
+    profiler with no host read, one graph launch, and the card running
+    each kernel as many times as the graph counts a replay (the kernel
+    events by name); the step's ms both ways.  Returns the graphed run's
+    launches."""
+    ratio = cfg.output_rate / cfg.audio_rate
+    ppm = 50e-6 if label == "usb ratelock" else 0.0
+    blocks = [(b.real.contiguous(), b.imag.contiguous()) for b in stimulus(
+        cfg, GRAPH_BLOCKS + 1 + GRAPH_STEPS, gen, **stim)]
+    r = rx.Receiver(cfg)
+    if not r.graphed:
+        raise AssertionError(f"graph {label}: the rule leaves it eager")
+    if ppm:
+        r.set_resample_ratio(ratio * (1 + ppm))
+    params, state = r.params, stepgraph.clone(r.state)
+    changes = (cfg.tune_freq + 25.0, 72, ratio * (1 + ppm + 20e-6))
+
+    def eager(re, im):
+        nonlocal state
+        state, out = rx.receiver_step_planes(cfg, params, state, re, im)
+        return out
+
+    with guess_rounds(iters):
+        reset_counts()
+        want = []
+        for i, (re, im) in enumerate(blocks[:GRAPH_BLOCKS]):
+            if i == GRAPH_CHANGE:
+                params = rx.ratio_params(rx.volume_params(rx.tune_params(
+                    cfg, params, changes[0]), changes[1]), changes[2])
+            want.append(eager(re, im))
+        want_counts = step_counts()
+        reset_counts()
+        got = []
+        for i, (re, im) in enumerate(blocks[:GRAPH_BLOCKS]):
+            if i == GRAPH_CHANGE:
+                r.set_tune_freq(changes[0])
+                r.set_volume(changes[1])
+                r.set_resample_ratio(changes[2])
+            got.append(r.process_planes(re, im))
+        got_counts = step_counts()
+        fields = ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db")
+        bad = [(b, f) for b, (w, g) in enumerate(zip(want, got))
+               for f in fields
+               if not same_bits(getattr(w, f), getattr(g, f))]
+        carries = list(zip(stepgraph.walk(state), stepgraph.walk(r.state)))
+        bad += [("carry", p) for (p, w), (_, g) in carries
+                if isinstance(w, torch.Tensor) and not same_bits(w, g)]
+        if bad or got_counts != want_counts:
+            raise AssertionError(f"graph {label}: eager and graphed differ "
+                                 f"at {bad[:6]}; counts {want_counts} "
+                                 f"against {got_counts}")
+        from torch.profiler import ProfilerActivity, profile, schedule
+        re, im = blocks[GRAPH_BLOCKS]
+        eager(re, im)
+        torch.cuda.synchronize()
+        captured = captured_kernel_counts(r._graph.step.launches)
+        # each session records the second of two replays (the first warms
+        # the tracer up); a session that lost kernel records, as a
+        # profiler now and then does after many launches
+        # (chip_kernel_times.device_ms), is taken again, up to three
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    r.process_planes(re, im)
+                    torch.cuda.synchronize()
+                    prof.step()
+            events = prof.key_averages()
+            ran = device_kernel_counts(events)
+            if ran == captured:
+                break
+        count = {e.key: e.count for e in events}
+        reads = count.get("aten::_local_scalar_dense", 0)
+        graph_launches = sum(v for k, v in count.items()
+                             if k.startswith("cudaGraphLaunch"))
+        if reads or graph_launches != 1 or ran != captured:
+            raise AssertionError(f"graph {label}: a replayed step made "
+                                 f"{reads} host reads and {graph_launches} "
+                                 f"graph launches; the card ran {ran}, the "
+                                 f"graph counts {captured}")
+        timed = blocks[GRAPH_BLOCKS + 1:]
+        eager_ms = step_ms(eager, timed)
+        graph_ms = step_ms(r.process_planes, timed)
+    tiers = {k: v for k, v in {**{f"fm_{t}": n for t, n in
+                                  got_counts["fm"].items()},
+                               **{f"sam_{t}": n for t, n in
+                                  got_counts["sam"].items()}}.items() if v}
+    phase(f"graph {label}: {GRAPH_BLOCKS} blocks bitwise eager = graphed "
+          f"(outputs, {len(carries)} carry leaves, counts; tiers {tiers}, "
+          f"agc fallbacks {got_counts['fallbacks']}), replay: 0 host reads, "
+          f"1 graph launch, the card ran the counted kernels "
+          f"({sum(ran.values())}); ms a step (median of {len(timed)} "
+          f"chained): "
+          f"eager {eager_ms:.4f}, graphed {graph_ms:.4f} ({gpu_label})")
+    print(json.dumps({"graph_path": label, "eager_ms": eager_ms,
+                      "graphed_ms": graph_ms, "tiers": tiers,
+                      "agc_fallbacks": got_counts["fallbacks"],
+                      "launches": got_counts["launches"],
+                      "replay_kernels_ran": ran,
+                      "gpu": gpu_label}), flush=True)
+    return got_counts
+
+
+def check_graph_rule(gen, gpu_label: str) -> dict:
+    """Every configuration the graph rule admits at one frame (2 MSPS:
+    the seven modes, mono and stereo, the two-rate AGC or the AGC off,
+    the blanker on or off; 56 receivers) captures, and replays three
+    blocks bitwise the eager step's; the rule's exclusions (hang mode,
+    probes) run eager.  Returns the graphed runs' launches."""
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    n = 0
+    for mode in rx.PORTED_MODES:
+        for stereo, agc_on, nb_on in itertools.product((False, True),
+                                                      repeat=3):
+            cfg = rx.ReceiverConfig(mode=mode, stereo=stereo, agc_on=agc_on,
+                                    nb_on=nb_on, tune_freq=100e3)
+            blocks = [(b.real.contiguous(), b.imag.contiguous())
+                      for b in stimulus(cfg, 3, gen,
+                                        carriers=(dict(offset_hz=700.0),))]
+            r = rx.Receiver(cfg)
+            params, state = r.params, stepgraph.clone(r.state)
+            reset_counts()
+            got = [r.process_planes(re, im) for re, im in blocks]
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                total[k] += v
+            for (re, im), g in zip(blocks, got):
+                state, w = rx.receiver_step_planes(cfg, params, state, re, im)
+                if not (r.graphed and all(same_bits(a, b) for a, b in
+                                          zip(w[:4], g[:4]))):
+                    raise AssertionError(f"graph rule: {cfg} not replayed "
+                                         "bitwise the eager step")
+            n += 1
+    for kw in (dict(agc_hang=True), dict(probes=True)):
+        r = rx.Receiver(rx.ReceiverConfig(**kw))
+        r.process(torch.zeros(r.cfg.block_size, dtype=torch.complex64,
+                              device="cuda"))
+        if r.graphed or r._graph is not None:
+            raise AssertionError(f"graph rule: {kw} replayed a graph")
+    phase(f"graph rule: {n} admitted configurations captured and replayed "
+          "bitwise the eager step; hang mode and probes eager "
+          f"({time.perf_counter() - t0:.1f} s, {gpu_label})")
+    return total
+
+
+def check_graph(gen, gpu_label: str) -> dict:
+    """Every path of ``graph_specs`` (``graph_path``); the card must have
+    decided each kind of block: an AGC fallback (N1), K7's chunked and
+    scan tiers, K8's scan tier.  Returns the graphed runs' launches."""
+    total = dict.fromkeys(KERNELS, 0)
+    seen = {"fallbacks": 0, "fm_chunked": 0, "fm_scan": 0, "sam_scan": 0}
+    for label, cfg, stim, iters in graph_specs():
+        counts = graph_path(label, cfg, stim, iters, gen, gpu_label)
+        for k, v in counts["launches"].items():
+            total[k] += v
+        seen["fallbacks"] += counts["fallbacks"]
+        seen["fm_chunked"] += counts["fm"]["chunked"]
+        seen["fm_scan"] += counts["fm"]["scan"]
+        seen["sam_scan"] += counts["sam"]["scan"]
+    missing = [k for k, v in seen.items() if not v]
+    if missing:
+        raise AssertionError(f"graph paths: no block of {missing}")
+    return total
 
 
 def check_paths(gen, gpu_label) -> dict:
@@ -1731,7 +2073,29 @@ def profile_paths(gen, gpu_label) -> None:
                 run_steps(n_blocks + steps)
         profile_report(label, ms, prof, steps, gpu_label)
         del blocks
+    profile_biquad(gpu_label)
     profile_session(gpu_label)
+
+
+def profile_biquad(gpu_label) -> None:
+    """FM's 3 kHz audio biquad (``ops/iir.process``, N2) alone at the
+    full-width FM block (262,144 samples): its device items (the
+    Hillis-Steele levels' kernels) and device ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+    from cutesdr_tpu_torch.ops import iir
+    params, carry = fm.init(62_500.0, "cuda")
+    x = torch.randn(N_DEMOD, device="cuda")
+    iir.process(params.lp_iir, carry.lp_iir, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iir.process(params.lp_iir, carry.lp_iir, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iir.process(params.lp_iir, carry.lp_iir, x)
+        torch.cuda.synchronize()
+    profile_report("fm biquad (N2), one call", ms, prof, 1, gpu_label)
 
 
 def profile_report(label: str, ms: float, prof, steps: int,
@@ -1739,7 +2103,9 @@ def profile_report(label: str, ms: float, prof, steps: int,
     """One JSON line of a profiled window of ``steps`` steps: device busy
     time (the device-side events' self time), the largest device items by
     kernel name and by the aten op that launched them (an op's self
-    device time), launches and host reads per step."""
+    device time), launches, host reads and CUDA graph replays per step
+    (``graphed``: the step replayed a graph), and the device items
+    (kernels and copies, a graph's nodes included) per step."""
     events = prof.key_averages()
     device = {e.key: e.self_device_time_total / 1e3 / steps
               for e in events if "CUDA" in str(e.device_type)}
@@ -1747,6 +2113,10 @@ def profile_report(label: str, ms: float, prof, steps: int,
              for e in events if "CUDA" not in str(e.device_type)
              and e.key.startswith("aten::")}
     launches, host_reads = event_counts(events, steps)
+    graph_launches = sum(e.count for e in events
+                         if e.key.startswith("cudaGraphLaunch")) / steps
+    device_items = sum(e.count for e in events
+                       if "CUDA" in str(e.device_type)) / steps
     busy = sum(device.values())
     top = lambda d: [[round(t, 4), k[:70]] for t, k in sorted(
         ((t, k) for k, t in d.items() if t > 0), reverse=True)[:8]]
@@ -1754,6 +2124,9 @@ def profile_report(label: str, ms: float, prof, steps: int,
         "path": label, "ms_per_step": ms, "device_busy_ms": busy,
         "busy_share": busy / ms,
         "launches_per_step": launches, "host_reads_per_step": host_reads,
+        "graphed": graph_launches > 0,
+        "graph_launches_per_step": graph_launches,
+        "device_items_per_step": device_items,
         "top_device_ms": top(device), "top_ops_ms": top(by_op),
         "gpu": gpu_label}), flush=True)
 
@@ -2015,8 +2388,8 @@ def check_fm_probes(gen, gpu_label) -> dict:
     """``fm probes``: full-width FM with probes on, on carrier-less noise
     (the chunked tier, as ``fm noise``): each block's p6_pll a finite
     float32 series of the decimated length and its pll_tier the tier
-    demod/fm.STATS counted for it; one K7 launch for each block off the
-    linear tier, and at least every block past the first off it."""
+    demod/fm.STATS counted for it; one K7 launch for each block, and at
+    least every block past the first off the linear tier."""
     cfg = rx.ReceiverConfig(mode="fm", probes=True, **FULL)
     blocks = stimulus(cfg, 4, gen, carriers=(), noise_db=-60.0)
     r = rx.Receiver(cfg)
@@ -2026,14 +2399,13 @@ def check_fm_probes(gen, gpu_label) -> dict:
     for b in blocks:
         before, k7 = dict(fm.STATS), kernels.LAUNCHES["seqloop_fm"]
         out = r.process(b)
-        tier, p6 = out.probes["pll_tier"], out.probes["p6_pll"]
+        tier, p6 = int(out.probes["pll_tier"]), out.probes["p6_pll"]
         taken = [k for k, v in fm.STATS.items() if v != before[k]]
         if taken != [fm.TIER_NAMES[tier]]:
             raise AssertionError(f"fm probes: pll_tier {tier}, STATS moved "
                                  f"{taken}")
-        if kernels.LAUNCHES["seqloop_fm"] - k7 != int(tier != fm.TIER_LINEAR):
-            raise AssertionError("fm probes: K7 launches do not follow the "
-                                 "tiers")
+        if kernels.LAUNCHES["seqloop_fm"] - k7 != 1:
+            raise AssertionError("fm probes: not one K7 launch a block")
         if (tuple(p6.shape) != (n,) or p6.dtype != torch.float32
                 or not bool(torch.isfinite(p6).all())):
             raise AssertionError(f"fm probes: p6 {tuple(p6.shape)} "
@@ -2801,7 +3173,7 @@ def check_timeshard_multihost(gpu_label: str) -> dict:
           f"ShardedReceiver's {res['errors']}")
     cfg = rx.ReceiverConfig(mode="usb", **FULL)
     check_routed(label, launches, {"mixdec", "fastfir", "smeter",
-                                   "scan_solve"})
+                                   "scan_solve", "agcseq"})
     rate_line(f"{label} per superblock", res["ms"], SHARDS * cfg.block_size,
               cfg.input_rate, res["local_ms"], gpu_label,
               "the local ShardedReceiver")
@@ -3476,9 +3848,12 @@ def bench_row_check(label: str, res: dict, cfg, bank: bool, ms_key: str,
         raise AssertionError(f"{label}: wall {ms} ms against event {ev} ms")
     if res["device"]["name"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"{label}: measured on {res['device']}")
+    if res["graphed"] != (not bank and rx.graph_rule(cfg, "cuda")):
+        raise AssertionError(f"{label}: graphed {res['graphed']}")
     phase(f"{label}: {ms:.3f} ms wall, {ev:.3f} ms event a "
-          f"{ms_key.split('_')[-1]} over {res.get('reps')} reps "
-          f"({gpu_label})")
+          f"{ms_key.split('_')[-1]} over {res.get('reps')} reps, graphed "
+          f"{res['graphed']}, eager {res.get('eager_ms')} ms, host reads "
+          f"{res['host_reads']} ({gpu_label})")
 
 
 def check_bench(gpu_label: str) -> dict:
@@ -3591,6 +3966,9 @@ def main() -> int:
     check_guess_verify(gen_new, results)
     check_guess_verify_small(gen_small)
     check_agcseq(gen_new, results)
+    gen_skip = torch.Generator(device="cuda")        # the skip flags'
+    gen_skip.manual_seed(SEED + 13)
+    check_skips(gen_skip)
     check_resamp(gen, results, gen_new)
     check_seqloops(gen, results)
     check_seqloops_bank(gen)
@@ -3600,6 +3978,12 @@ def main() -> int:
     check_fixtures()
     check_refgold_extras()
     launches = check_paths(gen, smi)
+    gen_graph = torch.Generator(device="cuda")       # the graph paths'
+    gen_graph.manual_seed(SEED + 12)
+    for k, v in check_graph(gen_graph, smi).items():
+        launches[k] += v
+    for k, v in check_graph_rule(gen_graph, smi).items():
+        launches[k] += v
     for k, v in check_session(smi).items():
         launches[k] += v
     # an odd sinc length: the session's banded tails through K9 at P = 29

@@ -105,7 +105,6 @@ class BankSession(_StagedSession):
                 chunk, buf = buf[:bs], buf[bs:]
                 if self.analyzer.feed(chunk) and self.on_spectrum:
                     self.on_spectrum(self.analyzer.spectrum_db())
-                self.metrics.overload = self.analyzer.overload
                 self._enter(self.bank.process(chunk))
                 blocks += 1
             self._pending = buf

@@ -25,9 +25,14 @@ over the reps (the headline: the port is host-bound), the spread
 (max - min over the median), the median CUDA-event ms a step of the same
 reps, and what the timed reps counted: the kernels launched
 (``kernels.LAUNCHES``), the PLL tiers taken and the AGC's sequential
-fallbacks.  Every step's audio and S-meter must be finite: a row whose
-step raises or is not finite reports ``error`` and no time, and the
-suite exits non-zero.  Nothing is retried.
+fallbacks.  A row says whether its single-stream step replays a CUDA
+graph (``graphed``: ``Receiver``'s rule); a graphed chain row also times
+the eager step function (``receiver_step_planes``) the same way
+(``eager_ms``).  On the card one more rep runs under torch.profiler,
+untimed, for the host reads a step (``host_reads``: the device values
+read on the host).  Every step's audio and S-meter must be finite: a row
+whose step raises or is not finite reports ``error`` and no time, and
+the suite exits non-zero.  Nothing is retried.
 
 Everything runs on ``cuda`` unless the caller passes ``--device cpu``
 (which exists for the tests); without a card the entry points raise.
@@ -57,7 +62,9 @@ from cutesdr_tpu_torch.demod import fm, sam
 from cutesdr_tpu_torch.design.latency import (choose_fastfir_sizes,
                                               latency_report)
 from cutesdr_tpu_torch.ops import agc
-from cutesdr_tpu_torch.pipeline.receiver import Receiver, ReceiverConfig
+from cutesdr_tpu_torch.pipeline.receiver import (Receiver, ReceiverConfig,
+                                                 graph_rule, init,
+                                                 receiver_step_planes)
 from cutesdr_tpu_torch.types import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,7 +76,8 @@ BREAKDOWN_CHAIN = 16  # steps of the session breakdown's step timing
 # keys a row has beyond the JAX suite's row, beside its CUDA-event time
 # (event_ms_per_step; a session row's event_ms_per_block); h2d_gbps takes
 # the place of the session rows' tunnel_mbps
-EXTRA_KEYS = ("launches", "pll_tiers", "agc_fallbacks", "reps", "device")
+EXTRA_KEYS = ("launches", "pll_tiers", "agc_fallbacks", "reps", "device",
+              "graphed", "eager_ms", "host_reads")
 
 
 # ------------------------------------------------------------------ rows ---
@@ -297,9 +305,27 @@ def time_steps(step: Callable[[], object], iters: int, reps: int,
     return time_reps(rep, iters, reps, device, check)
 
 
+def host_reads(run: Callable[[], None], per_run: int,
+               device: torch.device) -> Optional[float]:
+    """Host reads a step (``aten::_local_scalar_dense``: ``.item()``,
+    ``bool`` of a device tensor) over one untimed ``run()`` of ``per_run``
+    steps under torch.profiler; None off the card."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        _sync(device)
+    reads = {e.key: e.count for e in prof.key_averages()}.get(
+        "aten::_local_scalar_dense", 0)
+    return reads / per_run
+
+
 def _rates(cfg: ReceiverConfig, block: int, ms: float) -> tuple[float, float]:
-    """Input Msps and real-time factor of ``block`` samples in ``ms``."""
-    msps = block / (ms * 1e-3) / 1e6
+    """Input Msps and real-time factor of ``block`` samples in ``ms``
+    (samples a millisecond / 1e3: the one rounding the row's readers
+    recompute it with)."""
+    msps = block / ms / 1e3
     return msps, msps * 1e6 / cfg.input_rate
 
 
@@ -321,17 +347,40 @@ def chain_step(cfg: ReceiverConfig, stimulus: np.ndarray,
     return lambda: r.process_planes(re, im)
 
 
+def eager_step(cfg: ReceiverConfig, stimulus: np.ndarray,
+               device) -> Callable[[], object]:
+    """``chain_step`` through the eager step function
+    (``receiver_step_planes``), as a receiver the graph rule leaves out
+    runs it."""
+    params, state = init(cfg, device)
+    re, im = (torch.from_numpy(p).to(device) for p in planes(stimulus))
+    carry = [state]
+
+    def step():
+        carry[0], out = receiver_step_planes(cfg, params, carry[0], re, im)
+        return out
+    return step
+
+
 def bench_receiver_cfg(name: str, cfg: ReceiverConfig, stimulus: np.ndarray,
                        iters: int = ITERS, device="cuda", extras=None,
                        reps: int = REPS) -> dict:
     """One chain row on ``stimulus``, a complex block of ``cfg``."""
     device = resolve_device(device)
-    t = time_steps(chain_step(cfg, stimulus, device), iters, reps, device)
+    graphed = graph_rule(cfg, device)
+    eager_ms = None
+    if graphed:
+        eager_ms = time_steps(eager_step(cfg, stimulus, device), iters,
+                              reps, device).ms
+    step = chain_step(cfg, stimulus, device)
+    t = time_steps(step, iters, reps, device)
+    reads = host_reads(lambda: [step() for _ in range(iters)], iters, device)
     msps, rt = _rates(cfg, cfg.block_size, t.ms)
     return {"config": name, "input_rate": cfg.input_rate, "mode": cfg.mode,
             "block": cfg.block_size, "ms_per_step": t.ms, "iq_msps": msps,
             "realtime_factor": rt, "spread": t.spread, **(extras or {}),
-            **_timing_keys(t, "step", device, reps)}
+            **_timing_keys(t, "step", device, reps), "graphed": graphed,
+            "eager_ms": eager_ms, "host_reads": reads}
 
 
 def bench_channel_bank(cfg: ReceiverConfig, iters: int = ITERS,
@@ -343,13 +392,16 @@ def bench_channel_bank(cfg: ReceiverConfig, iters: int = ITERS,
     device = resolve_device(device)
     bank = ChannelBank(cfg, BANK_FREQS, device)
     re, im = (torch.from_numpy(p).to(device) for p in bank_planes(cfg))
-    t = time_steps(lambda: bank.process_planes(re, im), iters, reps, device)
+    step = lambda: bank.process_planes(re, im)
+    t = time_steps(step, iters, reps, device)
+    reads = host_reads(lambda: [step() for _ in range(iters)], iters, device)
     msps, rt = _rates(cfg, cfg.block_size, t.ms)
     return {"config": "64ch_bank_10msps", "channels": len(BANK_FREQS),
             "input_rate": cfg.input_rate, "block": cfg.block_size,
             "ms_per_step": t.ms, "iq_msps": msps,
             "channel_msps": msps * len(BANK_FREQS), "realtime_factor": rt,
-            "spread": t.spread, **_timing_keys(t, "step", device, reps)}
+            "spread": t.spread, **_timing_keys(t, "step", device, reps),
+            "graphed": False, "eager_ms": None, "host_reads": reads}
 
 
 def bench_latency_mode(row: Row, iters: int = ITERS, device="cuda",
@@ -484,6 +536,8 @@ def bench_session_streaming(cfg: ReceiverConfig, n_blocks: int, depth: int,
 
         check(-1)
         t = time_reps(rep, n_blocks, reps, device, check)
+        reads = host_reads(rep, n_blocks, device)
+        check(reps)
     finally:
         sess.stop()
     msps, rt = _rates(cfg, cfg.block_size, t.ms)
@@ -510,7 +564,9 @@ def bench_session_streaming(cfg: ReceiverConfig, n_blocks: int, depth: int,
             "device step on resident planes, the audio D2H and the host's "
             "own work, each alone; ms_per_block below their sum is the "
             "session's overlap of upload, step and delivery")
-    return row | _timing_keys(t, "block", device, reps)
+    return row | _timing_keys(t, "block", device, reps) | {
+        "graphed": sess.receiver.graphed, "eager_ms": None,
+        "host_reads": reads}
 
 
 # -------------------------------------------------------------- entries ---
@@ -554,7 +610,9 @@ def bench_receiver(frames_per_block: int = 256, reps: int = REPS,
     r = Receiver(cfg, device)
     re_d, im_d = torch.from_numpy(re).to(device), torch.from_numpy(im).to(
         device)
-    t = time_steps(lambda: r.process_planes(re_d, im_d), iters, reps, device)
+    step = lambda: r.process_planes(re_d, im_d)
+    t = time_steps(step, iters, reps, device)
+    reads = host_reads(lambda: [step() for _ in range(iters)], iters, device)
     print(f"block {cfg.block_size}, {reps} reps of {iters} chained steps "
           f"({time.perf_counter() - t0:.1f} s with the warm-up)",
           file=sys.stderr)
@@ -572,7 +630,7 @@ def bench_receiver(frames_per_block: int = 256, reps: int = REPS,
                       / msps},
             "block": cfg.block_size, "ms_per_step": t.ms,
             "event_ms_per_step": t.event_ms_median, **t.counts,
-            "device": info}
+            "graphed": r.graphed, "host_reads": reads, "device": info}
 
 
 def run_flagship(frames_per_block: int = 256, reps: int = REPS,

@@ -1,5 +1,14 @@
 // The AGC's exact sequential averagers over C independent streams.
 //
+// The fallback is decided on the card, as JAX's lax.cond decides it
+// inside the compiled step: the call takes the guess-verify solve's
+// convergence flag (``skip``) and returns at once where it holds; where
+// it does not, the exact result is written over the parallel one in
+// place (attack last, decay last, timer, the max(attack, decay) series),
+// so no select follows, and the call adds one to a device counter (the
+// fallback count the host reads only when asked).  No host read, so the
+// receiver's step can be captured and replayed as one CUDA graph.
+//
 // Has no Pallas counterpart.  It replaces the per-sample torch loop
 // ops/agc._averager_scan of the port (the recurrence that JAX runs on the
 // device as a lax.scan under lax.cond, cutesdr_tpu/ops/agc.py:134-156,
@@ -56,6 +65,8 @@ struct AgcSeqArgs {
     float* d_out;
     int* timer_out;
     float* mag;              // [C, n] max(a, d)
+    const unsigned char* skip;   // null, or: set -> return at once
+    int* count;              // null, or: +1 for a call that runs
 };
 
 // Both averagers' state and constants (1 - alpha rounded once).
@@ -117,6 +128,8 @@ __device__ __forceinline__ void load_groups(float (&v)[AGC_GROUPS],
 template <bool HANG>
 __global__ void __launch_bounds__(AGC_LANES) agc_seq_kernel(AgcSeqArgs s) {
     __shared__ __align__(16) float tile[AGC_TILE];
+    if (s.skip && *s.skip) return;             // the solve converged
+    if (s.count && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(s.count, 1);
     const long long row = (long long)blockIdx.x * s.n;
     const float* peak = s.peak + row;
     float* mag = s.mag + row;
@@ -163,14 +176,19 @@ using namespace cutesdr;
 // Both averagers over peak [n_ch, n] from (a0, d0, timer0) [n_ch]: mag
 // [n_ch, n] = max(a, d), the final states into a_out, d_out and (hang
 // mode: hang_time >= 0) timer_out.  hang_time < 0: the two-rate decay.
+// skip: null, or a device flag on which the call writes nothing and
+// returns; count: null, or a device counter the call adds one to when it
+// runs.
 CUTESDR_API int cutesdr_agc_seq(const float* peak, int n, int n_ch, float ar,
                                 float af, float dr, float df, int hang_time,
                                 const float* a0, const float* d0,
                                 const int* timer0, float* a_out, float* d_out,
-                                int* timer_out, float* mag, void* stream) {
+                                int* timer_out, float* mag,
+                                const unsigned char* skip, int* count,
+                                void* stream) {
     if (n <= 0 || n_ch <= 0) return (int)cudaErrorInvalidValue;
     AgcSeqArgs s{peak, n, ar, af, dr, df, hang_time, a0, d0, timer0,
-                 a_out, d_out, timer_out, mag};
+                 a_out, d_out, timer_out, mag, skip, count};
     const cudaStream_t st = (cudaStream_t)stream;
     if (hang_time >= 0)
         agc_seq_kernel<true><<<n_ch, AGC_LANES, 0, st>>>(s);

@@ -18,7 +18,7 @@
 //    coalesced 16-byte loads, each thread composes its 8 consecutive
 //    elements, an ordered block scan gives every thread its prefix and
 //    the chunk its map, the look-back of scan_common.cuh (one pass, status
-//    words tagged with the call's epoch, chunk ids from a ticket, the same
+//    words zeroed before the launch, chunk ids from a ticket, the same
 //    bits on every call) gives the chunk its start value, and x goes back
 //    through the tile with coalesced stores.  B may carry a scale (the
 //    EMA's alpha: B = alpha*u, rounded once, as the plain version's
@@ -81,7 +81,6 @@ struct AffineArgs {
     float* x;                // [rows, n]
     Lookback lb;
     unsigned* ticket;
-    unsigned ticket_base, epoch;
 };
 
 __global__ void __launch_bounds__(SCAN_THREADS)
@@ -89,7 +88,7 @@ affine_scan_kernel(AffineArgs s) {
     __shared__ __align__(16) float tile_b[SCAN_CHUNK];
     __shared__ __align__(16) float tile_a[SCAN_CHUNK];
     const bool chained = s.nchunks > 1;
-    const int id = chunk_ticket(s.ticket, s.ticket_base, chained);
+    const int id = chunk_ticket(s.ticket, chained);
     const int row = id / s.nchunks, c = id - row * s.nchunks;
     const long long off = (long long)row * s.n + (long long)c * SCAN_CHUNK;
     const int len = min(SCAN_CHUNK, s.n - c * SCAN_CHUNK);
@@ -111,7 +110,7 @@ affine_scan_kernel(AffineArgs s) {
     const Aff ex = block_exclusive(t, &total);
     const float x0 = s.x0 ? s.x0[(long long)row * s.x0_stride] : s.x0_value;
     const float start = chained ? chunk_start(s.lb, row * s.nchunks, c,
-                                              s.nchunks, total, x0, s.epoch)
+                                              s.nchunks, total, x0)
                                 : x0;
     float x = apply(ex, start);
 #pragma unroll
@@ -285,21 +284,18 @@ using namespace cutesdr;
 // row r = x0[r * x0_stride] (x0 non-null) or x0_value.  vec: a, b, x are
 // 16-byte aligned and n % 4 == 0.  Rows of more than one chunk chain
 // through the look-back memory (flags: rows * ceil(n / 2048) slots, agg:
-// two 16-byte words a slot; ticket: one counter) with the call's epoch
-// (never 0) and ticket base (the ticket's value before the launch).
+// two 16-byte words a slot; ticket: one counter), all zeroed by the
+// caller before the launch.
 CUTESDR_API int cutesdr_scan_affine(const float* a, float a_scalar,
                                     const float* b, float b_scale,
                                     const float* x0, int x0_stride,
                                     float x0_value, int n, int rows, int vec,
                                     float* x, unsigned* flags, double2* agg,
-                                    unsigned* ticket,
-                                    unsigned ticket_base, unsigned epoch,
-                                    void* stream) {
+                                    unsigned* ticket, void* stream) {
     if (n <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
     const int nchunks = (n + SCAN_CHUNK - 1) / SCAN_CHUNK;
     AffineArgs s{a, a_scalar, b, b_scale, x0, x0_stride, x0_value, n,
-                 nchunks, vec != 0, x, {flags, agg}, ticket,
-                 ticket_base, epoch};
+                 nchunks, vec != 0, x, {flags, agg}, ticket};
     affine_scan_kernel<<<rows * nchunks, SCAN_THREADS, 0,
                          (cudaStream_t)stream>>>(s);
     return (int)cudaGetLastError();

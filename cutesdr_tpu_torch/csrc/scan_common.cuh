@@ -179,9 +179,12 @@ __device__ __forceinline__ void put_items(float* tile,
 // status word and one map read: at 262,144 elements the last chunk folds
 // its 127 in one round.
 //
-// A status word holds the epoch of the call that published the aggregate
-// (a per-call number the wrapper passes), so a word left by an earlier
-// call reads as not ready and no call clears the memory.  It is published
+// A status word reads READY once its chunk has published its aggregate.
+// The wrapper zeroes the call's status words and its ticket on the stream
+// before the launch (one fill, which a CUDA graph captures with the
+// launch), so a word left by an earlier call, or by an earlier replay of
+// a graph, reads as not ready, and every call's chunk ids start at 0:
+// the kernels take no per-call number from the host.  A word is published
 // with a release store after its aggregate, and read with an acquire load
 // before the aggregate, which is read past L1 (ld.global.cg): L1 is not
 // coherent across SMs.  Chunk ids come from an atomic ticket taken when a
@@ -189,8 +192,10 @@ __device__ __forceinline__ void put_items(float* tile,
 // holds its SM, before it: no wait on a block that is not scheduled, even
 // while another stream holds SMs.
 
+constexpr unsigned READY = 1u;            // a published status word
+
 struct Lookback {
-    unsigned* flags;          // [slots] status words (the publishing epoch)
+    unsigned* flags;          // [slots] status words (0, or READY)
     double2* agg;             // [2 * slots] chunk maps, two words a slot
 };
 
@@ -226,14 +231,13 @@ __device__ __forceinline__ void fetch(const double2* slot, MaxAff* m) {
 __device__ __forceinline__ void identity(Aff* m) { *m = aff_id(); }
 __device__ __forceinline__ void identity(MaxAff* m) { *m = maxaff_id(); }
 
-// The block's chunk id: a ticket in launch order, or blockIdx.x where the
-// chunks do not wait on each other.  All threads call.
-__device__ __forceinline__ int chunk_ticket(unsigned* ticket,
-                                            unsigned ticket_base,
-                                            bool ordered) {
+// The block's chunk id: a ticket in launch order (the ticket zeroed
+// before the launch), or blockIdx.x where the chunks do not wait on each
+// other.  All threads call.
+__device__ __forceinline__ int chunk_ticket(unsigned* ticket, bool ordered) {
     __shared__ int id;
     if (!ordered) return blockIdx.x;
-    if (threadIdx.x == 0) id = (int)(atomicAdd(ticket, 1u) - ticket_base);
+    if (threadIdx.x == 0) id = (int)atomicAdd(ticket, 1u);
     __syncthreads();
     return id;
 }
@@ -243,8 +247,7 @@ __device__ __forceinline__ int chunk_ticket(unsigned* ticket,
 // the chunk t before the nearest of the round, so warp w's window ends 32*w
 // chunks back.
 template <class Map>
-__device__ Map lookback(const Lookback& lb, int row, int c,
-                        unsigned epoch) {
+__device__ Map lookback(const Lookback& lb, int row, int c) {
     __shared__ Map window[SCAN_THREADS / 32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
@@ -255,7 +258,7 @@ __device__ Map lookback(const Lookback& lb, int row, int c,
         Map m;
         identity(&m);
         if (j >= 0) {
-            while (ld_acquire(lb.flags + row + j) != epoch) {
+            while (ld_acquire(lb.flags + row + j) != READY) {
             }
             fetch(lb.agg + 2 * (row + j), &m);
         }
@@ -280,13 +283,13 @@ __device__ Map lookback(const Lookback& lb, int row, int c,
 // every thread returns the start.
 template <class Map, class T>
 __device__ T chunk_start(const Lookback& lb, int row, int c, int nchunks,
-                         Map total, T x0, unsigned epoch) {
+                         Map total, T x0) {
     __shared__ T start_s;
     if (threadIdx.x == 0 && c + 1 < nchunks) {
         publish(lb.agg + 2 * (row + c), total);
-        st_release(lb.flags + row + c, epoch);
+        st_release(lb.flags + row + c, READY);
     }
-    const Map m = lookback<Map>(lb, row, c, epoch);
+    const Map m = lookback<Map>(lb, row, c);
     if (threadIdx.x == 0) start_s = apply(m, x0);
     __syncthreads();
     return start_s;

@@ -7,6 +7,11 @@
 // clamp hits, carrier-less noise).  For FM, K7 also takes the place of
 // the JAX package's chunked tier (cutesdr_tpu/ops/pll.py:chunked_scan,
 // called by demod/fm.py:_pll_chunked), whose validity flag it returns.
+// Both take the linear tier's validity flag by pointer (``skip``) and
+// return at once where it holds, leaving the linear tier's outputs in
+// place, so the demodulators choose their tier on the card as JAX's
+// lax.cond does, with no host read (the receiver's step is replayed as
+// one CUDA graph).
 //
 //   FM:  err = -wrap(th + phase)            emits freq (post-update), err
 //   SAM: err =  wrap(th - phase)            emits phase (pre-update)
@@ -99,9 +104,9 @@
 // (2,048 chunks of a 262,144-sample stream on 64 blocks).  Pass 2 of a
 // group needs one value of its left neighbour group (its last chunk's
 // pass-1 end), and the repair needs every group's pass 2.  Both are
-// status words (one per group and pass, tagged with the call's epoch)
-// in the per-stream status memory of kernels/scan.py, and group ids come
-// from an atomic ticket in launch order, so every group a block waits on
+// status words (one per group and pass, zeroed with the ticket before
+// the launch) in the look-back memory of kernels/scan.py, and group ids
+// come from an atomic ticket in launch order, so every group a block waits on
 // has started before it: the left neighbour for its pass-1 end, and, for
 // a stream's last group, which runs the repair, all the stream's groups
 // for their pass 2.  No block waits on a block that waits on it, no grid
@@ -434,11 +439,19 @@ struct PllArgs {
     unsigned char* valid;    // [C] FM: the first verify held (0 unchunked)
     float2* e1;              // [C, n / 128] FM chunked: pass-1 end states
     float2* e2;              //                          pass-2 end states
-    unsigned* flags;         // [2 * C * groups] status words
-    unsigned* ticket;
-    unsigned ticket_base, epoch;
+    unsigned* flags;         // [2 * C * groups] status words (zeroed)
+    unsigned* ticket;        // zeroed before the launch
     long long* clocks;       // [3] or null: the clock probe
+    const unsigned char* skip;   // null, or a flag: when set, the call
+                                 // leaves every output as it was (FM's
+                                 // valid: 0) and returns at once
 };
+
+// The skip flag of a call (every thread reads it; all return together,
+// before any barrier).
+__device__ __forceinline__ bool skipped(const PllArgs& a) {
+    return a.skip && *a.skip;
+}
 
 __device__ __forceinline__ PllState start_state(const PllArgs& a, int c) {
     return {__fadd_rn(a.state0[2 * c], 0.f), a.state0[2 * c + 1]};
@@ -459,6 +472,10 @@ __global__ void __launch_bounds__(PLL_THREADS) pll_walk_kernel(PllArgs a) {
     const int c0 = blockIdx.x * PLL_LANES;
     const int nseg = min(PLL_LANES, a.n_ch - c0);
     const int c = c0 + min(lane, nseg - 1);
+    if (skipped(a)) {
+        if (FM && mine && lane < nseg) a.valid[c] = 0;
+        return;
+    }
     const long long row = (long long)c0 * a.n;
     const Span s{a.theta + row, a.out0 + row, FM ? a.out1 + row : nullptr,
                  0, a.n, nseg, a.n};
@@ -486,10 +503,10 @@ __device__ int next_failed(const float2* e1, const float2* e2, int from,
 }
 
 // Every lane's stores before it, visible device-wide, then the word.
-__device__ __forceinline__ void publish_word(unsigned* word, unsigned epoch) {
+__device__ __forceinline__ void publish_word(unsigned* word) {
     __threadfence();
     __syncwarp();
-    if (threadIdx.x == 0) st_release(word, epoch);
+    if (threadIdx.x == 0) st_release(word, READY);
 }
 
 // K7 on n >= 4 chunks: one block a group of 32 chunks of one stream.
@@ -500,7 +517,12 @@ __global__ void __launch_bounds__(PLL_THREADS) fm_chunked_kernel(PllArgs a) {
     __shared__ unsigned id_s;
     const int lane = threadIdx.x & (PLL_LANES - 1);
     const bool mine = threadIdx.x < PLL_LANES;      // the walker warp
-    if (threadIdx.x == 0) id_s = atomicAdd(a.ticket, 1u) - a.ticket_base;
+    if (skipped(a)) {
+        if (threadIdx.x == 0 && (int)blockIdx.x < a.n_ch)
+            a.valid[blockIdx.x] = 0;
+        return;
+    }
+    if (threadIdx.x == 0) id_s = atomicAdd(a.ticket, 1u);
     __syncthreads();
     const unsigned id = id_s;
     const int K = a.n / PLL_CHUNK;
@@ -528,7 +550,7 @@ __global__ void __launch_bounds__(PLL_THREADS) fm_chunked_kernel(PllArgs a) {
     st = walk<true>(Span{th, nullptr, nullptr, own, PLL_CHUNK, nseg,
                          PLL_CHUNK}, st, a.k, t, nullptr, nullptr, 0).st;
     if (writes) e1[kk] = make_float2(st.phase, st.freq);
-    publish_word(a.flags + 2 * id, a.epoch);
+    publish_word(a.flags + 2 * id);
 
     // pass 2: from the left neighbour's pass-1 end
     PllState left{__shfl_up_sync(FULL, st.phase, 1),
@@ -537,7 +559,7 @@ __global__ void __launch_bounds__(PLL_THREADS) fm_chunked_kernel(PllArgs a) {
         if (g == 0) {
             left = init;
         } else {
-            while (ld_acquire(a.flags + 2 * (id - 1)) != a.epoch) {
+            while (ld_acquire(a.flags + 2 * (id - 1)) != READY) {
             }
             const float2 v = __ldcg(e1 + k0 - 1);
             left = {v.x, v.y};
@@ -546,13 +568,13 @@ __global__ void __launch_bounds__(PLL_THREADS) fm_chunked_kernel(PllArgs a) {
     st = walk<true>(Span{th, out0, out1, own, PLL_CHUNK, nseg, PLL_CHUNK},
                     left, a.k, t, nullptr, nullptr, 0).st;
     if (writes) e2[kk] = make_float2(st.phase, st.freq);
-    publish_word(a.flags + 2 * id + 1, a.epoch);
+    publish_word(a.flags + 2 * id + 1);
     if (g != G - 1) return;
 
     // the stream's last group: every group's pass 2, the first verify,
     // then the repair walk
     for (int q = lane; q < G - 1; q += PLL_LANES) {
-        while (ld_acquire(a.flags + 2 * (id - (G - 1) + q) + 1) != a.epoch) {
+        while (ld_acquire(a.flags + 2 * (id - (G - 1) + q) + 1) != READY) {
         }
     }
     __syncthreads();
@@ -607,12 +629,15 @@ using namespace cutesdr;
 // [n_ch, n], state [n_ch, 2], valid [n_ch].  n >= 512 (4 chunks of 128)
 // takes the chunked scan with ``halo`` (0 .. 128) samples of warm-up,
 // e1, e2 [n_ch, n / 128] float2 scratch and 2 * n_ch * ceil(n / 4096)
-// status words (flags, the ticket, its base and the call's epoch, as
-// cutesdr_scan_affine's); below, the walker (valid 0, no scratch).
+// status words (flags and the ticket, zeroed by the caller before the
+// launch, as cutesdr_scan_affine's); below, the walker (valid 0, no
+// scratch).
 // fast: the fast wrap may be used (limit + 4*|alpha| <= 7); limit >= 0.
 // clocks [3] or null: the clock probe, which takes the walker at every n.
 // stager_ns: the stager warp sleeps this long after each group's barrier
 // (0 in use; a check that the walk's stop does not race its stores).
+// skip: null, or a device flag (FM's linear tier held) on which the call
+// writes valid 0, leaves freqs, err and state as they were, and returns.
 CUTESDR_API int cutesdr_fm_pll(const float* theta, int n, int n_ch,
                                float alpha, float beta, float limit,
                                int fast, int halo, const float* state0,
@@ -620,15 +645,14 @@ CUTESDR_API int cutesdr_fm_pll(const float* theta, int n, int n_ch,
                                unsigned char* valid, float2* e1,
                                float2* e2,
                                unsigned* flags, unsigned* ticket,
-                               unsigned ticket_base, unsigned epoch,
                                long long* clocks, unsigned stager_ns,
-                               void* stream) {
+                               const unsigned char* skip, void* stream) {
     if (n < 0 || n_ch <= 0 || halo < 0 || halo > PLL_CHUNK || !(limit >= 0.f))
         return (int)cudaErrorInvalidValue;
     const PllArgs a{theta, n, n_ch, halo,
                     make_k(alpha, beta, limit, fast, stager_ns),
                     state0, freqs, err, state, valid, e1, e2, flags, ticket,
-                    ticket_base, epoch, clocks};
+                    clocks, skip};
     const cudaStream_t st = (cudaStream_t)stream;
     if (fm_chunked(n) && !clocks) {
         const int groups = (n / PLL_CHUNK + PLL_LANES - 1) / PLL_LANES;
@@ -641,17 +665,19 @@ CUTESDR_API int cutesdr_fm_pll(const float* theta, int n, int n_ch,
 }
 
 // K8: the SAM loop over theta [n_ch, n]: prev [n_ch, n] (the pre-update
-// phases), state [n_ch, 2]; streams packed one a lane.
+// phases), state [n_ch, 2]; streams packed one a lane.  skip: null, or a
+// device flag (SAM's linear tier held) on which the call leaves prev and
+// state as they were and returns.
 CUTESDR_API int cutesdr_sam_pll(const float* theta, int n, int n_ch,
                                 float alpha, float beta, float limit,
                                 int fast, const float* state0, float* prev,
                                 float* state, long long* clocks,
-                                void* stream) {
+                                const unsigned char* skip, void* stream) {
     if (n < 0 || n_ch <= 0 || !(limit >= 0.f))
         return (int)cudaErrorInvalidValue;
     const PllArgs a{theta, n, n_ch, 0, make_k(alpha, beta, limit, fast, 0),
                     state0, prev, nullptr, state, nullptr, nullptr, nullptr,
-                    nullptr, nullptr, 0, 0, clocks};
+                    nullptr, nullptr, clocks, skip};
     pll_walk_kernel<false><<<(n_ch + PLL_LANES - 1) / PLL_LANES,
                              PLL_THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();

@@ -23,8 +23,8 @@
 //     once.
 // The last chunk of a row writes the row's (a_last, d_last).  A row of one
 // chunk (the session's block, a bank's rows, the FM monitor) takes no
-// look-back.  No scratch, no host read; the look-back's status words carry
-// the call's epoch, so no call clears them.
+// look-back.  No scratch, no host read; the caller zeroes the look-back's
+// status words and ticket before the launch (scan_common.cuh).
 #include "scan_common.cuh"
 
 namespace cutesdr {
@@ -40,13 +40,12 @@ struct SmeterArgs {
     float* out;              // [2, rows]: a_last, d_last
     Lookback attack, decay;
     unsigned* ticket;
-    unsigned ticket_base, epoch;
 };
 
 __global__ void __launch_bounds__(SCAN_THREADS) smeter_kernel(SmeterArgs s) {
     __shared__ __align__(16) float tile[SCAN_CHUNK];
     const bool chained = s.nchunks > 1;
-    const int id = chunk_ticket(s.ticket, s.ticket_base, chained);
+    const int id = chunk_ticket(s.ticket, chained);
     const int row = id / s.nchunks, c = id - row * s.nchunks;
     const int len = min(SCAN_CHUNK, s.n - c * SCAN_CHUNK);
     load_tile(tile, s.mag + (long long)row * s.n + (long long)c * SCAN_CHUNK,
@@ -64,9 +63,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) smeter_kernel(SmeterArgs s) {
     const int slots = row * s.nchunks;
     const float a0 = s.a0[(long long)row * s.carry_stride];
     const float a_start =
-        chained ? chunk_start(s.attack, slots, c, s.nchunks, total, a0,
-                              s.epoch)
-                : a0;
+        chained ? chunk_start(s.attack, slots, c, s.nchunks, total, a0) : a0;
     float a = apply(ex, a_start);
     MaxAff dm = maxaff_id();
 #pragma unroll
@@ -79,7 +76,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) smeter_kernel(SmeterArgs s) {
     dm = block_reduce(dm);                 // valid in thread 0
     const double d0 = s.d0[(long long)row * s.carry_stride];
     const double d_start =
-        chained ? chunk_start(s.decay, slots, c, s.nchunks, dm, d0, s.epoch)
+        chained ? chunk_start(s.decay, slots, c, s.nchunks, dm, d0)
                 : d0;
     if (c == s.nchunks - 1 && threadIdx.x == 0) {
         s.out[row] = apply(total, a_start);
@@ -98,15 +95,12 @@ using namespace cutesdr;
 // through two phases of look-back memory (flags: 2 * rows * ceil(n / 2048)
 // slots, agg: two 16-byte words a slot; the decay phase's after the
 // attack's;
-// ticket: one counter) with the call's epoch (never 0) and ticket base
-// (the ticket's value before the launch).
+// ticket: one counter), all zeroed by the caller before the launch.
 CUTESDR_API int cutesdr_smeter(const float* mag, float aa, float ca, float ad,
                                float cd, const float* a0, const float* d0,
                                int carry_stride, int n, int rows, int vec,
                                float* out, unsigned* flags, double2* agg,
-                               unsigned* ticket,
-                               unsigned ticket_base, unsigned epoch,
-                               void* stream) {
+                               unsigned* ticket, void* stream) {
     if (n <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
     const int nchunks = (n + SCAN_CHUNK - 1) / SCAN_CHUNK;
     const int slots = rows * nchunks;
@@ -114,7 +108,7 @@ CUTESDR_API int cutesdr_smeter(const float* mag, float aa, float ca, float ad,
                  carry_stride, out,
                  {flags, agg},
                  {flags + slots, agg + 2 * slots},
-                 ticket, ticket_base, epoch};
+                 ticket};
     smeter_kernel<<<slots, SCAN_THREADS, 0, (cudaStream_t)stream>>>(s);
     return (int)cudaGetLastError();
 }

@@ -51,29 +51,29 @@ SIGNATURES = {
     "cutesdr_fastfir": [P, P, P, P, P, I32, I32, I32, I32, I32, I64, I64,
                         I64, I64, P],
     # a, a_scalar, b, b_scale, x0, x0_stride, x0_value, n, rows, vec, x,
-    # flags, agg, ticket, ticket_base, epoch, stream
+    # flags, agg, ticket, stream
     "cutesdr_scan_affine": [P, F32, P, F32, P, I32, F32, I32, I32, I32, P,
-                            P, P, P, U32, U32, P],
+                            P, P, P, P],
     # peak, pattern_in, rise, fall, ag, x0, n, n_iters, x, pattern, counts,
     # result, totals_a, totals_b, stream
     "cutesdr_scan_solve": [P, P, F32, F32, F32, P, I32, I32, P, P, P, P, P,
                            P, P],
     # mag, aa, 1 - aa, ad, 1 - ad, a0, d0, carry_stride, n, rows, vec, out,
-    # flags, agg, ticket, ticket_base, epoch, stream
+    # flags, agg, ticket, stream
     "cutesdr_smeter": [P, F32, F32, F32, F32, P, P, I32, I32, I32, I32, P, P,
-                       P, P, U32, U32, P],
+                       P, P, P],
     # peak, n, n_ch, attack rise, attack fall, decay rise, decay fall,
-    # hang_time, a0, d0, timer0, a_out, d_out, timer_out, mag, stream
+    # hang_time, a0, d0, timer0, a_out, d_out, timer_out, mag, skip, count,
+    # stream
     "cutesdr_agc_seq": [P, I32, I32, F32, F32, F32, F32, I32, P, P, P, P, P,
-                        P, P, P],
+                        P, P, P, P, P],
     # theta, n, n_ch, alpha, beta, limit, fast, halo, state0, freqs, err,
-    # state, valid, e1, e2, flags, ticket, ticket_base, epoch, clocks,
-    # stager_ns, stream
+    # state, valid, e1, e2, flags, ticket, clocks, stager_ns, skip, stream
     "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, I32, I32, P, P, P, P, P,
-                       P, P, P, P, U32, U32, P, U32, P],
+                       P, P, P, P, P, U32, P, P],
     # theta, n, n_ch, alpha, beta, limit, fast, state0, prev, state,
-    # clocks, stream
-    "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, I32, P, P, P, P, P],
+    # clocks, skip, stream
+    "cutesdr_sam_pll": [P, I32, I32, F32, F32, F32, I32, P, P, P, P, P, P],
     # zr, zi, z_cstride, es, nz, t_int, t_frac, t_cstride, n_out, tables,
     # M, periods, interp, lanes, outputs_per_block, taps_per_lane, span,
     # n_streams, yr, yi, y_cstride, ys, stream

@@ -38,7 +38,8 @@ from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
 class MixDecParams(NamedTuple):
     h_eq: torch.Tensor   # composed decimation taps, float32 [L]
     phase_inc: int | torch.Tensor   # uint32 DDS increment (round(-f/fs *
-                                    # 2^32) mod 2^32); a bank: [C] int64
+                                    # 2^32) mod 2^32); a bank: [C] int64;
+                                    # a graphed receiver: 0-dim int64
     taps: torch.Tensor   # h_eq flipped to correlation order, contiguous
                          # (the kernel's taps, made once at init)
 
@@ -228,9 +229,9 @@ def process_planes(plan: DecimationPlan, params: MixDecParams,
     _build.require(carry.phase.reshape(-1), "phase", torch.int64, C)
     dc = dc.to(CDTYPE).reshape(-1)
     _build.require(dc, "dc", CDTYPE, C)
-    if bank:
+    if isinstance(params.phase_inc, torch.Tensor):   # read on the card
         incs = params.phase_inc
-        _build.require(incs, "phase_inc", torch.int64, C)
+        _build.require(incs.reshape(-1), "phase_inc", torch.int64, C)
         incs_ptr, inc0 = incs.data_ptr(), 0
     else:
         incs_ptr, inc0 = None, params.phase_inc

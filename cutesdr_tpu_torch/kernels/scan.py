@@ -31,6 +31,7 @@ solve takes the kernel at every size).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -45,7 +46,6 @@ ROWS_PER_STEP = 256           # the JAX kernels' block rows (S-meter gate)
 MIN_KERNEL_N = 65536          # the JAX kernels' size gate (TPU-timed)
 CHUNK = 2048                  # elements per CUDA block (THREADS * ITEMS in
                               # csrc/scan_common.cuh)
-EPOCHS = 2**32 - 1            # status-word epochs: 1 .. 2^32 - 1
 
 
 def smeter_supported(n: int) -> bool:
@@ -75,61 +75,70 @@ def shift1(x: torch.Tensor, x0) -> torch.Tensor:
 
 # -------------------------------------------------------- look-back state --
 
-class _Lookback:
-    """The status memory of the one-pass scans on one CUDA stream: status
-    words and chunk maps (one slot a chunk of each look-back phase), and
-    the ticket counter.  Grown, never cleared: each
-    call tags its status words with a new epoch, and takes chunk ids from
-    the ticket counter's value before its launch (``ticket_base``), which
-    the host tracks, so a call costs no memset and no host read."""
+class Lookback:
+    """The status memory of the one-pass scans (K3, K5) and of K7: status
+    words and chunk maps (one slot a chunk of each look-back phase) and
+    the ticket counter.  Each call zeroes its status words and the ticket
+    with one fill on its stream before its launch (``claim``), so the
+    kernels take no per-call number from the host, a call never reads a
+    word an earlier call left, and a CUDA graph that captures the fill
+    with the launch replays correctly.  Grown, never shrunk (a graph's is
+    sized by its warm-up step, so a capture never grows it)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.slots = 0
-        self.epoch = 0
-        self.tickets = 0
-        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
-        self.flags = self.agg = None
+        self.words = self.agg = None      # int32 [1 + slots]: ticket, flags
 
     def claim(self, slots: int) -> tuple:
-        """Pointers for a call of ``slots`` status slots (all phases) and its
-        (epoch, ticket base)."""
+        """Pointers (flags, agg, ticket) for a call of ``slots`` status
+        slots (all phases), zeroed on the current stream."""
         if slots > self.slots:
             self.slots = max(slots, 2 * self.slots)
             z = lambda *shape: torch.zeros(*shape, dtype=torch.int32,
                                            device=self.device)
             # a slot's map: two 16-byte words
-            self.flags, self.agg = z(self.slots), z(self.slots, 8)
-        self.epoch = self.epoch % EPOCHS + 1
-        return (self.flags.data_ptr(), self.agg.data_ptr(),
-                self.ticket.data_ptr(), self.tickets, self.epoch)
-
-    def launched(self, blocks: int) -> None:
-        self.tickets = (self.tickets + blocks) % 2**32
+            self.words, self.agg = z(1 + self.slots), z(self.slots, 8)
+        self.words[:1 + slots].zero_()
+        return (self.words.data_ptr() + 4, self.agg.data_ptr(),
+                self.words.data_ptr())
 
 
-_lookbacks: dict[tuple, _Lookback] = {}
+_lookbacks: dict[tuple, Lookback] = {}
 _lookback_lock = threading.Lock()
+_owned = threading.local()
 
 
-def launch_ordered(t: torch.Tensor, slots: int, blocks: int, launch) -> int:
-    """Launch a kernel whose blocks order themselves through the status
-    memory of ``t``'s stream: ``launch(flags, agg, ticket, ticket_base,
-    epoch)`` enqueues it with ``slots`` status slots (0: none, and no
-    tickets taken) and returns its CUDA error, which is returned; its
-    ``blocks`` blocks each take one ticket.  Shared by every kernel of
-    the stream (the scans here, K7 in ``kernels/seqloop``): a call's epoch
-    is new, so no call reads another's words."""
-    key = (t.device.index, _build.stream(t))
+@contextlib.contextmanager
+def own_lookback(lb: Lookback):
+    """Launches of this thread inside the block use ``lb`` (a CUDA graph's
+    own look-back memory) instead of their stream's."""
+    kept = getattr(_owned, "lb", None)
+    _owned.lb = lb
+    try:
+        yield lb
+    finally:
+        _owned.lb = kept
+
+
+def launch_ordered(t: torch.Tensor, slots: int, launch) -> int:
+    """Launch a kernel whose blocks order themselves through look-back
+    memory: ``launch(flags, agg, ticket)`` enqueues it with ``slots``
+    status slots (0: none, all three null) and returns its CUDA error,
+    which is returned.  The memory is the thread's own (``own_lookback``)
+    or that of ``t``'s stream, shared by every kernel of the stream (the
+    scans here, K7 in ``kernels/seqloop``), which the stream's order keeps
+    apart."""
+    if not slots:
+        return launch(None, None, None)
+    lb = getattr(_owned, "lb", None)
     with _lookback_lock:
-        lb = _lookbacks.get(key)
         if lb is None:
-            lb = _lookbacks[key] = _Lookback(t.device)
-        ptrs = lb.claim(slots) if slots else (None, None, None, 0, 0)
-        err = launch(*ptrs)
-        if err == 0 and slots:
-            lb.launched(blocks)
-    return err
+            key = (t.device.index, _build.stream(t))
+            lb = _lookbacks.get(key)
+            if lb is None:
+                lb = _lookbacks[key] = Lookback(t.device)
+        return launch(*lb.claim(slots))
 
 
 def _launch_chained(t: torch.Tensor, rows: int, n: int, phases: int,
@@ -138,8 +147,8 @@ def _launch_chained(t: torch.Tensor, rows: int, n: int, phases: int,
     with ``phases`` look-back phases (``launch_ordered``).  Rows of one
     chunk use no look-back memory."""
     nchunks = -(-n // CHUNK)
-    slots = phases * rows * nchunks if nchunks > 1 else 0
-    return launch_ordered(t, slots, rows * nchunks, launch)
+    return launch_ordered(t, phases * rows * nchunks if nchunks > 1 else 0,
+                          launch)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:

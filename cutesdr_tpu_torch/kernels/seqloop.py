@@ -30,6 +30,14 @@ tile rule); the CUDA kernels stream from global memory and take every n.
 A channel bank gives ``theta`` [C, n] and one initial phase and frequency
 per stream; the plain loops run unchanged on [C] tensors.  One stream is
 C = 1.
+
+The demodulators decide their tier on the device, as JAX's ``lax.cond``
+does: ``fm_pll_chunked`` and ``sam_pll_scan`` take the linear tier's
+validity (``skip``, a 0-dim bool) and its outputs (``out``); the kernel
+reads the flag and returns at once where it holds, leaving ``out`` as it
+is, and otherwise writes the exact loop's outputs over it.  So the step
+reads nothing on the host.  The plain versions take the same arguments
+and branch on their CPU bool.
 """
 
 from __future__ import annotations
@@ -135,8 +143,19 @@ def _repair(consts, theta, e1, e2, freqs, errs, K: int):
     return phase, freq, fr, er
 
 
+def _skipped(skip, out) -> bool:
+    """Whether a plain version's call is skipped (``skip`` holds; it then
+    needs ``out``)."""
+    if skip is None or not bool(skip):
+        return False
+    if out is None:
+        raise ValueError("skip needs out: the outputs it leaves as they are")
+    return True
+
+
 def fm_pll_chunked_plain(alpha, beta, limit, phase0, freq0,
-                         theta: torch.Tensor, halo: int = HALO):
+                         theta: torch.Tensor, halo: int = HALO, skip=None,
+                         out=None):
     """K7's schedule in torch, with ``fm_pll_scan_plain``'s operations:
     pass 1 (every chunk from the initial state through ``halo`` samples of
     the previous chunk and its own; chunk 0 from the true state), pass 2
@@ -145,10 +164,14 @@ def fm_pll_chunked_plain(alpha, beta, limit, phase0, freq0,
     neighbour consumed, as ``ops/pll.chunked_scan``), then the walker's
     repairs in the kernel's order.  Returns (valid, phase', freq', freqs,
     err), the last four bitwise the sequential loop's; below
-    ``MIN_CHUNKS`` chunks the loop alone with valid False."""
+    ``MIN_CHUNKS`` chunks the loop alone with valid False.  Where ``skip``
+    holds, (False, *out)."""
     n = theta.shape[-1]
     K = n // CHUNK
     lead = theta.shape[:-1]
+    if _skipped(skip, out):
+        return (torch.zeros(lead, dtype=torch.bool, device=theta.device),
+                *out)
     if K < MIN_CHUNKS:
         return (torch.zeros(lead, dtype=torch.bool, device=theta.device),
                 *fm_pll_scan_plain(alpha, beta, limit, phase0, freq0, theta))
@@ -214,20 +237,40 @@ def _streams(theta: torch.Tensor):
     return n, rows, 1 if rows is None else rows
 
 
+def _skip_ptr(skip) -> int | None:
+    if skip is None:
+        return None
+    _build.require(skip.reshape(1), "skip", torch.bool, 1)
+    return skip.data_ptr()
+
+
+def _outputs(theta: torch.Tensor, state0: torch.Tensor, out, series: int):
+    """The kernel's (state [.., 2], series...) buffers: fresh, or ``out``'s
+    (phase, freq, series...) where the call may leave them as they are."""
+    if out is None:
+        return (torch.empty_like(state0),
+                *(torch.empty_like(theta) for _ in range(series)))
+    phase, freq, *rest = out
+    for t in rest:
+        _build.require(t, "out", RDTYPE, theta.shape[-1],
+                       rows=theta.shape[0] if theta.dim() == 2 else None)
+    return (torch.stack([phase, freq], -1).to(RDTYPE), *rest)
+
+
 def _fm_launch(alpha, beta, limit, phase0, freq0, theta: torch.Tensor,
                halo: int = HALO, fast_round: bool = True, clocks=None,
-               stager_ns: int = 0):
+               stager_ns: int = 0, skip=None, out=None):
     """One launch of K7 over every stream of ``theta``: (valid, phase',
     freq', freqs, err); ``clocks`` (int64 [3]) takes the walker's clock
     probe, which walks every n; ``stager_ns`` delays the stager warp after
-    each group's barrier (a check of the walk's ordering)."""
+    each group's barrier (a check of the walk's ordering); ``skip`` and
+    ``out`` as the module notes say."""
     n, rows, c = _streams(theta)
     if not 0 <= halo <= CHUNK:
         raise ValueError(f"fm_pll_chunked: halo {halo} outside 0..{CHUNK}")
     consts = _checked_consts(alpha, beta, limit, fast_round)
     state0 = _state0(phase0, freq0, theta).contiguous()
-    freqs, errs = torch.empty_like(theta), torch.empty_like(theta)
-    state = torch.empty_like(state0)
+    state, freqs, errs = _outputs(theta, state0, out, 2)
     valid = torch.empty(theta.shape[:-1], dtype=torch.uint8,
                         device=theta.device)
     K = n // CHUNK
@@ -238,20 +281,21 @@ def _fm_launch(alpha, beta, limit, phase0, freq0, theta: torch.Tensor,
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.library()
     err = scan.launch_ordered(
-        theta, 2 * c * groups if chunked else 0, c * groups,
-        lambda flags, _agg, ticket, base, epoch: lib.cutesdr_fm_pll(
+        theta, 2 * c * groups if chunked else 0,
+        lambda flags, _agg, ticket: lib.cutesdr_fm_pll(
             theta.data_ptr(), n, c, *consts, halo, state0.data_ptr(),
             freqs.data_ptr(), errs.data_ptr(), state.data_ptr(),
             valid.data_ptr(), ptr(ends), None if ends is None else
-            ends[1].data_ptr(), flags, ticket, base, epoch, ptr(clocks),
-            stager_ns, _build.stream(theta)))
+            ends[1].data_ptr(), flags, ticket, ptr(clocks), stager_ns,
+            _skip_ptr(skip), _build.stream(theta)))
     _build.check(err, "seqloop_fm")
     LAUNCHES["seqloop_fm"] += 1
     return valid.view(torch.bool), state[..., 0], state[..., 1], freqs, errs
 
 
 def fm_pll_chunked(alpha, beta, limit, phase0, freq0, theta: torch.Tensor,
-                   halo: int = HALO, stager_ns: int = 0):
+                   halo: int = HALO, stager_ns: int = 0, skip=None,
+                   out=None):
     """The FM PLL recurrence over float32 ``theta`` ([n], or [C, n] for C
     streams), exact, and the chunked tier's flag.  Returns (valid, phase',
     freq', freqs, err): whether every chunk boundary held at the first
@@ -260,12 +304,15 @@ def fm_pll_chunked(alpha, beta, limit, phase0, freq0, theta: torch.Tensor,
     per-sample NCO frequency and the phase-error series.  One launch of
     K7 on the card; ``stager_ns`` there sleeps the kernel's stager warp
     after each 32-sample group (0 in use; the smoke's check that a repair
-    walk's stop does not race the stores)."""
+    walk's stop does not race the stores).  With ``skip`` (FM's linear
+    tier held) and ``out`` (its (phase', freq', freqs, err)): (False,
+    *out) where the flag holds, else the exact outputs, written over
+    ``out`` on the card."""
     if _build.on_cpu(theta):
         return fm_pll_chunked_plain(alpha, beta, limit, phase0, freq0, theta,
-                                    halo)
+                                    halo, skip, out)
     return _fm_launch(alpha, beta, limit, phase0, freq0, theta, halo,
-                      stager_ns=stager_ns)
+                      stager_ns=stager_ns, skip=skip, out=out)
 
 
 def fm_pll_scan(alpha, beta, limit, phase0, freq0, theta: torch.Tensor):
@@ -280,7 +327,9 @@ def fm_pll_scan(alpha, beta, limit, phase0, freq0, theta: torch.Tensor):
 # -------------------------------------------------------------------- SAM --
 
 def sam_pll_scan_plain(alpha, beta, limit, phase0, freq0,
-                       theta: torch.Tensor):
+                       theta: torch.Tensor, skip=None, out=None):
+    if _skipped(skip, out):
+        return tuple(out)
     wrap, a, b, lo, hi = _loop_consts(alpha, beta, limit, theta)
     phase, freq = _state0(phase0, freq0, theta).unbind(-1)
     prev = []
@@ -293,29 +342,33 @@ def sam_pll_scan_plain(alpha, beta, limit, phase0, freq0,
 
 
 def _sam_launch(alpha, beta, limit, phase0, freq0, theta: torch.Tensor,
-                fast_round: bool = True, clocks=None):
+                fast_round: bool = True, clocks=None, skip=None, out=None):
     n, rows, c = _streams(theta)
     consts = _checked_consts(alpha, beta, limit, fast_round)
     state0 = _state0(phase0, freq0, theta).contiguous()
-    prev = torch.empty_like(theta)
-    state = torch.empty_like(state0)
+    state, prev = _outputs(theta, state0, out, 1)
     _build.check(_build.library().cutesdr_sam_pll(
         theta.data_ptr(), n, c, *consts, state0.data_ptr(), prev.data_ptr(),
         state.data_ptr(), None if clocks is None else clocks.data_ptr(),
-        _build.stream(theta)), "seqloop_sam")
+        _skip_ptr(skip), _build.stream(theta)), "seqloop_sam")
     LAUNCHES["seqloop_sam"] += 1
     return state[..., 0], state[..., 1], prev
 
 
-def sam_pll_scan(alpha, beta, limit, phase0, freq0, theta: torch.Tensor):
+def sam_pll_scan(alpha, beta, limit, phase0, freq0, theta: torch.Tensor,
+                 skip=None, out=None):
     """The SAM carrier PLL recurrence over float32 ``theta`` ([n], or
     [C, n] for C streams).  Returns (phase', freq', prev): the final state
     (phase mod 2pi) and the PRE-update phase sequence the baseband
     rotation uses (dsp/samdemod.cpp:78-110).  One launch of K8 on the
-    card."""
+    card.  With ``skip`` (SAM's linear tier held) and ``out`` (its
+    (phase', freq', prev)): ``out`` where the flag holds, else the exact
+    outputs, written over ``out`` on the card."""
     if _build.on_cpu(theta):
-        return sam_pll_scan_plain(alpha, beta, limit, phase0, freq0, theta)
-    return _sam_launch(alpha, beta, limit, phase0, freq0, theta)
+        return sam_pll_scan_plain(alpha, beta, limit, phase0, freq0, theta,
+                                  skip, out)
+    return _sam_launch(alpha, beta, limit, phase0, freq0, theta, skip=skip,
+                       out=out)
 
 
 def chain_cycles(kind: str, alpha, beta, limit, theta: torch.Tensor,

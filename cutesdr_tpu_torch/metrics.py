@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 
 @dataclass
@@ -30,13 +31,21 @@ class StreamMetrics:
     ppm_error: int = 0
     smeter_ave_db: float = -120.0
     smeter_peak_db: float = -120.0
-    overload: bool = False
     squelch_open: bool = True
     # PLL solver-tier counters (probes-enabled SAM/FM sessions only):
     # blocks solved by tier 0 = parallel linear, 1 = chunked guess-verify,
     # 2 = sequential scan — a persistent all-tier-2 stream flags a silent
     # fallback regression (ADVICE r4)
     pll_tier_blocks: list = field(default_factory=lambda: [0, 0, 0])
+    # the A/D-overload flag's source (a session's display analyzer, whose
+    # flag stays on the device): read when the metrics are reported, not
+    # on every block
+    overload_flag: Optional[Callable[[], bool]] = field(default=None,
+                                                        repr=False)
+
+    @property
+    def overload(self) -> bool:
+        return bool(self.overload_flag()) if self.overload_flag else False
 
     def update_block(self, n_in: int, n_audio: int, smeter_ave: float,
                      smeter_peak: float) -> None:

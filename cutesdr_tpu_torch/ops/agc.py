@@ -10,16 +10,20 @@
    samples and then releases;
 5. the gain law: fixed gain below the knee, 10^(mag*(slope-1)) above.
 
-``process`` is the single stream: above the guess-verify kernel's size
-gate each two-rate averager is one launch of the solve (warm start and
-every round on the device), and the block reads one flag on the host,
-both averagers' convergence, to choose between the parallel result and
-the sequential fallback (a Python branch).  Below the gate, in hang
-mode's decay averager, and in ``process_batch`` (a channel bank, [C, n]
-with per-channel carries, as the JAX package's vmapped form) the rounds
-run from Python with one host read per round (for the whole bank), each
-round's solve one launch of the affine scan on the card, and a bank
-votes bank-wide between the parallel result and the sequential fallback.
+``process`` is the single stream: each two-rate averager is one launch
+of the solve (warm start and every round on the device), and the choice
+between the parallel result and the sequential fallback is made on the
+device, as JAX's ``lax.cond`` makes it: N1 takes both averagers'
+convergence flag, returns at once where it holds and otherwise writes the
+exact result over the parallel one (``_fallback``), so the step reads
+nothing on the host and can be replayed as a CUDA graph.  On the CPU the
+plain version branches on its own bool.  Hang mode's decay averager and
+``process_batch`` (a channel bank, [C, n] with per-channel carries, as
+the JAX package's vmapped form) run their rounds from Python with one
+host read per round (for the whole bank), each round's solve one launch
+of the affine scan on the card, and a bank votes bank-wide between the
+parallel result and the sequential fallback on the host; hang mode
+reads its flag there too (N1 then launches only on a fallback).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cutesdr_tpu_torch.kernels import agcseq, scan
+from cutesdr_tpu_torch.kernels import DeviceCounts, agcseq, scan
 from cutesdr_tpu_torch.ops.util import (distance_since_last_true,
                                         sliding_window_max)
 from cutesdr_tpu_torch.types import MAX_AMPLITUDE, RDTYPE, real_scalar
@@ -47,8 +51,9 @@ MAX_DELAY_SAMPLES = 2047
 GUESS_ITERS = 24              # cap on guess-verify rounds per averager
 
 # how often the exact sequential fallback ran (it should not, in steady
-# state); read by tests and chip_smoke.py
-STATS = {"scan_fallbacks": 0}
+# state), counted where it runs (N1 on the card); read by tests and
+# chip_smoke.py, which is the only host read of it
+STATS = DeviceCounts("scan_fallbacks")
 
 
 @dataclass(frozen=True)
@@ -189,16 +194,35 @@ def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
 
 
 def _averager_scan(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
-                   peak: torch.Tensor):
+                   peak: torch.Tensor, out=None, skip=None, count=None):
     """The exact sequential recurrence of both averagers, every row at
     once (``kernels/agcseq``: one launch on the card, the per-sample torch
-    loop on the CPU); taken only when guess-verify does not converge.
-    Returns the tuple of ``_averager_parallel``."""
+    loop on the CPU).  Returns the tuple of ``_averager_parallel``; with
+    ``skip`` and ``out``, ``out`` where the flag holds (module notes of
+    ``kernels/agcseq``)."""
     return agcseq.averager_scan(
         peak, carry.attack_ave, carry.decay_ave, carry.hang_timer,
         (p.attack_rise_alpha, p.attack_fall_alpha),
         (p.decay_rise_alpha, p.decay_fall_alpha),
-        p.hang_time if cfg.use_hang else None)
+        p.hang_time if cfg.use_hang else None, out, skip, count)
+
+
+def _fallback(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
+              peak: torch.Tensor, levels, ok):
+    """The parallel ``levels`` (the tuple of ``_averager_parallel``) where
+    ``ok`` (every row of both averagers converged) holds, else the exact
+    recurrence (``_averager_scan``), counted in ``STATS`` where it runs.
+    A 0-dim tensor ``ok`` is read where the recurrence would run: by N1
+    on the card, which then writes the exact result over ``levels`` (no
+    host read); by the plain version on the CPU.  A host bool (a bank's
+    vote, or hang mode's flag, read after their rounds) is branched on
+    here."""
+    count = STATS.counter(peak.device, "scan_fallbacks")
+    if not isinstance(ok, torch.Tensor):
+        if ok:
+            return levels
+        return _averager_scan(cfg, p, carry, peak, count=count)
+    return _averager_scan(cfg, p, carry, peak, levels, ok, count)
 
 
 def _prefix(cfg: AgcConfig, carry: AgcCarry, x: torch.Tensor):
@@ -216,8 +240,7 @@ def _prefix(cfg: AgcConfig, carry: AgcCarry, x: torch.Tensor):
 
 def _apply_gain(params: AgcParams, magsel: torch.Tensor,
                 delayed: torch.Tensor) -> torch.Tensor:
-    gain = torch.where(magsel <= params.knee,
-                       torch.as_tensor(params.fixed_gain, device=magsel.device),
+    gain = torch.where(magsel <= params.knee, float(params.fixed_gain),
                        AGC_OUTSCALE * 10.0 ** (magsel * (params.gain_slope
                                                          - np.float32(1.0))))
     return delayed * gain
@@ -229,10 +252,10 @@ def _process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
         return carry, x * params.manual_gain
     delayed, new_sig_delay, peak, mag_tail = _prefix(cfg, carry, x)
     levels, ok = _averager_parallel(cfg, params, carry, peak, fast)
-    if not bool(ok):                                     # host sync
-        STATS["scan_fallbacks"] += 1
-        levels = _averager_scan(cfg, params, carry, peak)
-    a, d, timer, magsel = levels
+    if not fast or cfg.use_hang:
+        ok = bool(ok)                 # a bank votes on the host, and hang
+                                      # mode's decay rounds read it already
+    a, d, timer, magsel = _fallback(cfg, params, carry, peak, levels, ok)
     y = _apply_gain(params, magsel, delayed)
     return AgcCarry(sig_delay=new_sig_delay, mag_tail=mag_tail,
                     attack_ave=a, decay_ave=d, hang_timer=timer), y

@@ -43,7 +43,8 @@ _BH_COEFS = resamp.BH_COEFS  # Blackman-Harris 4-term coefficients
 
 class ResamplerParams(NamedTuple):
     dt_hi: np.float32        # rate split: dt = in/out = dt_hi + dt_lo
-    dt_lo: np.float32
+    dt_lo: np.float32        # (a graphed receiver holds both as 0-dim
+                             # float32 device tensors, filled in place)
 
 
 class ResamplerCarry(NamedTuple):
@@ -105,6 +106,15 @@ def _sinc_np(v: np.ndarray, periods: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+def _rational_rhs(p: int, q: int, periods: int, interp: bool,
+                  device: str) -> torch.Tensor:
+    """``_rational_weights`` on ``device`` as the [q, 1, W] conv weights,
+    made once (no host copy inside the step)."""
+    rhs, _ = _rational_weights(p, q, periods, interp)
+    return torch.tensor(rhs, dtype=RDTYPE, device=device)[:, None, :]
+
+
+@functools.lru_cache(maxsize=16)
 def _rational_weights(p: int, q: int, periods: int, interp: bool):
     """Static polyphase tap bank for dt = p/q: conv-stream output
     u = q*k + p' sits at t = p*k + b(p') + nu/q with b = (p*p')//q,
@@ -138,7 +148,7 @@ def _rational_process(p: int, q: int, params: ResamplerParams,
     n = x.shape[-1]
     periods = carry.tail.shape[-1]
     dev = x.device
-    rhs_np, W = _rational_weights(p, q, periods, interp)
+    _, W = _rational_weights(p, q, periods, interp)
     inv = pow(p % q, -1, q)
 
     num0 = torch.round(carry.t0 * q).to(torch.int64)         # [0, p]
@@ -148,7 +158,7 @@ def _rational_process(p: int, q: int, params: ResamplerParams,
     K = -(-((q - 1) + max_out) // q) + 1                     # conv groups
     Lc = p * (K - 1) + W
     pad_right = max(0, Lc - n) + p
-    rhs = torch.tensor(rhs_np, dtype=RDTYPE, device=dev)[:, None, :]
+    rhs = _rational_rhs(p, q, periods, interp, str(dev))
     lhs_idx = torch.arange(Lc, device=dev) + (p - sigma)
     out_idx = torch.arange(max_out, device=dev) + u0
 
@@ -184,7 +194,7 @@ def _times(params: ResamplerParams, t0: torch.Tensor, k: torch.Tensor):
     (a1 = k_hi*(2048*dt_hi), a2 = k_lo*dt_hi), their fractions exactly,
     and b = t0 + k*dt_lo (|dt_lo| <= 2^-13) in plain float32."""
     k_hi = torch.floor(k / _K_SPLIT)
-    a1 = k_hi * np.float32(_K_SPLIT * params.dt_hi)
+    a1 = k_hi * (params.dt_hi * np.float32(_K_SPLIT))
     a2 = (k - k_hi * _K_SPLIT) * params.dt_hi
     b = t0 + k * params.dt_lo
     i1 = torch.floor(a1)
@@ -237,7 +247,7 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
     # t0' = t0 + n_valid*dt - n through the same exact split as _times
     cnt = n_valid.to(RDTYPE)
     c_hi = torch.floor(cnt / _K_SPLIT)
-    a1 = c_hi * np.float32(_K_SPLIT * params.dt_hi)
+    a1 = c_hi * (params.dt_hi * np.float32(_K_SPLIT))
     a2 = (cnt - c_hi * _K_SPLIT) * params.dt_hi
     i1 = torch.floor(a1)
     i2 = torch.floor(a2)
@@ -247,20 +257,32 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
                            t0=t0_new), y, n_valid)
 
 
+def rational_route(params: ResamplerParams, rational, n: int, max_out: int,
+                   periods: int) -> bool:
+    """Whether a block of ``n`` inputs takes the static-polyphase path:
+    ``rational`` (the nominal (p, q), or None) is given and the ratio
+    equals it exactly (the rate-lock correction is zero), with an even
+    sinc length and int32 phase numerators p*o and q*n that do not
+    overflow.  A ratio held on the device (a graphed receiver's, set off
+    nominal) takes the banded evaluator."""
+    if rational is None or periods % 2 or isinstance(params.dt_hi,
+                                                     torch.Tensor):
+        return False
+    p, q = rational
+    return (p * (max_out + 1) < 2**31 and q * (n + 1) < 2**31
+            and (params.dt_hi, params.dt_lo) == split_rate(p / q))
+
+
 def process(params: ResamplerParams, carry: ResamplerCarry, x: torch.Tensor,
             max_out: int, interp: bool = False,
             rational: tuple[int, int] | None = None):
-    """Resample one block.  ``rational`` is the nominal (p, q) or None; the
-    static-polyphase path runs when the ratio equals it exactly (the
-    rate-lock correction is zero), the banded evaluator otherwise.  The
-    int32 phase numerators p*o and q*n must not overflow.  A bank ([C, n])
-    takes the banded evaluator, as the JAX package's does."""
-    if rational is not None and carry.tail.shape[-1] % 2 == 0 \
-            and rational[0] * (max_out + 1) < 2**31 \
-            and rational[1] * (x.shape[-1] + 1) < 2**31:
-        p, q = rational
-        if (params.dt_hi, params.dt_lo) == split_rate(p / q):
-            return _rational_process(p, q, params, carry, x, max_out, interp)
+    """Resample one block: the static-polyphase path where
+    ``rational_route`` holds, the banded evaluator otherwise.  A bank
+    ([C, n]) takes the banded evaluator, as the JAX package's does."""
+    if rational_route(params, rational, x.shape[-1], max_out,
+                      carry.tail.shape[-1]):
+        return _rational_process(*rational, params, carry, x, max_out,
+                                 interp)
     return _banded_process(params, carry, x, max_out, interp)
 
 

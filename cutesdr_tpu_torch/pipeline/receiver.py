@@ -31,6 +31,35 @@ leading channel axis on the state and on the per-channel params): one
 mixdec, one batched channel-filter and one S-meter launch for the bank,
 the AGC and the PLL tiers voted bank-wide, and, as in the JAX package's
 bank, never the guess-verify solve kernel or the rational resampler.
+
+The step's data-dependent choices (the AGC's sequential fallback, FM's
+and SAM's PLL tiers) are made on the device, as the JAX package's
+``lax.cond``s make them inside its ``jax.jit`` of the step, so on the card
+the single-stream step makes no host read.  ``Receiver`` replays it as
+one CUDA graph (``pipeline/stepgraph``) where ``graph_rule(cfg, device)``
+holds:
+
+* graphed: a single stream on a CUDA device, in every mode (USB, LSB,
+  CWU, CWL, AM, FM, SAM; mono and stereo), with the two-rate AGC or the
+  AGC off, with or without the noise blanker;
+* eager, for now: hang-mode AGC (its decay rounds read the host),
+  ``probes`` (taps of the step's intermediates) and every CPU receiver;
+* not on this path: the banks, ``StackedReceiver``, the time-sharded and
+  pipelined receivers and ``DiversitySession``, which call the step
+  functions eagerly.
+
+A graph is captured at a receiver's first block, for its block shape and
+the host values of its params (``graph_key``).  The tune, the volume and
+a banded resample ratio are device values of the captured params
+(``device_params``: K1 reads the tune's increment by pointer), which the
+setters fill in place, so they reach the graph on the next block with
+no capture; so do a new channel filter and DC cal (tensors copied in
+place).  A change of the AGC's constants, or of the resampler's route
+between the exact rational and the banded path (the rate lock leaving or
+reaching the nominal ratio), captures a new graph at the next block in
+place of the old; ``reconfigure`` drops it.  The eager step
+(``receiver_step_planes``) stays: it is the step of every path the rule
+leaves out, and the reference the graph is held to on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +82,7 @@ from cutesdr_tpu_torch.kernels import fastfir as fastfir_k
 from cutesdr_tpu_torch.kernels import mixdec
 from cutesdr_tpu_torch.ops import (agc, fastfir, nco, noiseblanker,
                                    resampler, smeter)
+from cutesdr_tpu_torch.pipeline import stepgraph
 from cutesdr_tpu_torch.types import CDTYPE, RDTYPE, resolve_device
 
 SOUNDCARD_RATE = 48000.0
@@ -222,15 +252,16 @@ def _demod_apply(cfg: ReceiverConfig, params, carry, x: torch.Tensor,
     """Demodulate one block; with a probes dict and a mono PLL mode (SAM,
     FM) also records the P6 tap, the per-sample phase error x100 (the
     reference's PROFILE_6 sites, dsp/samdemod.cpp:92, dsp/fmdemod.cpp:120),
-    and ``pll_tier``, the tier taken (a host int: the demods pick it on
-    the host)."""
+    and ``pll_tier``, the tier taken (a 0-dim int32 device tensor: the
+    demods pick it on the device; a session reads it with the block's
+    other scalars)."""
     mod = _DEMODS.get(cfg.mode_id)
     if mod is None:
         f = ssb_demod.process_stereo if cfg.stereo else ssb_demod.process
         return f(carry, x)
     if (probes is not None and not cfg.stereo
             and cfg.mode_id in (DEMOD_SAM, DEMOD_FM)):
-        c, y, p6, tier = mod.process_probed(params, carry, x)
+        c, y, p6, tier = mod.probed(params, carry, x)
         probes["p6_pll"] = p6
         probes["pll_tier"] = tier
         return c, y
@@ -404,12 +435,10 @@ def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
     if cfg.audio_rate is not None:
         cap = resampler.max_out_for(audio.shape[-1],
                                     cfg.output_rate / cfg.audio_rate)
-        use_rat = fast and audio.shape[-1] >= RATIONAL_MIN_SAMPLES
         rs_c, audio_out, n_audio = resampler.process(
             params.resamp, state.resamp, audio, cap,
             interp=cfg.resampler_interp,
-            rational=(resampler.rational_for(cfg.output_rate, cfg.audio_rate)
-                      if use_rat else None))
+            rational=_nominal(cfg, audio.shape[-1], fast))
         audio_out = audio_out * params.audio_gain
         if probes is not None:
             probes["p5_resampled"] = audio_out
@@ -422,6 +451,26 @@ def _tail(cfg: ReceiverConfig, params: ReceiverParams, state: ReceiverState,
                      smeter_ave_db=smeter.get_ave(sm_c),
                      smeter_peak_db=peak, probes=probes)
     return sm_c, rs_c, out
+
+
+def _nominal(cfg: ReceiverConfig, n: int, fast: bool):
+    """The nominal (p, q) a block of ``n`` demodulated samples may take the
+    rational resampler at (the single stream from RATIONAL_MIN_SAMPLES
+    up), else None."""
+    if not fast or n < RATIONAL_MIN_SAMPLES:
+        return None
+    return resampler.rational_for(cfg.output_rate, cfg.audio_rate)
+
+
+def rational_tail(cfg: ReceiverConfig, params: ReceiverParams) -> bool:
+    """Whether the single stream's resampler takes the exact rational path
+    with these params (``resampler.rational_route``)."""
+    if cfg.audio_rate is None:
+        return False
+    n = cfg.fastfir_valid * cfg.frames_per_block
+    return resampler.rational_route(
+        params.resamp, _nominal(cfg, n, True), n, cfg.audio_block_cap,
+        cfg.resampler_periods)
 
 
 def _tap(probes, name: str, t: torch.Tensor) -> None:
@@ -564,38 +613,179 @@ def volume_params(params: ReceiverParams, vol_0_99: int) -> ReceiverParams:
     return params._replace(audio_gain=float(np.float32(g)))
 
 
+def graph_rule(cfg: ReceiverConfig, device) -> bool:
+    """The rule (module notes): whether a ``Receiver`` of ``cfg`` on
+    ``device`` replays its step as one CUDA graph."""
+    return (torch.device(device).type == "cuda" and not cfg.probes
+            and not (cfg.agc_on and cfg.agc_hang))
+
+
+def _device_paths(cfg: ReceiverConfig, params: ReceiverParams) -> set:
+    """The params a graph holds as device values, so that a block may
+    change them without a capture: the tune (K1 reads its increment by
+    pointer), the volume and, off the rational route, the resample
+    ratio."""
+    paths = {("dec", "phase_inc"), ("audio_gain",)}
+    if params.resamp is not None and not rational_tail(cfg, params):
+        paths |= {("resamp", "dt_hi"), ("resamp", "dt_lo")}
+    return paths
+
+
+def device_params(cfg: ReceiverConfig, params: ReceiverParams,
+                  device) -> ReceiverParams:
+    """The params a graph is captured with: a copy of every tensor, and
+    the values of ``_device_paths`` as 0-dim device tensors."""
+    lifted = _device_paths(cfg, params)
+    dtypes = {("dec", "phase_inc"): torch.int64}
+
+    def leaf(path, v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if path in lifted:
+            return torch.full((), v, dtype=dtypes.get(path, RDTYPE),
+                              device=device)
+        return v
+    return stepgraph.tree_map(leaf, params)
+
+
+def graph_key(cfg: ReceiverConfig, params: ReceiverParams) -> tuple:
+    """What a captured step bakes in: the params' host values and tensor
+    shapes, the values of ``_device_paths`` excepted."""
+    lifted = _device_paths(cfg, params)
+
+    def part(path, v):
+        if isinstance(v, torch.Tensor):
+            return (tuple(v.shape), v.dtype)
+        if path in lifted:
+            return "device"
+        return v.tobytes() if isinstance(v, np.ndarray) else v
+    return tuple(part(p, v) for p, v in stepgraph.walk(params))
+
+
+def _update_params(static: ReceiverParams, old: ReceiverParams,
+                   new: ReceiverParams) -> None:
+    """Write ``new`` into a graph's ``static`` params in place, where
+    ``old`` (of the same key) is what they hold now: its changed tensors
+    copied, its changed device values filled."""
+    for (_, dst), (_, was), (_, v) in zip(stepgraph.walk(static),
+                                          stepgraph.walk(old),
+                                          stepgraph.walk(new)):
+        if not isinstance(dst, torch.Tensor) or v is was:
+            continue
+        if isinstance(v, torch.Tensor):
+            dst.copy_(v)
+        elif v != was:
+            dst.fill_(v)
+
+
+class _Graphed:
+    """A captured step of a ``Receiver``: its key, its device params, the
+    host params they hold (``host``) and the ``StepGraph``."""
+
+    def __init__(self, cfg: ReceiverConfig, params: ReceiverParams, key,
+                 state, device: torch.device):
+        self.key = key
+        self.host = params
+        self.params = device_params(cfg, params, device)
+        self.step = stepgraph.StepGraph(
+            lambda p, st, re, im: receiver_step_planes(cfg, p, st, re, im),
+            self.params, state, cfg.block_size, device)
+
+
 class Receiver:
     """Stateful wrapper: owns params and state on one device, the card
     unless ``device`` says otherwise (no CUDA device raises).
 
     ``process(iq)`` takes a complex64 block, ``process_planes(re, im)`` the
     block as float32 or int16 planes (the radio's 16-bit wire format, cast
-    on the device).  Host numpy input is moved to the receiver's device."""
+    on the device).  Host numpy input is moved to the receiver's device.
+
+    Where ``graph_rule(cfg, device)`` holds (``graphed``), each block
+    replays the step as one CUDA graph (module notes); ``state`` then reads a copy of the
+    graph's static buffers and assigning it copies into them, and
+    ``params`` stays the host form, whose changes reach the graph in
+    place."""
 
     def __init__(self, cfg: ReceiverConfig, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params, self.state = init(cfg, self.device)
+        self._params, self._state = init(cfg, self.device)
+        self._graph: _Graphed | None = None   # holds the state when set
+        self._key = None                      # graph_key of the params
+
+    @property
+    def graphed(self) -> bool:
+        """Whether this receiver's blocks replay a CUDA graph."""
+        return graph_rule(self.cfg, self.device)
+
+    @property
+    def params(self) -> ReceiverParams:
+        return self._params
+
+    @params.setter
+    def params(self, value: ReceiverParams) -> None:
+        self._params = value
+        self._key = None
+        g = self._graph
+        if g is not None:
+            self._key = graph_key(self.cfg, value)
+            if g.key == self._key:
+                _update_params(g.params, g.host, value)
+                g.host = value
+
+    @property
+    def state(self) -> ReceiverState:
+        if self._graph is None:
+            return self._state
+        return stepgraph.clone(self._graph.step.state)
+
+    @state.setter
+    def state(self, value: ReceiverState) -> None:
+        if self._graph is None:
+            self._state = value
+        else:
+            self._graph.step.load_state(value)
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
+    def _graph_step(self) -> stepgraph.StepGraph:
+        """The graph of the current params, captured anew where their key
+        changed (the state carried over from the last one)."""
+        if self._key is None:
+            self._key = graph_key(self.cfg, self._params)
+        g = self._graph
+        if g is None or g.key != self._key:
+            state = self._state if g is None else g.step.state
+            self._graph = _Graphed(self.cfg, self._params, self._key, state,
+                                   self.device)
+            self._state = None
+        return self._graph.step
+
     def process(self, iq) -> StepOutput:
         iq = self._to_device(iq, CDTYPE)
-        self.state, out = receiver_step(self.cfg, self.params, self.state, iq)
+        if self.graphed:
+            return self._graph_step().run(iq)
+        self._state, out = receiver_step(self.cfg, self._params, self._state,
+                                         iq)
         return out
 
     def process_planes(self, re, im) -> StepOutput:
         re, im = self._to_device(re), self._to_device(im)
+        if self.graphed:
+            return self._graph_step().run_planes(re, im)    # casts int16
         if re.dtype != RDTYPE:
             # int16 wire values are already in the +-32767 full-scale
             # convention, so the cast is exact
             re, im = re.to(RDTYPE), im.to(RDTYPE)
-        self.state, out = receiver_step_planes(self.cfg, self.params,
-                                               self.state, re, im)
+        self._state, out = receiver_step_planes(self.cfg, self._params,
+                                                self._state, re, im)
         return out
 
-    # --- live reconfiguration between blocks ---
+    # --- live reconfiguration between blocks (a graph takes them in
+    # place: the tune, the volume, a banded ratio, the filter and the DC
+    # cal; a change of the AGC constants or of the resampler's route
+    # captures a new one) ---
     def set_tune_freq(self, freq_hz: float) -> None:
         self.params = tune_params(self.cfg, self.params, freq_hz)
 
@@ -619,8 +809,8 @@ class Receiver:
         self.params = volume_params(self.params, vol_0_99)
 
     def set_dc_offset(self, i_off: float, q_off: float) -> None:
-        self.params = self.params._replace(dc_offset=torch.tensor(
-            complex(np.float32(i_off), np.float32(q_off)), dtype=CDTYPE,
+        self.params = self.params._replace(dc_offset=torch.full(
+            (), complex(np.float32(i_off), np.float32(q_off)), dtype=CDTYPE,
             device=self.device))
 
     # --- structural reconfiguration (migrated stream state) ---
@@ -629,11 +819,13 @@ class Receiver:
         """Switch to a new configuration (mode / rate / filter sizes)
         without dropping the stream: the state migrates through
         ``migrate_state``; with ``preserve_gain`` the volume and the DC cal
-        carry over."""
+        carry over.  The captured graph is dropped."""
         old_cfg, old_state = self.cfg, self.state
         gain, dc = self.params.audio_gain, self.params.dc_offset
+        self._graph, self._key = None, None
         self.cfg = new_cfg
-        self.params, fresh = init(new_cfg, self.device)
+        self._params, fresh = init(new_cfg, self.device)
         if preserve_gain:
-            self.params = self.params._replace(audio_gain=gain, dc_offset=dc)
-        self.state = migrate_state(old_cfg, old_state, new_cfg, fresh)
+            self._params = self._params._replace(audio_gain=gain,
+                                                 dc_offset=dc)
+        self._state = migrate_state(old_cfg, old_state, new_cfg, fresh)

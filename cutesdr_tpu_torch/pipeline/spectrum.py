@@ -194,7 +194,7 @@ class SpectrumAnalyzer:
         self._skip = max(1, int(self.cfg.sample_rate
                                 / (self.cfg.fft_size * self.max_display_rate)))
         self._skip_count = 0
-        self.overload = False
+        self._overload = False        # the last frame's flag, on the device
         # feed_planes: the frame being collected
         self._fbuf_re = np.zeros(self.cfg.fft_size, np.float32)
         self._fbuf_im = np.zeros(self.cfg.fft_size, np.float32)
@@ -204,9 +204,14 @@ class SpectrumAnalyzer:
     def _acc(self, re: np.ndarray, im: np.ndarray) -> None:
         x = torch.complex(torch.as_tensor(re, dtype=RDTYPE),
                           torch.as_tensor(im, dtype=RDTYPE))
-        self.state, ov = accumulate(self.cfg, self.state,
-                                    x.to(self.device, CDTYPE))
-        self.overload = bool(ov)
+        self.state, self._overload = accumulate(self.cfg, self.state,
+                                                x.to(self.device, CDTYPE))
+
+    @property
+    def overload(self) -> bool:
+        """The last accumulated frame's A/D-overload flag: kept on the
+        device, read only here (when a status or a display frame asks)."""
+        return bool(self._overload)
 
     def feed(self, iq: np.ndarray) -> bool:
         """Append raw IQ; returns True when a new display frame is ready."""

@@ -62,16 +62,20 @@ class _Staged:
     pinned memory behind one event on the card; the tensors themselves
     on the CPU.  The device tensors are held until the copies have
     landed.  ``tier`` is the step's PLL tier where its probes report one
-    (a host int)."""
+    (a 0-dim device tensor), copied with the scalars (a fourth row): read
+    once landed, with no read of its own."""
 
     def __init__(self, out: StepOutput, tap: Optional[torch.Tensor] = None,
-                 tier: Optional[int] = None):
+                 tier: Optional[torch.Tensor] = None):
         audio = out.audio
         if audio.is_complex():
             audio = torch.view_as_real(audio)
         scalars = torch.stack([out.n_audio.double(),
                                out.smeter_ave_db.double(),
-                               out.smeter_peak_db.double()])
+                               out.smeter_peak_db.double()]
+                              + ([] if tier is None
+                                 else [tier.double().expand(
+                                     out.n_audio.shape)]))
         tensors = [audio, scalars] + ([tap] if tap is not None else [])
         self.event = None
         self._held = None
@@ -86,7 +90,7 @@ class _Staged:
             self.event.record()
         self.audio, self.scalars = tensors[:2]
         self.tap = tensors[2] if tap is not None else None
-        self.tier = tier
+        self.has_tier = tier is not None
 
     def arrays(self) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
         """(audio, scalars, tap or None) as numpy once the copies have
@@ -101,8 +105,13 @@ class _Staged:
         """(valid audio, n_audio, S-meter average, peak) of a single
         stream."""
         audio, scalars, _ = self.arrays()
-        n, ave, peak = scalars.tolist()
+        n, ave, peak = scalars.tolist()[:3]
         return audio[:int(n)], int(n), ave, peak
+
+    def tier(self) -> Optional[int]:
+        """The PLL tier, once landed (None where the probes report
+        none)."""
+        return int(self.arrays()[1][3]) if self.has_tier else None
 
 
 class _StagedSession:
@@ -125,7 +134,7 @@ class _StagedSession:
         # dsp/demodulator.cpp:109/166), one lock at session level
         self._lock = threading.RLock()
         self.audio_queue = RateLockedQueue(stereo=self.cfg.stereo)
-        self.metrics = StreamMetrics()
+        self.metrics = self._new_metrics()
         self._inflight: list[_Staged] = []  # dispatched, not yet delivered
         # the probe scope's instrument (set_probe)
         self._probe_tap: Optional[str] = None
@@ -147,9 +156,14 @@ class _StagedSession:
             max_display_rate=self.settings.display.max_display_rate,
             device=self.device)
 
+    def _new_metrics(self) -> StreamMetrics:
+        """Fresh metrics whose overload flag is the display analyzer's,
+        read when the metrics are reported."""
+        return StreamMetrics(overload_flag=lambda: self.analyzer.overload)
+
     def start(self) -> None:
         self.running = True
-        self.metrics = StreamMetrics()
+        self.metrics = self._new_metrics()
 
     def stop(self) -> None:
         """Deliver everything in flight and stop."""
@@ -195,8 +209,9 @@ class _StagedSession:
         PLL tier and the scope view's tap)."""
         audio, n_aud, ave, peak = staged.result()
         self._feed_scope(staged.tap)
-        if staged.tier is not None and 0 <= staged.tier <= 2:
-            self.metrics.pll_tier_blocks[staged.tier] += 1
+        tier = staged.tier()
+        if tier is not None and 0 <= tier <= 2:
+            self.metrics.pll_tier_blocks[tier] += 1
         self._deliver(audio, n_aud, ave, peak)
 
     def _feed_scope(self, tap) -> None:
@@ -483,7 +498,6 @@ class ReceiverSession(_LiveSession):
                 # the display path takes the raw (pre-mix) stream
                 if self.analyzer.feed(chunk) and self.on_spectrum:
                     self.on_spectrum(self.analyzer.spectrum_db())
-                self.metrics.overload = self.analyzer.overload
                 self._enter(self.receiver.process(chunk))
                 blocks += 1
             self._pending = buf
@@ -532,7 +546,6 @@ class ReceiverSession(_LiveSession):
             ib, buf_im = buf_im[:bs], buf_im[bs:]
             if self.analyzer.feed_planes(rb, ib) and self.on_spectrum:
                 self.on_spectrum(self.analyzer.spectrum_db())
-            self.metrics.overload = self.analyzer.overload
             self._ingest.submit(rb, ib)
             self._dispatch_uploaded(self._ingest.poll())
             blocks += 1
@@ -750,7 +763,6 @@ class DiversitySession(_LiveSession):
                 chunk, buf = buf[:, :bs], buf[:, bs:]
                 if self.analyzer.feed(chunk[0]) and self.on_spectrum:
                     self.on_spectrum(self.analyzer.spectrum_db())
-                self.metrics.overload = self.analyzer.overload
                 self._enter(self.receiver.process(chunk))
                 blocks += 1
             self._pending = buf
