@@ -37,7 +37,12 @@ audio (``path_specs``):
   package's config 4, one frame per step), an 8-channel FM monitor whose
   bank-wide vote sends every block to seqloop_fm over 8 streams, 4 SAM
   channels acquiring through seqloop_sam, and a StackedReceiver of two
-  separate full-width 2 MSPS streams;
+  separate full-width 2 MSPS streams, each replaying one CUDA graph;
+* ``check_graph``: the single-stream paths (hang mode and its fallback
+  among them) and five banks, eager against graphed through a retune, a
+  volume and a ratio change, bitwise, a replay with no host read and one
+  graph launch; ``check_graph_rule``: 84 receivers and 14 banks the
+  rules admit, and probes eager;
 * a live ``ReceiverSession`` at the default block (one frame, 2 MSPS
   USB) with the noise blanker and the spectrum display, fed int16 planes
   of a tone with impulses while an audio consumer drains its queue
@@ -84,7 +89,13 @@ audio (``path_specs``):
   launch K1-K9.
 
 The scans (K3, K5) are also held to the float64 solve of their float32
-inputs (no farther from it than 1.5x their plain versions), N1 to its
+inputs (no farther from it than 1.5x their plain versions), as is FM's
+biquad (N2, ``check_biquad``); the AGC's solves over a bank's rows (K4,
+``check_solve_rows``: 64 x 1,024 and 4 x 262,144) and hang mode's decay
+solve (N3h, ``check_hang_solve``: bench row 12's keyed carrier, 1 and 4 x
+262,144, 64 x 1,024, holds across chunk boundaries) to their plain
+rounds, with the same flags (all rows and each row), patterns, timers
+and rounds, also cut at one round (the forced fallback); N1 to its
 plain loop bitwise, and the PLL kernels (K7, K8) to theirs bitwise at
 every shape, with K7's chunked-tier flag against the torch chunked
 tier's (forced repairs, an acquisition block, banks of 4 and 64
@@ -97,14 +108,16 @@ name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, so the script exits non-zero.  It
 needs a CUDA device; it never imports jax.
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [--only LABEL,...]
 
 builds the kernels and profiles the same receiver paths, the session,
 the serving paths, the time shards and the pipeline, and the command
 line's ``run`` paths instead (step
 time, device busy time, launches and host reads per step or block; see
 ``profile_paths``, ``profile_serving``, ``profile_shard`` and
-``profile_cli``).
+``profile_cli``); with ``--only``, only the lines of ``profile_paths``
+whose label is listed (the receiver paths, FM's biquad alone, the
+session), on the same inputs as the whole run.
 """
 
 from __future__ import annotations
@@ -147,7 +160,7 @@ from cutesdr_tpu_torch.ops import (  # noqa: E402
     agc, decimator, nco, noiseblanker, resampler)
 from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
 from cutesdr_tpu_torch.ops.util import (  # noqa: E402
-    first_order_recurrence, max_affine_recurrence)
+    distance_since_last_true, first_order_recurrence, max_affine_recurrence)
 from cutesdr_tpu_torch.pipeline import receiver as rx  # noqa: E402
 from cutesdr_tpu_torch.pipeline import spectrum, stepgraph  # noqa: E402
 from cutesdr_tpu_torch.session import ReceiverSession  # noqa: E402
@@ -181,6 +194,12 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     # a lax.scan (ops/agc.py _averager_scan)
     "agcseq": ("cutesdr_tpu_torch/csrc/agcseq.cu",
                "cutesdr_tpu/ops/agc.py:134"),
+    # N3h and N2 have none either: hang mode's decay solve (a
+    # lax.while_loop of solves) and FM's biquad (a lax.associative_scan)
+    "hang_solve": ("cutesdr_tpu_torch/csrc/scan.cu",
+                   "cutesdr_tpu/ops/agc.py:256"),
+    "biquad": ("cutesdr_tpu_torch/csrc/iir.cu",
+               "cutesdr_tpu/ops/iir.py:52"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -973,6 +992,288 @@ def check_guess_verify_small(gen):
                                      "with its plain version")
 
 
+# ------------------------------------------- K4 rows, N3h, N2 (the banks) --
+
+def per_row(fn, peak: torch.Tensor, x0, *rest) -> list:
+    """``fn`` on each row of ``peak`` alone (with its own initial
+    state(s)): the plain version's per-row results, since a bank's rows
+    are independent streams, each frozen once it validates."""
+    outs = []
+    for c in range(peak.shape[0]):
+        pick = lambda v: v[c] if isinstance(v, torch.Tensor) and v.dim() else v
+        outs.append(fn(peak[c], pick(x0), *(pick(v) for v in rest)))
+    return outs
+
+
+def row_bits(label: str, kernel_rows, whole) -> None:
+    """Each row of a bank launch bitwise that row's own launch."""
+    bad = [c for c, (r, w) in enumerate(zip(kernel_rows, whole))
+           if not same_bits(r, w)]
+    if bad:
+        raise AssertionError(f"{label}: rows {bad[:6]} of the bank launch "
+                             "differ from their own launches")
+
+
+def solve_rows_case(label: str, args, results=None, main: bool = False):
+    """K4 over the rows of ``args[0]`` ([C, n]) against its plain version
+    (the log-depth rounds the bank ran before, frozen rows and all): the
+    same all-rows flag, the same per-row flags as each row alone, rounds
+    within one, x within 1e-5 plus the plain version's own distance from
+    the float64 solve of its pattern, the kernel no farther from its own
+    than that or 1e-5; each row bitwise its own launch."""
+    peak, x0, rise, fall, iters = args
+    xk, row_ok, okk, rk = scan.guess_verify_solve_rows(*args)
+    xp, okp, rp = scan.guess_verify_solve_plain(*args)
+    okk, okp, rk = bool(okk), bool(okp), int(rk)
+    alone = per_row(scan.guess_verify_solve_plain, peak, x0, rise, fall,
+                    iters)
+    want_rows = [bool(o) for _, o, _ in alone]
+    got_rows = row_ok.tolist()
+    singles = per_row(scan.guess_verify_solve, peak, x0, rise, fall, iters)
+    row_bits(f"scan_solve{label}", list(xk), [x for x, _, _ in singles])
+    err_k = float((xk.double() - exact_solve(args, xk)).abs().max())
+    err_p = float((xp.double() - exact_solve(args, xp)).abs().max())
+    phase(f"  scan_solve{label}: ok {okk} (plain {okp}), rows ok "
+          f"{sum(got_rows)}/{len(got_rows)} (plain {sum(want_rows)}), "
+          f"rounds {rk} (plain {rp}); from the float64 solve of its "
+          f"pattern kernel {err_k:.3e}, plain {err_p:.3e}")
+    # a solve cut before it converged is not the solve of its pattern:
+    # there the flags decide (the fallback runs), not the distance
+    if (okk != okp or got_rows != want_rows or abs(rk - rp) > 1
+            or (okk and err_k > max(err_p, 1e-5))):
+        raise AssertionError(f"scan_solve{label} disagrees with its plain "
+                             "version")
+    if results is not None:
+        n = peak.numel()
+        compare("scan_solve", [xk], [xp], 1e-5 + err_p, results,
+                lambda: scan.guess_verify_solve(*args),
+                lambda: scan.guess_verify_solve_plain(*args), label,
+                work=(8 * n, 6 * n * (rk + 1)))
+
+
+def check_solve_rows(gen):
+    """K4 with a row axis (the banks' two-rate averagers): 64 x 1,024 (the
+    64-channel bank's rows: a block a row, no grid barrier) and 4 x
+    262,144 (rows of many chunks: the cooperative launch), both averagers
+    of each, with the rows' own initial states; then each with one round
+    allowed, where rows that cannot validate must say so (the bank's
+    forced fallback)."""
+    p = agc.make_params(agc.AgcConfig(True, False, 62_500.0), -100.0, 30.0,
+                        0.0, 200.0)
+    for rows, n in ((64, 1024), (4, N_DEMOD)):
+        peak = torch.stack([envelope_peak(gen, n) for _ in range(rows)])
+        x0 = -5.0 + 0.5 * torch.rand(rows, generator=gen, device="cuda")
+        # a 1,024-sample window peak validates in one round; unsmoothed
+        # noise, whose pattern flips sample to sample, does not
+        rough = -3.0 + 0.3 * randn(rows * n, gen).reshape(rows, n)
+        for name, rise, fall in (
+                ("attack", p.attack_rise_alpha, p.attack_fall_alpha),
+                ("decay", p.decay_rise_alpha, p.decay_fall_alpha)):
+            solve_rows_case(f" {rows}x{n:,} {name}",
+                            (peak, x0, rise, fall, agc.GUESS_ITERS), {})
+            solve_rows_case(f" {rows}x{n:,} {name}, 1 round",
+                            (peak if n > 1024 else rough, x0, rise, fall, 1))
+
+
+def hang_params(fs: float, decay_ms: float = 200.0):
+    return agc.make_params(agc.AgcConfig(True, True, fs), -100.0, 30.0, 0.0,
+                           decay_ms)
+
+
+def hang_exact(args, d: torch.Tensor) -> torch.Tensor:
+    """The float64 solve of the hang-mode decay averager with the pattern
+    that the trajectory ``d`` induces and the float32 rates both versions
+    use."""
+    peak, d0, timer0, rise, fall, hang_time = args[:6]
+    pat = peak > scan.shift1(d, d0)
+    dist = distance_since_last_true(pat, timer0)
+    hold = ~pat & (scan.shift1(dist, timer0) < hang_time)
+    alpha = torch.where(pat, float(rise), torch.where(hold, 0.0, float(fall)))
+    alpha = alpha.float()
+    return first_order_recurrence((1.0 - alpha).double(),
+                                  (alpha * peak).double(), d0.double())
+
+
+def plain_hang_rounds(args) -> tuple:
+    """``scan.hang_solve_plain`` and the rounds its loop ran."""
+    seen, real = [], scan.guess_verify
+    scan.guess_verify = lambda *a: (lambda r: seen.append(r[2]) or r)(
+        real(*a))
+    try:
+        d, timer, ok = scan.hang_solve_plain(*args)
+    finally:
+        scan.guess_verify = real
+    return d, timer, bool(ok), seen[0]
+
+
+def hang_case(label: str, args, results=None, main: bool = False) -> None:
+    """N3h against hang mode's plain rounds (each through K3 on the card):
+    the same patterns (the rising flags each trajectory induces), timers,
+    flags (all rows, and each row as its own plain solve) and rounds; d
+    within 1e-5 plus the plain version's own distance from the float64
+    solve of its pattern, the kernel no farther from its own than that or
+    1e-5 (the solve is K3's arithmetic: bitwise the plain d is expected,
+    and the count of unequal values is printed); each row of a bank
+    bitwise its own launch."""
+    peak, d0 = args[0], args[1]
+    dk, tk, row_ok, okk, rk = scan.hang_solve_rows(*args)
+    dp, tp, okp, rp = plain_hang_rounds(args)
+    okk, rk = bool(okk), int(rk)
+    pat_k, pat_p = (peak > scan.shift1(d, d0) for d in (dk, dp))
+    unequal = int((dk != dp).sum())
+    if peak.dim() == 2:
+        want_rows = [plain_hang_rounds((peak[c], d0[c], args[2][c],
+                                        *args[3:]))[2]
+                     for c in range(peak.shape[0])]
+        singles = [scan.hang_solve(peak[c], d0[c], args[2][c], *args[3:])
+                   for c in range(peak.shape[0])]
+        row_bits(f"hang_solve{label}", list(dk), [d for d, _, _ in singles])
+    else:
+        want_rows = [okp]
+    got_rows = row_ok.tolist()
+    err_k = float((dk.double() - hang_exact(args, dk)).abs().max())
+    err_p = float((dp.double() - hang_exact(args, dp)).abs().max())
+    phase(f"  hang_solve{label}: ok {okk} (plain {okp}), rows ok "
+          f"{sum(got_rows)}/{len(got_rows)} (plain {sum(want_rows)}), "
+          f"rounds {rk} (plain {rp}), patterns equal "
+          f"{bool(torch.equal(pat_k, pat_p))}, timers equal "
+          f"{bool(torch.equal(tk, tp))}, {unequal} d values not bitwise "
+          f"the plain version's; from the float64 solve of its pattern "
+          f"kernel {err_k:.3e}, plain {err_p:.3e}")
+    if not (okk == okp and got_rows == want_rows and rk == rp
+            and torch.equal(pat_k, pat_p) and torch.equal(tk, tp)
+            and (not okk or err_k <= max(err_p, 1e-5))):
+        raise AssertionError(f"hang_solve{label} disagrees with its plain "
+                             "version")
+    if results is not None:
+        n = peak.numel()
+        # bytes: the peaks in, d out; operations: per round the distance,
+        # the rate, the update and the compare a sample (~8)
+        compare("hang_solve", [dk], [dp], 1e-5 + err_p, results,
+                lambda: scan.hang_solve(*args),
+                lambda: scan.hang_solve_plain(*args),
+                "" if main else label, work=(8 * n, 8 * n * rk))
+
+
+def keyed_hang_args() -> tuple:
+    """The hang-mode decay solve's inputs on bench row 12's keyed carrier
+    (agc_hang_keyed_2msps, 16,384 demodulated samples a block), recorded
+    at the solve's entry on the third block of an eager receiver."""
+    row = bench_suite.rows()[12]
+    cfg = row.cfg
+    x = torch.from_numpy(row.stimulus(cfg)).cuda()
+    params, state = rx.init(cfg, "cuda")
+    seen, real = [], scan.hang_solve
+    for b in range(3):
+        if b == 2:
+            scan.hang_solve = lambda *a: seen.append(a) or real(*a)
+        try:
+            state, _ = rx.receiver_step(cfg, params, state, x)
+        finally:
+            scan.hang_solve = real
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def boundary_hang_args(gen) -> tuple:
+    """Hold windows that cross chunk boundaries: a 2 ms hold (125 samples
+    at 62.5 kHz) after spikes 8 samples before each 2,048-sample boundary,
+    over three rows whose timers carry in at 0, mid-hold and at the cap,
+    8,192 samples a row."""
+    fs, n = 62_500.0, 8192
+    p = hang_params(fs, decay_ms=2.0)
+    base = -4.0 + 0.05 * randn(3 * n, gen).reshape(3, n)
+    spikes = torch.arange(2040, n, 2048, device="cuda")
+    base[:, spikes] = -1.0
+    base[1, 1000:1004] = -0.5
+    d0 = torch.tensor([-4.0, -2.0, -3.0], device="cuda")
+    timer0 = torch.tensor([0, p.hang_time // 2, p.hang_time],
+                          dtype=torch.int32, device="cuda")
+    return (base, d0, timer0, p.decay_rise_alpha, p.decay_fall_alpha,
+            p.hang_time, agc.GUESS_ITERS)
+
+
+def check_hang_solve(gen, results):
+    """N3h (hang mode's decay solve, one launch) against its plain rounds
+    (``hang_case``): bench row 12's keyed carrier (1 x 16,384), the
+    flagship's width on a stepping envelope (1 x 262,144), 4 x 262,144 and
+    64 x 1,024 rows with their own d0 and timers, and hold windows across
+    chunk boundaries (3 x 8,192); each again with one round allowed (the
+    forced fallback: not converged where the plain version is not)."""
+    p = hang_params(62_500.0)
+    cases = [(" keyed 1x16,384", keyed_hang_args())]
+    for rows, n in ((1, N_DEMOD), (4, N_DEMOD), (64, 1024)):
+        peak = torch.stack([envelope_peak(gen, n) for _ in range(rows)])
+        d0 = -5.0 + 0.5 * torch.rand(rows, generator=gen, device="cuda")
+        timer0 = (torch.rand(rows, generator=gen, device="cuda")
+                  * p.hang_time).to(torch.int32)
+        if rows == 1:
+            peak, d0, timer0 = peak[0], d0[0], timer0[0]
+        cases.append((f" {rows}x{n:,}", (peak, d0, timer0, p.decay_rise_alpha,
+                                         p.decay_fall_alpha, p.hang_time,
+                                         agc.GUESS_ITERS)))
+    cases.append((" chunk-boundary holds 3x8,192", boundary_hang_args(gen)))
+    for label, args in cases:
+        hang_case(label, args, results, main=label == " 1x262,144")
+        hang_case(label + ", 1 round", args[:6] + (1,))
+
+
+def biquad64(x: torch.Tensor, coefs, w1: torch.Tensor,
+             w2: torch.Tensor) -> tuple:
+    """The biquad in float64, sample by sample, from the same float32
+    input, coefficients and states: (y, final w[n-1], final w[n-2])."""
+    b0, b1, b2, a1, a2 = (float(c) for c in coefs)
+    xs = x.double().reshape(-1, x.shape[-1]).cpu().numpy()
+    s1 = w1.double().reshape(-1).expand(xs.shape[0]).cpu().numpy()
+    s2 = w2.double().reshape(-1).expand(xs.shape[0]).cpu().numpy()
+    y = np.empty_like(xs)
+    ends = np.empty((2, xs.shape[0]))
+    for r in range(xs.shape[0]):
+        p1, p2, row, out = float(s1[r]), float(s2[r]), xs[r].tolist(), y[r]
+        for i, v in enumerate(row):
+            w = v - a1 * p1 - a2 * p2
+            out[i] = b0 * w + b1 * p1 + b2 * p2
+            p1, p2 = w, p1
+        ends[:, r] = p1, p2
+    cuda = lambda a, shape: torch.from_numpy(a).reshape(shape).cuda()
+    return (cuda(y, x.shape), cuda(ends[0], w1.shape),
+            cuda(ends[1], w1.shape))
+
+
+def check_biquad(gen, results):
+    """N2 (FM's 3 kHz audio biquad, one launch) against its plain version
+    (the Hillis-Steele prefix) and the float64 solve of the same float32
+    inputs and coefficients (``float64_bar``: no farther from it than 1.5x
+    the plain version), at FM's rate (62.5 kHz: the lowpass's poles
+    closest to the unit circle of the port's FM rates): full-width FM
+    (1 x 262,144, from nonzero states), the 8-channel FM monitor's rows
+    (8 x 256) and a partial last chunk (2 x 5,000); the new states
+    too."""
+    from cutesdr_tpu_torch.kernels import iir as iir_k
+    fs = rx.ReceiverConfig(mode="fm", **FULL).output_rate
+    coefs = fm.init(fs, "cuda")[0].lp_iir
+    for label, shape in (("", (N_DEMOD,)), (" 8x256", (8, 256)),
+                         (" 2x5,000", (2, 5000))):
+        x = randn(int(np.prod(shape)), gen, 0.3).reshape(shape)
+        lead = shape[:-1]
+        w1 = randn(max(1, int(np.prod(lead))), gen, 0.5).reshape(lead)
+        w2 = randn(max(1, int(np.prod(lead))), gen, 0.5).reshape(lead)
+        run_k = lambda: iir_k.biquad(x, coefs, w1, w2)
+        run_p = lambda: iir_k.biquad_plain(x, coefs, w1, w2)
+        (yk, k1, k2), (yp, p1, p2) = run_k(), run_p()
+        exact = biquad64(x, coefs, w1, w2)
+        _, _, tol = float64_bar(f"biquad{label}", yk, yp, exact[0])
+        for name, k, p, e in (("w[n-1]", k1, p1, exact[1]),
+                              ("w[n-2]", k2, p2, exact[2])):
+            _, _, tol_s = float64_bar(f"biquad{label} {name}", k, p, e)
+            max_err(f"biquad{label} {name}", [k], [p], tol_s)
+        n = x.numel()
+        # bytes: x in, y out; operations: the thread's composition (~12),
+        # the step (4) and y (5) a sample
+        compare("biquad", [yk], [yp], tol, results, run_k, run_p, label,
+                work=(8 * n, 21 * n))
+
+
 def resamp_case(gen, n_streams: int, n: int, ratio: float, nominal: float,
                 cplx: bool, periods: int = resampler.SINC_PERIODS):
     """The banded resampler's inputs for ``n_streams`` blocks of ``n``
@@ -1437,30 +1738,29 @@ def routed_kernels(cfg, bank: bool, params, counted=None) -> set[str]:
     """The kernels a configuration's path routes to, by the port's gates.
     The choices JAX makes with ``lax.cond`` are made on the card: every
     FM block launches K7 and every SAM block K8 (a kernel that returns at
-    once where the linear tier held), and every single-stream block with
-    the two-rate AGC launches N1 (which returns at once where the solve
-    converged); a bank's AGC votes its fallback on the host, and hang
-    mode reads its flag there, so they launch N1 only where they fell
-    back (``counted``: the fallbacks to
-    route by, in ``bench_suite.counts()``'s form, a bench row's; default
-    the counts as they stand).  Every path runs the S-meter kernel; the
-    affine scan runs the AM/SAM DC block, FM's three EMAs and hang mode's
-    decay rounds; a bank never takes the single-stream guess-verify solve
-    kernel."""
+    once where the linear tier held), and every block with the AGC on
+    launches N1 (which returns at once where the solves converged),
+    single stream and bank, two-rate and hang mode (``counted``: the
+    fallbacks, in ``bench_suite.counts()``'s form, a bench row's; default
+    the counts as they stand).  The AGC's two-rate averagers are K4
+    (``scan_solve``, a bank's rows in one launch), hang mode's decay
+    averager N3h (``hang_solve``).  Every path runs the S-meter kernel;
+    the affine scan runs the AM/SAM DC block and FM's three EMAs; FM's
+    audio biquad is N2 (``biquad``)."""
     counted = counted or bench_suite.counts()
     want = {"mixdec", "smeter"}
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
         want.add("fastfir_batch" if bank else "fastfir")
     if banded_tail(cfg, bank, params):
         want.add("resamp")
-    if not bank and cfg.agc_on:
-        want.add("scan_solve")
-        if not cfg.agc_hang:
-            want.add("agcseq")
-    if cfg.mode in ("am", "sam", "fm") or (cfg.agc_on and cfg.agc_hang):
+    if cfg.agc_on:
+        want |= {"scan_solve", "agcseq"}
+        if cfg.agc_hang:
+            want.add("hang_solve")
+    if cfg.mode in ("am", "sam", "fm"):
         want.add("scan_plain")
     if cfg.mode == "fm":
-        want.add("seqloop_fm")
+        want |= {"seqloop_fm", "biquad"}
     if cfg.mode == "sam":
         want.add("seqloop_sam")
     if counted["agc_fallbacks"]:
@@ -1483,19 +1783,10 @@ def guess_rounds(n_iters):
 def fallback_check(launches, tiers, n_blocks):
     """A path with one guess-verify round allowed: the AGC fell back on
     at least one block, and each block was one launch of N1 (which ran
-    the recurrence on the blocks that fell back)."""
+    the recurrence on the blocks that fell back), in two-rate and in hang
+    mode alike."""
     fallbacks = agc.STATS["scan_fallbacks"]
     if not (fallbacks >= 1 and launches["agcseq"] == n_blocks):
-        raise AssertionError(f"agc fallback path: {fallbacks} fallbacks, "
-                             f"{launches['agcseq']} agcseq launches over "
-                             f"{n_blocks} blocks")
-
-
-def hang_fallback_check(launches, tiers, n_blocks):
-    """``fallback_check`` in hang mode, which reads its flag on the host:
-    one launch of N1 on each block that fell back, and none on another."""
-    fallbacks = agc.STATS["scan_fallbacks"]
-    if not (fallbacks >= 1 and launches["agcseq"] == fallbacks):
         raise AssertionError(f"agc fallback path: {fallbacks} fallbacks, "
                              f"{launches['agcseq']} agcseq launches over "
                              f"{n_blocks} blocks")
@@ -1734,7 +2025,7 @@ def path_specs() -> list:
          tone(offset_hz=1000.0), 3,
          dict(tones=((0, 1000.0),), steps=2, may_fall_back=False)),
         # one guess-verify round allowed: the AGC's sequential fallback,
-        # one launch of N1 a block (two-rate), a block that fell back (hang)
+        # one launch of N1 a block
         ("usb agc fallback", "single", usb_cfg, None,
          tone(offset_hz=1000.0), 2,
          dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
@@ -1743,7 +2034,7 @@ def path_specs() -> list:
          rx.ReceiverConfig(mode="usb", agc_hang=True, **full), None,
          tone(offset_hz=1000.0), 2,
          dict(tones=((0, 1000.0),), steps=2, guess_iters=1,
-              need=("agcseq",), check=hang_fallback_check)),
+              need=("agcseq",), check=fallback_check)),
         # carrier-less noise at full width: the chunked tier every block,
         # one K7 launch each (last, so the paths before keep their inputs)
         ("fm noise", "single", rx.ReceiverConfig(mode="fm", **full), None,
@@ -1763,32 +2054,65 @@ GRAPH_STEPS = 20          # chained steps timed each way
 
 
 def graph_specs() -> list:
-    """(label, config, stimulus arguments, guess-verify rounds) of every
-    path ``check_graph`` drives: the tiers and fallbacks the card decides
-    (N1, K7's chunked and scan tiers, K8) and the resampler's two routes."""
+    """(label, kind, config, channel frequencies, stimulus arguments,
+    guess-verify rounds) of every path ``check_graph`` drives: the tiers
+    and fallbacks the card decides (N1, K7's chunked and scan tiers, K8),
+    the resampler's two routes, hang mode (N3h), and the banks (K4 over
+    rows, N3h over rows, N2, the bank-wide votes)."""
     fm_cfg = rx.ReceiverConfig(mode="fm", **FULL)
     usb_cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    hang_cfg = rx.ReceiverConfig(mode="usb", agc_hang=True, **FULL)
+    idle = dict(input_rate=2e6, tune_freq=100e3, frames_per_block=1,
+                fastfir_nfft=512, fastfir_ntaps=257)
     tone = lambda **kw: dict(carriers=(kw,))
+    # the banks of path_specs: BASELINE config 4's 64-channel grid, the
+    # FM monitor, four SAM channels, two separate full-width streams
+    grid = [-4.5e6 + 140e3 * i for i in range(64)]
+    grid_stim = dict(carriers=(dict(freq_hz=grid[0] + 1000.0),
+                               dict(freq_hz=grid[37] + 1000.0)),
+                     noise_db=-60.0)
+    mon = [100e3 + 50e3 * i for i in range(8)]
+    sam4 = [100e3 + 60e3 * i for i in range(4)]
+    bank10 = rx.ReceiverConfig(input_rate=10e6, mode="usb")
     return [
-        ("flagship usb", usb_cfg, tone(offset_hz=1000.0), None),
-        ("am", rx.ReceiverConfig(mode="am", **FULL),
+        ("flagship usb", "single", usb_cfg, None, tone(offset_hz=1000.0),
+         None),
+        ("am", "single", rx.ReceiverConfig(mode="am", **FULL), None,
          tone(mod_hz=1000.0, am_depth=0.5), None),
-        ("fm locked", fm_cfg, tone(fm_dev_hz=3000.0, mod_hz=1000.0), None),
-        ("fm noise", fm_cfg, dict(carriers=(), noise_db=-60.0), None),
+        ("fm locked", "single", fm_cfg, None,
+         tone(fm_dev_hz=3000.0, mod_hz=1000.0), None),
+        ("fm noise", "single", fm_cfg, None,
+         dict(carriers=(), noise_db=-60.0), None),
         # a clean carrier 3 Hz off the tune: the loop acquires, and its
         # chunks almost never bit-sync (K7's scan tier)
-        ("fm never-syncing tone", fm_cfg,
+        ("fm never-syncing tone", "single", fm_cfg, None,
          dict(carriers=(dict(offset_hz=3.0),), noise_db=-140.0), None),
-        ("fm idle channel", rx.ReceiverConfig(
-            mode="fm", input_rate=2e6, tune_freq=100e3, frames_per_block=1,
-            fastfir_nfft=512, fastfir_ntaps=257),
-         dict(carriers=(), noise_db=-60.0), None),
-        ("sam acquiring", rx.ReceiverConfig(mode="sam", **FULL),
-         tone(offset_hz=100.0, mod_hz=400.0, am_depth=0.5), None),
-        ("usb agc fallback", usb_cfg, tone(offset_hz=1000.0), 1),
-        ("cw", rx.ReceiverConfig(mode="cwu", **FULL),
+        ("fm idle channel", "single", rx.ReceiverConfig(mode="fm", **idle),
+         None, dict(carriers=(), noise_db=-60.0), None),
+        ("sam acquiring", "single", rx.ReceiverConfig(mode="sam", **FULL),
+         None, tone(offset_hz=100.0, mod_hz=400.0, am_depth=0.5), None),
+        ("usb agc fallback", "single", usb_cfg, None,
+         tone(offset_hz=1000.0), 1),
+        ("cw", "single", rx.ReceiverConfig(mode="cwu", **FULL), None,
          tone(offset_hz=0.0), None),
-        ("usb ratelock", usb_cfg, tone(offset_hz=1000.0), None),
+        ("usb ratelock", "single", usb_cfg, None, tone(offset_hz=1000.0),
+         None),
+        ("usb hang", "single", hang_cfg, None, tone(offset_hz=1000.0), None),
+        ("usb hang agc fallback", "single", hang_cfg, None,
+         tone(offset_hz=1000.0), 1),
+        ("bank usb 64ch", "bank", bank10, grid, grid_stim, None),
+        ("bank usb 64ch hang", "bank",
+         dataclasses.replace(bank10, agc_hang=True), grid, grid_stim, None),
+        ("bank fm monitor 8ch", "bank", rx.ReceiverConfig(mode="fm", **idle),
+         mon, dict(carriers=(dict(freq_hz=mon[0], fm_dev_hz=3000.0,
+                                  mod_hz=1000.0),)), None),
+        ("bank sam 4ch", "bank",
+         rx.ReceiverConfig(mode="sam", input_rate=2e6, frames_per_block=32),
+         sam4, dict(carriers=tuple(dict(freq_hz=f + 100.0, mod_hz=400.0,
+                                        am_depth=0.5) for f in sam4)),
+         None),
+        ("stacked usb 2ch agc fallback", "stacked", usb_cfg, [100e3, 100e3],
+         dict(streams=(tone(offset_hz=1000.0), tone(offset_hz=1500.0))), 1),
     ]
 
 
@@ -1796,7 +2120,9 @@ def graph_specs() -> list:
 # fastfir_batch launches fastfir's kernel, and is counted under it
 KERNEL_SYMBOLS = {
     "mixdec": "mixdec_kernel", "fastfir": "fastfir_kernel",
-    "scan_plain": "affine_scan_kernel", "scan_solve": "solve_kernel",
+    "scan_plain": "affine_scan_kernel",
+    "scan_solve": "solve_kernel|solve_one_kernel|solve_rows_kernel",
+    "hang_solve": "hang_kernel|hang_rows_kernel", "biquad": "biquad_kernel",
     "smeter": "smeter_kernel",
     "seqloop_fm": "fm_chunked_kernel|pll_walk_kernel<true>",
     "seqloop_sam": "pll_walk_kernel<false>", "resamp": "resamp_kernel",
@@ -1833,9 +2159,10 @@ def step_counts() -> dict:
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal to the bit (NaN and the sign of zero included)."""
+    """Equal to the bit (NaN and the sign of zero included); strided views
+    (a bank's carries) too."""
     view = lambda t: (torch.view_as_real(t) if t.is_complex() else t
-                      ).reshape(-1).view(torch.uint8)
+                      ).contiguous().reshape(-1).view(torch.uint8)
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         view(a), view(b))
 
@@ -1853,47 +2180,71 @@ def step_ms(step, blocks) -> float:
     return statistics.median(times)
 
 
-def graph_path(label, cfg, stim, iters, gen, gpu_label) -> dict:
+def graph_path(label, kind, cfg, freqs, stim, iters, gen,
+               gpu_label) -> dict:
     """One path of ``check_graph``: GRAPH_BLOCKS blocks eager and graphed
-    from one state, the retune, volume and ratio change on GRAPH_CHANGE;
+    from one state, the retune, volume and ratio change on GRAPH_CHANGE
+    (a bank: every channel retuned through ``set_tune_freqs``, in place);
     outputs, carries and counts bitwise equal; one replay under the
     profiler with no host read, one graph launch, and the card running
     each kernel as many times as the graph counts a replay (the kernel
     events by name); the step's ms both ways.  Returns the graphed run's
-    launches."""
+    counts."""
     ratio = cfg.output_rate / cfg.audio_rate
     ppm = 50e-6 if label == "usb ratelock" else 0.0
-    blocks = [(b.real.contiguous(), b.imag.contiguous()) for b in stimulus(
-        cfg, GRAPH_BLOCKS + 1 + GRAPH_STEPS, gen, **stim)]
-    r = rx.Receiver(cfg)
+    blocks = [(b.real.contiguous(), b.imag.contiguous()) for b in path_blocks(
+        kind, cfg, gen, stim, GRAPH_BLOCKS + 1 + GRAPH_STEPS)]
+    r = make_receiver(kind, cfg, freqs)
     if not r.graphed:
         raise AssertionError(f"graph {label}: the rule leaves it eager")
     if ppm:
         r.set_resample_ratio(ratio * (1 + ppm))
-    params, state = r.params, stepgraph.clone(r.state)
+    params, state = stepgraph.clone(r.params), stepgraph.clone(r.state)
     changes = (cfg.tune_freq + 25.0, 72, ratio * (1 + ppm + 20e-6))
+    if kind == "single":
+        step = rx.receiver_step_planes
+    else:
+        step = lambda *a: rx.bank_receiver_step_planes(*a, r.shared_input)
+        retuned = [f + 25.0 for f in freqs]
 
     def eager(re, im):
         nonlocal state
-        state, out = rx.receiver_step_planes(cfg, params, state, re, im)
+        state, out = step(cfg, params, state, re, im)
         return out
+
+    def change_eager(params):
+        if kind == "single":
+            params = rx.tune_params(cfg, params, changes[0])
+        else:
+            incs = [nco.phase_increment(f - cfg.cw_offset, cfg.input_rate)
+                    for f in retuned]
+            params = params._replace(dec=params.dec._replace(
+                phase_inc=torch.tensor(incs, dtype=torch.int64,
+                                       device="cuda")))
+        return rx.ratio_params(rx.volume_params(params, changes[1]),
+                               changes[2])
+
+    def change_graphed():
+        if kind == "single":
+            r.set_tune_freq(changes[0])
+        else:
+            r.set_tune_freqs(retuned)
+        r.params = rx.ratio_params(rx.volume_params(r.params, changes[1]),
+                                   changes[2])
 
     with guess_rounds(iters):
         reset_counts()
         want = []
         for i, (re, im) in enumerate(blocks[:GRAPH_BLOCKS]):
             if i == GRAPH_CHANGE:
-                params = rx.ratio_params(rx.volume_params(rx.tune_params(
-                    cfg, params, changes[0]), changes[1]), changes[2])
+                params = change_eager(params)
             want.append(eager(re, im))
         want_counts = step_counts()
         reset_counts()
         got = []
         for i, (re, im) in enumerate(blocks[:GRAPH_BLOCKS]):
             if i == GRAPH_CHANGE:
-                r.set_tune_freq(changes[0])
-                r.set_volume(changes[1])
-                r.set_resample_ratio(changes[2])
+                change_graphed()
             got.append(r.process_planes(re, im))
         got_counts = step_counts()
         fields = ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db")
@@ -1962,44 +2313,58 @@ def graph_path(label, cfg, stim, iters, gen, gpu_label) -> dict:
 
 
 def check_graph_rule(gen, gpu_label: str) -> dict:
-    """Every configuration the graph rule admits at one frame (2 MSPS:
-    the seven modes, mono and stereo, the two-rate AGC or the AGC off,
-    the blanker on or off; 56 receivers) captures, and replays three
-    blocks bitwise the eager step's; the rule's exclusions (hang mode,
-    probes) run eager.  Returns the graphed runs' launches."""
+    """Every configuration the graph rules admit at one frame (2 MSPS:
+    the seven modes, mono and stereo, the two-rate or the hang-mode AGC
+    or the AGC off, the blanker on or off: 84 receivers; a two-channel
+    ChannelBank of each mode in both AGC modes: 14 banks) captures, and
+    replays three blocks bitwise the eager step's; probes run eager
+    (a receiver's and a bank's).  Returns the graphed runs' launches."""
     total = dict.fromkeys(KERNELS, 0)
     t0 = time.perf_counter()
     n = 0
+
+    def replayed(cfg, kind, freqs):
+        nonlocal n
+        blocks = [(b.real.contiguous(), b.imag.contiguous())
+                  for b in stimulus(cfg, 3, gen,
+                                    carriers=(dict(offset_hz=700.0),))]
+        r = make_receiver(kind, cfg, freqs)
+        params, state = stepgraph.clone(r.params), stepgraph.clone(r.state)
+        step = (rx.receiver_step_planes if kind == "single" else
+                lambda *a: rx.bank_receiver_step_planes(*a, True))
+        reset_counts()
+        got = [r.process_planes(re, im) for re, im in blocks]
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():
+            total[k] += v
+        for (re, im), g in zip(blocks, got):
+            state, w = step(cfg, params, state, re, im)
+            if not (r.graphed and r._graph is not None
+                    and all(same_bits(a, b) for a, b in zip(w[:4], g[:4]))):
+                raise AssertionError(f"graph rule: {kind} {cfg} not "
+                                     "replayed bitwise the eager step")
+        n += 1
+
     for mode in rx.PORTED_MODES:
-        for stereo, agc_on, nb_on in itertools.product((False, True),
-                                                      repeat=3):
-            cfg = rx.ReceiverConfig(mode=mode, stereo=stereo, agc_on=agc_on,
-                                    nb_on=nb_on, tune_freq=100e3)
-            blocks = [(b.real.contiguous(), b.imag.contiguous())
-                      for b in stimulus(cfg, 3, gen,
-                                        carriers=(dict(offset_hz=700.0),))]
-            r = rx.Receiver(cfg)
-            params, state = r.params, stepgraph.clone(r.state)
-            reset_counts()
-            got = [r.process_planes(re, im) for re, im in blocks]
-            torch.cuda.synchronize()
-            for k, v in kernels.LAUNCHES.items():
-                total[k] += v
-            for (re, im), g in zip(blocks, got):
-                state, w = rx.receiver_step_planes(cfg, params, state, re, im)
-                if not (r.graphed and all(same_bits(a, b) for a, b in
-                                          zip(w[:4], g[:4]))):
-                    raise AssertionError(f"graph rule: {cfg} not replayed "
-                                         "bitwise the eager step")
-            n += 1
-    for kw in (dict(agc_hang=True), dict(probes=True)):
-        r = rx.Receiver(rx.ReceiverConfig(**kw))
+        for stereo, agc, nb_on in itertools.product(
+                (False, True), ("two-rate", "hang", "off"), (False, True)):
+            replayed(rx.ReceiverConfig(
+                mode=mode, stereo=stereo, agc_on=agc != "off",
+                agc_hang=agc == "hang", nb_on=nb_on, tune_freq=100e3),
+                "single", None)
+        for hang in (False, True):
+            replayed(rx.ReceiverConfig(mode=mode, agc_hang=hang,
+                                       tune_freq=100e3),
+                     "bank", [100e3, 150e3])
+    for kind, freqs in (("single", None), ("bank", [100e3, 150e3])):
+        r = make_receiver(kind, rx.ReceiverConfig(probes=True), freqs)
         r.process(torch.zeros(r.cfg.block_size, dtype=torch.complex64,
                               device="cuda"))
         if r.graphed or r._graph is not None:
-            raise AssertionError(f"graph rule: {kw} replayed a graph")
-    phase(f"graph rule: {n} admitted configurations captured and replayed "
-          "bitwise the eager step; hang mode and probes eager "
+            raise AssertionError(f"graph rule: a {kind} with probes "
+                                 "replayed a graph")
+    phase(f"graph rule: {n} admitted configurations (receivers and banks) "
+          "captured and replayed bitwise the eager step; probes eager "
           f"({time.perf_counter() - t0:.1f} s, {gpu_label})")
     return total
 
@@ -2010,8 +2375,9 @@ def check_graph(gen, gpu_label: str) -> dict:
     scan tiers, K8's scan tier.  Returns the graphed runs' launches."""
     total = dict.fromkeys(KERNELS, 0)
     seen = {"fallbacks": 0, "fm_chunked": 0, "fm_scan": 0, "sam_scan": 0}
-    for label, cfg, stim, iters in graph_specs():
-        counts = graph_path(label, cfg, stim, iters, gen, gpu_label)
+    for label, kind, cfg, freqs, stim, iters in graph_specs():
+        counts = graph_path(label, kind, cfg, freqs, stim, iters, gen,
+                            gpu_label)
         for k, v in counts["launches"].items():
             total[k] += v
         seen["fallbacks"] += counts["fallbacks"]
@@ -2039,8 +2405,9 @@ def check_paths(gen, gpu_label) -> dict:
     return total
 
 
-def profile_paths(gen, gpu_label) -> None:
-    """``--profile``: where the time goes on each receiver path.  The
+def profile_paths(gen, gpu_label, only=None) -> None:
+    """``--profile``: where the time goes on each receiver path (with
+    ``only``, a set of labels: those paths alone).  The
     path's blocks run once (acquisition, AGC settling), then the chained
     steps that continue its signal twice over: unprofiled for the step
     time, and under torch.profiler.
@@ -2051,10 +2418,16 @@ def profile_paths(gen, gpu_label) -> None:
     aten::_local_scalar_dense calls (``.item()``, ``bool`` of a device
     tensor).  Prints one JSON line per path."""
     from torch.profiler import ProfilerActivity, profile
+    keep = lambda label: only is None or label in only
     for label, kind, cfg, freqs, stim, n_blocks, kw in path_specs():
-        r = make_receiver(kind, cfg, freqs, kw.get("ratio_ppm", 0.0))
         steps = kw["steps"]
+        # a path left out still draws its blocks, so that the paths kept
+        # see the inputs of the whole run
         blocks = path_blocks(kind, cfg, gen, stim, n_blocks + 2 * steps)
+        if not keep(label):
+            del blocks
+            continue
+        r = make_receiver(kind, cfg, freqs, kw.get("ratio_ppm", 0.0))
 
         def run_steps(first):
             for b in blocks[first:first + steps]:
@@ -2073,8 +2446,14 @@ def profile_paths(gen, gpu_label) -> None:
                 run_steps(n_blocks + steps)
         profile_report(label, ms, prof, steps, gpu_label)
         del blocks
-    profile_biquad(gpu_label)
-    profile_session(gpu_label)
+    if keep(BIQUAD_LABEL):
+        profile_biquad(gpu_label)
+    if keep(SESSION_LABEL):
+        profile_session(gpu_label)
+
+
+BIQUAD_LABEL = "fm biquad (N2) alone"
+SESSION_LABEL = "session usb nb"
 
 
 def profile_biquad(gpu_label) -> None:
@@ -2095,7 +2474,7 @@ def profile_biquad(gpu_label) -> None:
                              ProfilerActivity.CUDA]) as prof:
         iir.process(params.lp_iir, carry.lp_iir, x)
         torch.cuda.synchronize()
-    profile_report("fm biquad (N2), one call", ms, prof, 1, gpu_label)
+    profile_report(BIQUAD_LABEL, ms, prof, 1, gpu_label)
 
 
 def profile_report(label: str, ms: float, prof, steps: int,
@@ -2306,7 +2685,7 @@ def profile_session(gpu_label: str) -> None:
         sess.flush()
         torch.cuda.synchronize()
     sess.stop()
-    profile_report("session usb nb", ms, prof, 8, gpu_label)
+    profile_report(SESSION_LABEL, ms, prof, 8, gpu_label)
 
 
 # --- the serving surface: probe taps, the probe scope and its server, the
@@ -3848,8 +4227,11 @@ def bench_row_check(label: str, res: dict, cfg, bank: bool, ms_key: str,
         raise AssertionError(f"{label}: wall {ms} ms against event {ev} ms")
     if res["device"]["name"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"{label}: measured on {res['device']}")
-    if res["graphed"] != (not bank and rx.graph_rule(cfg, "cuda")):
-        raise AssertionError(f"{label}: graphed {res['graphed']}")
+    rule = rx.bank_graph_rule if bank else rx.graph_rule
+    if res["graphed"] != rule(cfg, "cuda") or (res["graphed"]
+                                               and res["host_reads"]):
+        raise AssertionError(f"{label}: graphed {res['graphed']}, host "
+                             f"reads {res['host_reads']}")
     phase(f"{label}: {ms:.3f} ms wall, {ev:.3f} ms event a "
           f"{ms_key.split('_')[-1]} over {res.get('reps')} reps, graphed "
           f"{res['graphed']}, eager {res.get('eager_ms')} ms, host reads "
@@ -3947,6 +4329,9 @@ def main() -> int:
     gen_small.manual_seed(SEED + 10)
     gen_shard = torch.Generator(device="cuda")       # the shard paths'
     gen_shard.manual_seed(SEED + 11)
+    if sys.argv[1:3] == ["--profile", "--only"] and len(sys.argv) == 4:
+        profile_paths(gen, smi, set(sys.argv[3].split(",")))
+        return 0
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
         profile_serving(gen_serve, smi)
@@ -3965,6 +4350,11 @@ def main() -> int:
     check_scans(gen, results, gen_new)
     check_guess_verify(gen_new, results)
     check_guess_verify_small(gen_small)
+    gen_rows = torch.Generator(device="cuda")        # K4 rows, N3h, N2
+    gen_rows.manual_seed(SEED + 14)
+    check_solve_rows(gen_rows)
+    check_hang_solve(gen_rows, results)
+    check_biquad(gen_rows, results)
     check_agcseq(gen_new, results)
     gen_skip = torch.Generator(device="cuda")        # the skip flags'
     gen_skip.manual_seed(SEED + 13)

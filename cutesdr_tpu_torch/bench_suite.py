@@ -26,11 +26,11 @@ over the reps (the headline: the port is host-bound), the spread
 reps, and what the timed reps counted: the kernels launched
 (``kernels.LAUNCHES``), the PLL tiers taken and the AGC's sequential
 fallbacks.  A row says whether its single-stream step replays a CUDA
-graph (``graphed``: ``Receiver``'s rule); a graphed chain row also times
-the eager step function (``receiver_step_planes``) the same way
-(``eager_ms``).  On the card one more rep runs under torch.profiler,
-untimed, for the host reads a step (``host_reads``: the device values
-read on the host).  Every step's audio and S-meter must be finite: a row
+graph (``graphed``: ``Receiver``'s rule; row 4, the bank's rule); a
+graphed row also times the eager step function (``receiver_step_planes``,
+``bank_receiver_step_planes``) the same way (``eager_ms``).  On the card
+one more rep runs under torch.profiler, untimed, for the host reads a
+step (``host_reads``: the device values read on the host).  Every step's audio and S-meter must be finite: a row
 whose step raises or is not finite reports ``error`` and no time, and
 the suite exits non-zero.  Nothing is retried.
 
@@ -386,12 +386,25 @@ def bench_receiver_cfg(name: str, cfg: ReceiverConfig, stimulus: np.ndarray,
 def bench_channel_bank(cfg: ReceiverConfig, iters: int = ITERS,
                        device="cuda", reps: int = REPS) -> dict:
     """Row 4: 64 USB channels across one 10 MSPS stream
-    (``ChannelBank.process_planes``)."""
-    from cutesdr_tpu_torch.shard.channels import ChannelBank
+    (``ChannelBank.process_planes``); where the bank replays a graph
+    (``graphed``), the eager bank step (``bank_receiver_step_planes``)
+    is timed the same way (``eager_ms``)."""
+    from cutesdr_tpu_torch.pipeline.receiver import bank_receiver_step_planes
+    from cutesdr_tpu_torch.shard.channels import ChannelBank, bank_init
 
     device = resolve_device(device)
     bank = ChannelBank(cfg, BANK_FREQS, device)
     re, im = (torch.from_numpy(p).to(device) for p in bank_planes(cfg))
+    eager_ms = None
+    if bank.graphed:
+        params, state = bank_init(cfg, BANK_FREQS, device)
+        carry = [state]
+
+        def eager():
+            carry[0], out = bank_receiver_step_planes(cfg, params, carry[0],
+                                                      re, im)
+            return out
+        eager_ms = time_steps(eager, iters, reps, device).ms
     step = lambda: bank.process_planes(re, im)
     t = time_steps(step, iters, reps, device)
     reads = host_reads(lambda: [step() for _ in range(iters)], iters, device)
@@ -401,7 +414,8 @@ def bench_channel_bank(cfg: ReceiverConfig, iters: int = ITERS,
             "ms_per_step": t.ms, "iq_msps": msps,
             "channel_msps": msps * len(BANK_FREQS), "realtime_factor": rt,
             "spread": t.spread, **_timing_keys(t, "step", device, reps),
-            "graphed": False, "eager_ms": None, "host_reads": reads}
+            "graphed": bank.graphed, "eager_ms": eager_ms,
+            "host_reads": reads}
 
 
 def bench_latency_mode(row: Row, iters: int = ITERS, device="cuda",

@@ -42,6 +42,9 @@ __device__ __forceinline__ double apply(MaxAff f, double x) {
     return fmax(fma(f.c, x, f.u), f.v);
 }
 
+__device__ __forceinline__ void identity(Aff* m) { *m = aff_id(); }
+__device__ __forceinline__ void identity(MaxAff* m) { *m = maxaff_id(); }
+
 __device__ __forceinline__ Aff shfl_up(Aff x, int d) {
     return {__shfl_up_sync(FULL, x.a, d), __shfl_up_sync(FULL, x.b, d)};
 }
@@ -53,11 +56,14 @@ __device__ __forceinline__ MaxAff shfl_down(MaxAff x, int d) {
             __shfl_down_sync(FULL, x.v, d)};
 }
 
-// Inclusive scan over the 32 lanes of a warp (all lanes must call).
-__device__ __forceinline__ Aff warp_inclusive(Aff x) {
+// Inclusive scan over the 32 lanes of a warp (all lanes must call); Map
+// is any map type with ``compose`` and ``shfl_up`` (Aff here, the
+// biquad's 2x2 map in iir.cu).
+template <class Map>
+__device__ __forceinline__ Map warp_inclusive(Map x) {
     const int lane = threadIdx.x & 31;
     for (int d = 1; d < 32; d <<= 1) {
-        Aff y = shfl_up(x, d);
+        Map y = shfl_up(x, d);
         if (lane >= d) x = compose(y, x);
     }
     return x;
@@ -65,22 +71,25 @@ __device__ __forceinline__ Aff warp_inclusive(Aff x) {
 
 // Exclusive scan of one value per thread over the whole block, in thread
 // order; *total receives the block's composition.  All threads call.
-static __device__ Aff block_exclusive(Aff x, Aff* total) {
-    __shared__ Aff warp_tot[32];
+template <class Map>
+__device__ Map block_exclusive(Map x, Map* total) {
+    __shared__ Map warp_tot[32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
-    Aff inc = warp_inclusive(x);
+    Map inc = warp_inclusive(x);
     if (lane == 31) warp_tot[warp] = inc;
     __syncthreads();
     if (warp == 0) {
-        Aff w = lane < nwarps ? warp_tot[lane] : aff_id();
+        Map w;
+        if (lane < nwarps) w = warp_tot[lane];
+        else identity(&w);
         w = warp_inclusive(w);
         warp_tot[lane] = w;               // inclusive over warps
     }
     __syncthreads();
-    Aff ex = shfl_up(inc, 1);
-    if (lane == 0) ex = aff_id();
-    Aff res = warp == 0 ? ex : compose(warp_tot[warp - 1], ex);
+    Map ex = shfl_up(inc, 1);
+    if (lane == 0) identity(&ex);
+    Map res = warp == 0 ? ex : compose(warp_tot[warp - 1], ex);
     *total = warp_tot[nwarps - 1];
     __syncthreads();                      // warp_tot is reused by the caller
     return res;
@@ -228,8 +237,6 @@ __device__ __forceinline__ void fetch(const double2* slot, MaxAff* m) {
     const double2 w = __ldcg(slot), z = __ldcg(slot + 1);
     *m = {w.x, w.y, z.x};
 }
-__device__ __forceinline__ void identity(Aff* m) { *m = aff_id(); }
-__device__ __forceinline__ void identity(MaxAff* m) { *m = maxaff_id(); }
 
 // The block's chunk id: a ticket in launch order (the ticket zeroed
 // before the launch), or blockIdx.x where the chunks do not wait on each
@@ -245,8 +252,10 @@ __device__ __forceinline__ int chunk_ticket(unsigned* ticket, bool ordered) {
 // The composition of chunks 0 .. c-1 of a row whose status words start at
 // ``row``, in order, valid in thread 0.  All threads call; thread t takes
 // the chunk t before the nearest of the round, so warp w's window ends 32*w
-// chunks back.
-template <class Map>
+// chunks back.  WAIT: spin on each predecessor's status word; without it
+// the maps are known to be published (a grid barrier came between, as in
+// the AGC solves' rounds) and lb.flags is not read.
+template <class Map, bool WAIT = true>
 __device__ Map lookback(const Lookback& lb, int row, int c) {
     __shared__ Map window[SCAN_THREADS / 32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -258,7 +267,7 @@ __device__ Map lookback(const Lookback& lb, int row, int c) {
         Map m;
         identity(&m);
         if (j >= 0) {
-            while (ld_acquire(lb.flags + row + j) != READY) {
+            while (WAIT && ld_acquire(lb.flags + row + j) != READY) {
             }
             fetch(lb.agg + 2 * (row + j), &m);
         }

@@ -54,10 +54,14 @@ SIGNATURES = {
     # flags, agg, ticket, stream
     "cutesdr_scan_affine": [P, F32, P, F32, P, I32, F32, I32, I32, I32, P,
                             P, P, P, P],
-    # peak, pattern_in, rise, fall, ag, x0, n, n_iters, x, pattern, counts,
-    # result, totals_a, totals_b, stream
-    "cutesdr_scan_solve": [P, P, F32, F32, F32, P, I32, I32, P, P, P, P, P,
-                           P, P],
+    # peak, pattern_in, rise, fall, ag, x0, n, rows, n_iters, x, pattern,
+    # counts, rounds, ok, totals_a, totals_b, done, stream
+    "cutesdr_scan_solve": [P, P, F32, F32, F32, P, I32, I32, I32, P, P, P, P,
+                           P, P, P, P, P],
+    # peak, d0, timer0, rise, fall, hang_time, n, rows, n_iters, d, timer,
+    # pattern, counts, rounds, ok, last, carry, agg, done, stream
+    "cutesdr_hang_solve": [P, P, P, F32, F32, I32, I32, I32, I32, P, P, P, P,
+                           P, P, P, P, P, P, P],
     # mag, aa, 1 - aa, ad, 1 - ad, a0, d0, carry_stride, n, rows, vec, out,
     # flags, agg, ticket, stream
     "cutesdr_smeter": [P, F32, F32, F32, F32, P, P, I32, I32, I32, I32, P, P,
@@ -67,6 +71,10 @@ SIGNATURES = {
     # stream
     "cutesdr_agc_seq": [P, I32, I32, F32, F32, F32, F32, I32, P, P, P, P, P,
                         P, P, P, P, P],
+    # x, a1, a2, b0, b1, b2, w1, w2, n, rows, vec, y, w_out, flags, agg,
+    # ticket, stream
+    "cutesdr_biquad": [P, F32, F32, F32, F32, F32, P, P, I32, I32, I32, P, P,
+                       P, P, P, P],
     # theta, n, n_ch, alpha, beta, limit, fast, halo, state0, freqs, err,
     # state, valid, e1, e2, flags, ticket, clocks, stager_ns, skip, stream
     "cutesdr_fm_pll": [P, I32, I32, F32, F32, F32, I32, I32, P, P, P, P, P,

@@ -1,7 +1,9 @@
 """Affine prefix scans of the AGC, the S-meter and the demodulators'
-one-pole filters (port of ``cutesdr_tpu/kernels/scan1.py``).
+one-pole filters (port of ``cutesdr_tpu/kernels/scan1.py``), and the
+AGC's guess-verify solves.
 
-Three TPU kernels map onto two CUDA sources:
+Three TPU kernels map onto two CUDA sources, and one solve without a
+Pallas kernel joins them:
 
 * ``first_order_scan`` (scan1.first_order_scan) is the affine solve
   x[n] = A[n]*x[n-1] + B[n] over ``[..., n]`` rows with per-row initial
@@ -12,9 +14,17 @@ Three TPU kernels map onto two CUDA sources:
   pattern and re-derives the pattern; the port runs it inside
   ``guess_verify_solve``, which also takes the loop around it from JAX's
   ``ops/agc._two_rate_parallel`` (warm start, rounds until one validates
-  or ``n_iters`` ran) into ONE cooperative launch with no host read
-  (``csrc/scan.cu``); ``guess_round`` is that launch for one round from a
-  given pattern;
+  or ``n_iters`` ran) into ONE launch with no host read, over one stream
+  or a bank's [C, n] rows (each row its own stream, frozen once it
+  validates; ``csrc/scan.cu``: rows of one 2,048-sample chunk a block
+  each, rows of more one cooperative launch); ``guess_round`` is that
+  launch for one round from a given pattern;
+* ``hang_solve`` (N3h, no Pallas counterpart: JAX's
+  ``ops/agc._hang_decay_parallel``, a ``lax.while_loop`` of solves) is
+  hang mode's decay solve in ONE launch of the same two forms: the
+  distance since the last rise (a max carried across chunks), the hold
+  window, the rates, K3's affine solve, the re-derived pattern and its
+  exact count, every round on the device;
 * ``smeter_last`` (scan1.smeter_last) chains the attack EMA into the
   snapped max-affine decay and emits the two final values of every row
   (``csrc/smeter.cu``, one launch, one pass).
@@ -22,11 +32,11 @@ Three TPU kernels map onto two CUDA sources:
 CUDA tensors launch the kernels at every size; CPU tensors take the
 plain versions, which are the JAX package's XLA forms (``ops/util``
 solves, the open-coded guess-verify round and loop of
-``ops/agc._two_rate_parallel``), so every CPU parity test sees the numbers
-the plain solves give.  The JAX package's size gates (``MIN_KERNEL_N``,
-``smeter_supported``), set by TPU timing, are kept for the parity tests;
-the CUDA kernels do not need them (the single stream's guess-verify
-solve takes the kernel at every size).
+``ops/agc._two_rate_parallel`` and ``_hang_decay_parallel``, their rounds
+driven from Python with one host read a round), so every CPU parity test
+sees the numbers the plain solves give.  The JAX package's size gates
+(``MIN_KERNEL_N``, ``smeter_supported``), set by TPU timing, are kept for
+the parity tests; the CUDA kernels do not need them.
 """
 
 from __future__ import annotations
@@ -57,12 +67,6 @@ def smeter_supported(n: int) -> bool:
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=RDTYPE, device=like.device).reshape(1)
-
-
-def _scratch(n: int, k: int, like: torch.Tensor) -> list[torch.Tensor]:
-    nb = -(-n // CHUNK)
-    return [torch.empty(nb, dtype=RDTYPE, device=like.device)
-            for _ in range(k)]
 
 
 def shift1(x: torch.Tensor, x0) -> torch.Tensor:
@@ -309,41 +313,91 @@ def guess_verify_solve_plain(peak: torch.Tensor, x0, rise_alpha, fall_alpha,
     return x, ok, rounds
 
 
+def _rows_of(peak: torch.Tensor, x0, name: str) -> tuple:
+    """``peak`` ([n] or [C, n]) as contiguous float32 rows and ``x0`` (a
+    number, one value or one per row) as [rows] on its device."""
+    p2 = peak.reshape(-1, peak.shape[-1])
+    rows, n = p2.shape
+    _build.require(p2, name, RDTYPE, n, rows=rows)
+    x0 = torch.as_tensor(x0, dtype=RDTYPE, device=peak.device).reshape(-1)
+    if x0.numel() not in (1, rows):
+        raise ValueError(f"{name}: {x0.numel()} initial states for {rows} "
+                         "rows")
+    return p2, x0.expand(rows).contiguous()
+
+
+def _launch_rounds(t: torch.Tensor, rows: int, n: int, slots: int,
+                   launch) -> None:
+    """Launch a guess-verify solve over ``rows`` rows of ``n``: rows of
+    one chunk take a block each, and more than one of them a zeroed
+    two-word ``done`` (the look-back memory's ticket and first status
+    word); rows of several chunks take ``slots`` look-back map slots
+    (``launch(agg, done)``; unused pointers are null)."""
+    if n > CHUNK:
+        if not slots:
+            return launch(None, None)
+        return launch_ordered(t, slots, lambda flags, agg, ticket:
+                              launch(agg, None))
+    if rows == 1:
+        return launch(None, None)
+    return launch_ordered(t, 1, lambda flags, agg, ticket:
+                          launch(None, ticket))
+
+
 def _solve_launch(peak: torch.Tensor, pattern, x0, rise_alpha, fall_alpha,
                   n_iters: int):
-    """One launch of the solve: (x, last pattern, int32 [n_iters + 3] =
-    per-round counts [n_iters + 1], ok, rounds), all on the device."""
-    n = peak.shape[-1]
-    _build.require(peak, "peak", RDTYPE, n)
+    """One launch of the solve over the rows of ``peak`` ([n] or [C, n]):
+    (x, last pattern, int32 [rows * (n_iters + 1) + 1] = each row's
+    per-round counts, then the rounds run; bool [rows + 1] = each row
+    converged, then all rows), all on the device, x and the pattern in
+    ``peak``'s shape."""
+    p2, x0 = _rows_of(peak, x0, "peak")
+    rows, n = p2.shape
     if pattern is not None:
         _build.require(pattern, "pattern", torch.bool, n)
-    x0 = _scalar(x0, peak)
-    x = torch.empty(n, dtype=RDTYPE, device=peak.device)
-    newpat = torch.empty(n, dtype=torch.bool, device=peak.device)
-    ints = torch.empty(n_iters + 3, dtype=torch.int32, device=peak.device)
-    ta, tb = _scratch(n, 2, peak)
-    _build.check(_build.library().cutesdr_scan_solve(
-        peak.data_ptr(), None if pattern is None else pattern.data_ptr(),
-        np.float32(rise_alpha), np.float32(fall_alpha),
-        warm_rate(rise_alpha, fall_alpha), x0.data_ptr(), n, n_iters,
-        x.data_ptr(), newpat.data_ptr(), ints.data_ptr(),
-        ints.data_ptr() + 4 * (n_iters + 1), ta.data_ptr(), tb.data_ptr(),
-        _build.stream(peak)), "scan_solve")
+    x = torch.empty_like(p2)
+    newpat = torch.empty((rows, n), dtype=torch.bool, device=p2.device)
+    ints = torch.empty(rows * (n_iters + 1) + 1, dtype=torch.int32,
+                       device=p2.device)
+    ok = torch.empty(rows + 1, dtype=torch.bool, device=p2.device)
+    ta, tb = (torch.empty(rows * -(-n // CHUNK), dtype=RDTYPE,
+                          device=p2.device) for _ in range(2))
+    lib = _build.library()
+    _build.check(_launch_rounds(p2, rows, n, 0, lambda agg, done: (
+        lib.cutesdr_scan_solve(
+            p2.data_ptr(), None if pattern is None else pattern.data_ptr(),
+            np.float32(rise_alpha), np.float32(fall_alpha),
+            warm_rate(rise_alpha, fall_alpha), x0.data_ptr(), n, rows,
+            n_iters, x.data_ptr(), newpat.data_ptr(), ints.data_ptr(),
+            ints.data_ptr() + 4 * rows * (n_iters + 1), ok.data_ptr(),
+            ta.data_ptr(), tb.data_ptr(), done, _build.stream(p2)))),
+        "scan_solve")
     LAUNCHES["scan_solve"] += 1
-    return x, newpat, ints
+    return x.reshape(peak.shape), newpat.reshape(peak.shape), ints, ok
 
 
 def guess_verify_solve(peak: torch.Tensor, x0, rise_alpha, fall_alpha,
                        n_iters: int):
-    """(x, ok, rounds) of ``guess_verify_solve_plain`` for one stream: the
-    plain loop for CPU tensors, one launch of the kernel for CUDA ones, its
-    ok (0-dim bool) and round count (0-dim int32) left on the device."""
-    if _build.on_cpu(peak):
+    """(x, ok, rounds) of ``guess_verify_solve_plain`` for one stream ([n])
+    or a bank's rows ([C, n], ``x0`` one value or one per row): the plain
+    loop for CPU tensors, one launch of the kernel for CUDA ones, its ok
+    (every row converged, a 0-dim bool) and round count (0-dim int32)
+    left on the device."""
+    if _build.on_cpu(peak, *(t for t in (x0,) if isinstance(t, torch.Tensor))):
         return guess_verify_solve_plain(peak, x0, rise_alpha, fall_alpha,
                                         n_iters)
-    x, _, ints = _solve_launch(peak, None, x0, rise_alpha, fall_alpha,
-                               n_iters)
-    return x, ints[n_iters + 1] != 0, ints[n_iters + 2]
+    x, _, ints, ok = _solve_launch(peak, None, x0, rise_alpha, fall_alpha,
+                                   n_iters)
+    return x, ok[-1], ints[-1]
+
+
+def guess_verify_solve_rows(peak: torch.Tensor, x0, rise_alpha, fall_alpha,
+                            n_iters: int):
+    """``guess_verify_solve`` with each row's flag: (x, row ok [rows] bool,
+    ok, rounds), on the card only."""
+    x, _, ints, ok = _solve_launch(peak, None, x0, rise_alpha, fall_alpha,
+                                   n_iters)
+    return x, ok[:-1], ok[-1], ints[-1]
 
 
 def guess_round(peak: torch.Tensor, pattern: torch.Tensor, x0, rise_alpha,
@@ -353,9 +407,102 @@ def guess_round(peak: torch.Tensor, pattern: torch.Tensor, x0, rise_alpha,
     tensor: reading it is the caller's host sync."""
     if _build.on_cpu(peak, pattern):
         return guess_round_plain(peak, pattern, x0, rise_alpha, fall_alpha)
-    x, newpat, ints = _solve_launch(peak, pattern, x0, rise_alpha,
-                                    fall_alpha, 1)
+    x, newpat, ints, _ = _solve_launch(peak, pattern, x0, rise_alpha,
+                                       fall_alpha, 1)
     return x, newpat, ints[1]
+
+
+# ------------------------------------------------------------- hang mode --
+
+def hang_solve_plain(peak: torch.Tensor, d0, timer0, rise_alpha, fall_alpha,
+                     hang_time: int, n_iters: int):
+    """Guess-verify solve of the hang-mode decay averager (JAX's
+    ``ops/agc._hang_decay_parallel``): rise while pk > d, HOLD for
+    hang_time samples, then release.  The pattern is the rising flags
+    alone; the hold window is `distance since the last rise <
+    hang_time`, and the timer is min(distance, hang_time).  A tie resets
+    the timer even where the value cannot change, so the check is exact
+    pattern equality (no forgiveness).  Each round's solve is the affine
+    scan (``first_order_scan``); the rounds run from Python
+    (``guess_verify``).  Returns (trajectory, timer, every row
+    converged, as ``guess_verify``)."""
+    dev = peak.device
+    rise, fall, zero = (torch.tensor(v, dtype=RDTYPE, device=dev) for v in
+                        (rise_alpha, fall_alpha, 0.0))
+
+    def body(c):
+        pattern = c[0]
+        dist = util.distance_since_last_true(pattern, timer0)
+        hold = ~pattern & (shift1(dist, timer0) < hang_time)
+        alpha = torch.where(pattern, rise, torch.where(hold, zero, fall))
+        d = first_order_scan(1.0 - alpha, alpha * peak, d0)
+        new = peak > shift1(d, d0)
+        return (new, d, dist), (new == pattern).all(-1)
+
+    pattern0 = peak > shift1(peak, d0)
+    (_, d, dist), ok, _ = guess_verify(body, (pattern0, None, None), n_iters)
+    timer = torch.clamp(dist[..., -1], max=hang_time).to(torch.int32)
+    return d, timer, ok
+
+
+def _hang_launch(peak: torch.Tensor, d0, timer0, rise_alpha, fall_alpha,
+                 hang_time: int, n_iters: int):
+    """One launch of N3h over the rows of ``peak``: (d, timer, int32
+    counts and rounds, bool flags) as ``_solve_launch``."""
+    p2, d0 = _rows_of(peak, d0, "peak")
+    rows, n = p2.shape
+    timer0 = torch.as_tensor(timer0, dtype=torch.int32,
+                             device=p2.device).reshape(-1)
+    if timer0.numel() not in (1, rows):
+        raise ValueError(f"timer0: {timer0.numel()} values for {rows} rows")
+    timer0 = timer0.expand(rows).contiguous()
+    d = torch.empty_like(p2)
+    timer = torch.empty(rows, dtype=torch.int32, device=p2.device)
+    pattern = torch.empty((rows, n), dtype=torch.bool, device=p2.device)
+    ints = torch.empty(rows * (n_iters + 1) + 1, dtype=torch.int32,
+                       device=p2.device)
+    ok = torch.empty(rows + 1, dtype=torch.bool, device=p2.device)
+    items = rows * -(-n // CHUNK)
+    last, carry = (torch.empty(items, dtype=torch.int32, device=p2.device)
+                   for _ in range(2))
+    lib = _build.library()
+    _build.check(_launch_rounds(p2, rows, n, items, lambda agg, done: (
+        lib.cutesdr_hang_solve(
+            p2.data_ptr(), d0.data_ptr(), timer0.data_ptr(),
+            float(np.float32(rise_alpha)), float(np.float32(fall_alpha)),
+            int(hang_time), n, rows, n_iters, d.data_ptr(), timer.data_ptr(),
+            pattern.data_ptr(), ints.data_ptr(),
+            ints.data_ptr() + 4 * rows * (n_iters + 1), ok.data_ptr(),
+            last.data_ptr(), carry.data_ptr(), agg, done,
+            _build.stream(p2)))), "hang_solve")
+    LAUNCHES["hang_solve"] += 1
+    lead = peak.shape[:-1]
+    return d.reshape(peak.shape), timer.reshape(lead), ints, ok
+
+
+def hang_solve(peak: torch.Tensor, d0, timer0, rise_alpha, fall_alpha,
+               hang_time: int, n_iters: int):
+    """(d, timer, ok) of ``hang_solve_plain`` for one stream ([n]) or a
+    bank's rows ([C, n]; ``d0``, ``timer0`` one value or one per row): the
+    plain rounds for CPU tensors, one launch of N3h for CUDA ones (every
+    round on the device, no host read), ok (every row converged) a 0-dim
+    device bool."""
+    if _build.on_cpu(peak, *(t for t in (d0, timer0)
+                             if isinstance(t, torch.Tensor))):
+        return hang_solve_plain(peak, d0, timer0, rise_alpha, fall_alpha,
+                                hang_time, n_iters)
+    d, timer, _, ok = _hang_launch(peak, d0, timer0, rise_alpha, fall_alpha,
+                                   hang_time, n_iters)
+    return d, timer, ok[-1]
+
+
+def hang_solve_rows(peak: torch.Tensor, d0, timer0, rise_alpha, fall_alpha,
+                    hang_time: int, n_iters: int):
+    """``hang_solve`` with each row's flag and the rounds run: (d, timer,
+    row ok [rows] bool, ok, rounds), on the card only."""
+    d, timer, ints, ok = _hang_launch(peak, d0, timer0, rise_alpha,
+                                      fall_alpha, hang_time, n_iters)
+    return d, timer, ok[:-1], ok[-1], ints[-1]
 
 
 # ---------------------------------------------------------------- smeter --

@@ -10,20 +10,21 @@
    samples and then releases;
 5. the gain law: fixed gain below the knee, 10^(mag*(slope-1)) above.
 
-``process`` is the single stream: each two-rate averager is one launch
-of the solve (warm start and every round on the device), and the choice
+``process`` takes the single stream and a channel bank alike ([C, n]
+with per-channel carries, as the JAX package's vmapped form;
+``process_batch`` is the same function).
+Each averager's guess-verify solve is one launch on the card, warm start
+and every round on the device, a row frozen once it validates: the
+two-rate averagers' (K4, ``kernels/scan.guess_verify_solve``) and hang
+mode's decay averager's (N3h, ``kernels/scan.hang_solve``).  The choice
 between the parallel result and the sequential fallback is made on the
-device, as JAX's ``lax.cond`` makes it: N1 takes both averagers'
-convergence flag, returns at once where it holds and otherwise writes the
-exact result over the parallel one (``_fallback``), so the step reads
-nothing on the host and can be replayed as a CUDA graph.  On the CPU the
-plain version branches on its own bool.  Hang mode's decay averager and
-``process_batch`` (a channel bank, [C, n] with per-channel carries, as
-the JAX package's vmapped form) run their rounds from Python with one
-host read per round (for the whole bank), each round's solve one launch
-of the affine scan on the card, and a bank votes bank-wide between the
-parallel result and the sequential fallback on the host; hang mode
-reads its flag there too (N1 then launches only on a fallback).
+device, as JAX's ``lax.cond`` makes it: N1 takes the convergence flag of
+both averagers over every row (a bank votes bank-wide, as JAX's
+``process_batch`` does), returns at once where it holds and otherwise
+writes the exact result over the parallel one (``_fallback``), so the
+step reads nothing on the host and can be replayed as a CUDA graph.  On
+the CPU the plain versions run their rounds from Python (one host read a
+round) and the fallback branches on their flag.
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ import numpy as np
 import torch
 
 from cutesdr_tpu_torch.kernels import DeviceCounts, agcseq, scan
-from cutesdr_tpu_torch.ops.util import (distance_since_last_true,
-                                        sliding_window_max)
+from cutesdr_tpu_torch.ops.util import sliding_window_max
 from cutesdr_tpu_torch.types import MAX_AMPLITUDE, RDTYPE, real_scalar
 
 DELAY_TIMECONST = 0.015
@@ -126,71 +126,51 @@ def init_carry(cfg: AgcConfig, device) -> AgcCarry:
 
 
 def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
-                       n_iters: int, fast: bool):
+                       n_iters: int):
     """Guess-verify solve of the two-rate averager
         x[n] = (1-a[n])*x[n-1] + a[n]*pk[n],
         a[n] = rise if pk[n] > x[n-1] else fall.
     Every fixed-pattern trajectory lower-bounds the true one, so the
-    iteration rises monotonically to the exact solution.  With ``fast``
-    (the single stream) the solve kernel at every size (one launch, no
-    host read; the JAX package's TPU gate of 65,536 samples does not
-    apply on the card), else the plain loop.  Returns (trajectory, every
-    row converged: a 0-dim device bool, or True where the plain loop has
-    read it)."""
-    if fast:
-        solve = scan.guess_verify_solve
-    else:
-        solve = scan.guess_verify_solve_plain
-    x, ok, _ = solve(peak, x0, rise_alpha, fall_alpha, n_iters)
+    iteration rises monotonically to the exact solution.  The solve
+    kernel on the card at every size and row count (one launch, no host
+    read; the JAX package's TPU gate of 65,536 samples does not apply),
+    the plain loop on the CPU (``kernels/scan.guess_verify_solve``).
+    Returns (trajectory, every row converged: a 0-dim device bool, or
+    True where the plain loop has read it)."""
+    x, ok, _ = scan.guess_verify_solve(peak, x0, rise_alpha, fall_alpha,
+                                       n_iters)
     return x, ok
 
 
 def _hang_decay_parallel(p: AgcParams, d0, timer0, peak: torch.Tensor,
                          n_iters: int):
     """Guess-verify solve of the hang-mode decay averager: rise while
-    pk > d, HOLD for hang_time samples, then release.  The pattern is the
-    rising flags alone; the hold window is `distance since the last rise
-    < hang_time`, and the timer is min(distance, hang_time).  A tie
-    resets the timer even where the value cannot change, so the check is
-    exact pattern equality (no forgiveness).  Each round's solve is the
-    affine scan (``kernels/scan.first_order_scan``).  Returns (trajectory,
-    timer, all rows converged, as ``_two_rate_parallel``)."""
-    dev = peak.device
-    rise, fall, zero = (torch.tensor(v, dtype=RDTYPE, device=dev) for v in
-                        (p.decay_rise_alpha, p.decay_fall_alpha, 0.0))
-
-    def body(c):
-        pattern = c[0]
-        dist = distance_since_last_true(pattern, timer0)
-        hold = ~pattern & (scan.shift1(dist, timer0) < p.hang_time)
-        alpha = torch.where(pattern, rise, torch.where(hold, zero, fall))
-        d = scan.first_order_scan(1.0 - alpha, alpha * peak, d0)
-        new = peak > scan.shift1(d, d0)
-        return (new, d, dist), (new == pattern).all(-1)
-
-    pattern0 = peak > scan.shift1(peak, d0)
-    (_, d, dist), ok, _ = scan.guess_verify(body, (pattern0, None, None),
-                                            n_iters)
-    timer = torch.clamp(dist[..., -1], max=p.hang_time).to(torch.int32)
-    return d, timer, ok
+    pk > d, HOLD for hang_time samples, then release: N3h on the card
+    (one launch), the plain rounds on the CPU (``kernels/scan.hang_solve``).
+    Returns (trajectory, timer, all rows converged, as
+    ``_two_rate_parallel``)."""
+    return scan.hang_solve(peak, d0, timer0, p.decay_rise_alpha,
+                           p.decay_fall_alpha, p.hang_time, n_iters)
 
 
 def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
-                       peak: torch.Tensor, fast: bool):
+                       peak: torch.Tensor):
     """Both averagers in parallel: ((attack_last, decay_last, timer,
     max(attack, decay) series), every row of both converged: True, or a
-    0-dim device bool that the caller reads once)."""
+    0-dim device bool)."""
     a, a_ok = _two_rate_parallel(p.attack_rise_alpha, p.attack_fall_alpha,
-                                 carry.attack_ave, peak, GUESS_ITERS, fast)
+                                 carry.attack_ave, peak, GUESS_ITERS)
     if cfg.use_hang:
         d, timer, d_ok = _hang_decay_parallel(p, carry.decay_ave,
                                               carry.hang_timer, peak,
                                               GUESS_ITERS)
     else:
         d, d_ok = _two_rate_parallel(p.decay_rise_alpha, p.decay_fall_alpha,
-                                     carry.decay_ave, peak, GUESS_ITERS, fast)
+                                     carry.decay_ave, peak, GUESS_ITERS)
         timer = carry.hang_timer
-    return (a[..., -1], d[..., -1], timer, torch.maximum(a, d)), a_ok & d_ok
+    # a bank's last values as contiguous [C] (N1 writes over them)
+    return ((a[..., -1].contiguous(), d[..., -1].contiguous(), timer,
+             torch.maximum(a, d)), a_ok & d_ok)
 
 
 def _averager_scan(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
@@ -211,18 +191,17 @@ def _fallback(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
               peak: torch.Tensor, levels, ok):
     """The parallel ``levels`` (the tuple of ``_averager_parallel``) where
     ``ok`` (every row of both averagers converged) holds, else the exact
-    recurrence (``_averager_scan``), counted in ``STATS`` where it runs.
-    A 0-dim tensor ``ok`` is read where the recurrence would run: by N1
-    on the card, which then writes the exact result over ``levels`` (no
-    host read); by the plain version on the CPU.  A host bool (a bank's
-    vote, or hang mode's flag, read after their rounds) is branched on
-    here."""
+    recurrence (``_averager_scan``) over every row, counted in ``STATS``
+    where it runs.  On the card the 0-dim flag is read by N1, which then
+    writes the exact result over ``levels`` (no host read).  On the CPU
+    the flag (True where the plain loop read it, else its 0-dim flag) is
+    branched on here."""
     count = STATS.counter(peak.device, "scan_fallbacks")
-    if not isinstance(ok, torch.Tensor):
-        if ok:
-            return levels
-        return _averager_scan(cfg, p, carry, peak, count=count)
-    return _averager_scan(cfg, p, carry, peak, levels, ok, count)
+    if isinstance(ok, torch.Tensor) and ok.device.type == "cuda":
+        return _averager_scan(cfg, p, carry, peak, levels, ok, count)
+    if bool(ok):
+        return levels
+    return _averager_scan(cfg, p, carry, peak, count=count)
 
 
 def _prefix(cfg: AgcConfig, carry: AgcCarry, x: torch.Tensor):
@@ -246,31 +225,21 @@ def _apply_gain(params: AgcParams, magsel: torch.Tensor,
     return delayed * gain
 
 
-def _process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
-             x: torch.Tensor, fast: bool) -> tuple[AgcCarry, torch.Tensor]:
+def process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
+            x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
+    """One stream ``x`` [n], or a channel bank: ``x`` [C, n] with a leading
+    channel axis on the carry and shared params.  Each solve is one launch
+    over the bank's rows (converged channels frozen), and the fallback is
+    voted bank-wide: N1 runs every channel where any channel did not
+    converge, as JAX's ``lax.cond(jnp.all(valid), ...)``."""
     if not cfg.agc_on:
         return carry, x * params.manual_gain
     delayed, new_sig_delay, peak, mag_tail = _prefix(cfg, carry, x)
-    levels, ok = _averager_parallel(cfg, params, carry, peak, fast)
-    if not fast or cfg.use_hang:
-        ok = bool(ok)                 # a bank votes on the host, and hang
-                                      # mode's decay rounds read it already
+    levels, ok = _averager_parallel(cfg, params, carry, peak)
     a, d, timer, magsel = _fallback(cfg, params, carry, peak, levels, ok)
     y = _apply_gain(params, magsel, delayed)
     return AgcCarry(sig_delay=new_sig_delay, mag_tail=mag_tail,
                     attack_ave=a, decay_ave=d, hang_timer=timer), y
 
 
-def process(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
-            x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
-    """One stream: the guess-verify solve kernel on the card."""
-    return _process(cfg, params, carry, x, fast=True)
-
-
-def process_batch(cfg: AgcConfig, params: AgcParams, carry: AgcCarry,
-                  x: torch.Tensor) -> tuple[AgcCarry, torch.Tensor]:
-    """A channel bank: ``x`` [C, n] and a leading channel axis on the
-    carry; the params are shared.  The guess-verify rounds run from
-    Python (each hang-mode round one affine-scan launch on the card);
-    converged channels are frozen, the fallback is voted bank-wide."""
-    return _process(cfg, params, carry, x, fast=False)
+process_batch = process

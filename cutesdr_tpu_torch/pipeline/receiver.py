@@ -12,14 +12,16 @@ Numeric knobs (tune frequency, filter H, AGC constants, resample ratio,
 volume, DC cal) are plain values in ``ReceiverParams``, swapped between
 blocks; the stream state is one ``ReceiverState`` handed across blocks.
 The rational resampler runs from 131,072 demodulated samples up, as in
-the JAX package.  The AGC's guess-verify solve kernel (single stream),
-the S-meter kernel, the affine scan (the demods' one-poles, hang mode's
-rounds) and the AGC's sequential fallback (kernel N1) take every size,
-single stream and bank where they apply.  Tensors on the CPU run every
-kernel's plain version; CUDA tensors launch the kernels.  A mode, rate or
-filter-size change keeps the stream: ``migrate_state`` carries the state
-into the new configuration's (``Receiver.reconfigure``).  With
-``probes`` on, the step also returns the testbench's named taps (p1-p7).
+the JAX package.  The AGC's guess-verify solves (K4 for the two-rate
+averagers, N3h for hang mode's decay averager: one launch each, a bank's
+rows in the same launch), the S-meter kernel, the affine scan (the
+demods' one-poles), FM's biquad (N2) and the AGC's sequential fallback
+(kernel N1) take every size, single stream and bank.  Tensors on the CPU
+run every kernel's plain version; CUDA tensors launch the kernels.  A
+mode, rate or filter-size change keeps the stream: ``migrate_state``
+carries the state into the new configuration's
+(``Receiver.reconfigure``).  With ``probes`` on, the step also returns
+the testbench's named taps (p1-p7).
 
 The step is ``front`` (blanker, mix + decimate, channel filter) then
 ``back_end`` (S-meter, AGC, demod, resampler); the time-sharded and the
@@ -28,38 +30,42 @@ two apart.
 
 ``bank_receiver_step`` runs C channels of one configuration at once (a
 leading channel axis on the state and on the per-channel params): one
-mixdec, one batched channel-filter and one S-meter launch for the bank,
-the AGC and the PLL tiers voted bank-wide, and, as in the JAX package's
-bank, never the guess-verify solve kernel or the rational resampler.
+mixdec, one batched channel-filter, one S-meter and one launch of each
+AGC solve for the bank, the AGC's fallback and the PLL tiers voted
+bank-wide, and, as in the JAX package's bank, never the rational
+resampler.
 
 The step's data-dependent choices (the AGC's sequential fallback, FM's
 and SAM's PLL tiers) are made on the device, as the JAX package's
 ``lax.cond``s make them inside its ``jax.jit`` of the step, so on the card
-the single-stream step makes no host read.  ``Receiver`` replays it as
-one CUDA graph (``pipeline/stepgraph``) where ``graph_rule(cfg, device)``
-holds:
+neither step makes a host read.  ``Receiver`` replays its step as one
+CUDA graph (``pipeline/stepgraph``) where ``graph_rule(cfg, device)``
+holds, and a bank (``shard/channels``) replays ``bank_receiver_step_planes``
+where ``bank_graph_rule(cfg, device)`` does (``GraphedStepper``):
 
-* graphed: a single stream on a CUDA device, in every mode (USB, LSB,
-  CWU, CWL, AM, FM, SAM; mono and stereo), with the two-rate AGC or the
-  AGC off, with or without the noise blanker;
-* eager, for now: hang-mode AGC (its decay rounds read the host),
-  ``probes`` (taps of the step's intermediates) and every CPU receiver;
-* not on this path: the banks, ``StackedReceiver``, the time-sharded and
-  pipelined receivers and ``DiversitySession``, which call the step
-  functions eagerly.
+* graphed: a single stream or a bank on a CUDA device, in every mode
+  (USB, LSB, CWU, CWL, AM, FM, SAM; mono and stereo), with the two-rate
+  or the hang-mode AGC or the AGC off, with or without the noise
+  blanker;
+* eager, for now: ``probes`` (taps of the step's intermediates) and every
+  CPU receiver;
+* not on this path: the time-sharded and pipelined receivers and
+  ``DiversitySession``, which call the step functions eagerly.
 
-A graph is captured at a receiver's first block, for its block shape and
-the host values of its params (``graph_key``).  The tune, the volume and
-a banded resample ratio are device values of the captured params
-(``device_params``: K1 reads the tune's increment by pointer), which the
-setters fill in place, so they reach the graph on the next block with
-no capture; so do a new channel filter and DC cal (tensors copied in
+A graph is captured at the first block, for its block shape and the host
+values of its params (``graph_key``).  The tune, the volume and a banded
+resample ratio are device values of the captured params
+(``device_params``: K1 reads the tune's increment by pointer; a bank's
+increments are a tensor that ``set_tune_freqs`` writes in place), which
+the setters fill in place, so they reach the graph on the next block
+with no capture; so do a new channel filter and DC cal (tensors copied in
 place).  A change of the AGC's constants, or of the resampler's route
 between the exact rational and the banded path (the rate lock leaving or
 reaching the nominal ratio), captures a new graph at the next block in
 place of the old; ``reconfigure`` drops it.  The eager step
-(``receiver_step_planes``) stays: it is the step of every path the rule
-leaves out, and the reference the graph is held to on the card.
+(``receiver_step_planes``, ``bank_receiver_step_planes``) stays: it is
+the step of every path the rules leave out, and the reference the graph
+is held to on the card.
 """
 
 from __future__ import annotations
@@ -415,13 +421,11 @@ def _front_prefilter(cfg: ReceiverConfig, params: ReceiverParams,
 
 
 def _levels(cfg: ReceiverConfig, params: ReceiverParams,
-            state: ReceiverState, filt: torch.Tensor, fast: bool):
-    """S-meter + AGC on the channel-filtered samples.  ``fast`` is the
-    single stream, with the guess-verify solve kernel; a bank passes
-    False."""
+            state: ReceiverState, filt: torch.Tensor):
+    """S-meter + AGC on the channel-filtered samples (one stream, or a
+    bank's [C, n] rows)."""
     sm_c, _ = smeter.process(params.smeter, state.smeter, filt)
-    agc_step = agc.process if fast else agc.process_batch
-    agc_c, leveled = agc_step(_agc_cfg(cfg), params.agc, state.agc, filt)
+    agc_c, leveled = agc.process(_agc_cfg(cfg), params.agc, state.agc, filt)
     return sm_c, agc_c, leveled
 
 
@@ -497,7 +501,7 @@ def back_end(cfg: ReceiverConfig, params: ReceiverParams,
     resampler carries and the ``StepOutput``.  The time-sharded and the
     pipelined receivers run it on a filtered block that the front end
     made elsewhere."""
-    sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=True)
+    sm_c, agc_c, leveled = _levels(cfg, params, state, filt)
     _tap(probes, "p3_agc", leveled)
     dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled,
                                probes)
@@ -562,7 +566,7 @@ def bank_receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
     ff_c, filt = fastfir_k.batch_call(params.chan_filter, state.chan_filter,
                                       base)
     _tap(probes, "p2_fastfir", filt)
-    sm_c, agc_c, leveled = _levels(cfg, params, state, filt, fast=False)
+    sm_c, agc_c, leveled = _levels(cfg, params, state, filt)
     _tap(probes, "p3_agc", leveled)
     dm_c, audio = _demod_apply(cfg, params.demod, state.demod, leveled)
     _tap(probes, "p4_demod", audio)
@@ -616,26 +620,36 @@ def volume_params(params: ReceiverParams, vol_0_99: int) -> ReceiverParams:
 def graph_rule(cfg: ReceiverConfig, device) -> bool:
     """The rule (module notes): whether a ``Receiver`` of ``cfg`` on
     ``device`` replays its step as one CUDA graph."""
-    return (torch.device(device).type == "cuda" and not cfg.probes
-            and not (cfg.agc_on and cfg.agc_hang))
+    return torch.device(device).type == "cuda" and not cfg.probes
 
 
-def _device_paths(cfg: ReceiverConfig, params: ReceiverParams) -> set:
+def bank_graph_rule(cfg: ReceiverConfig, device) -> bool:
+    """Whether a bank of ``cfg`` on ``device`` (a ``ChannelBank``, a
+    ``StackedReceiver``, each sub-bank of one over a mesh) replays
+    ``bank_receiver_step_planes`` as one CUDA graph: on a CUDA device,
+    without probes, in every mode and AGC setting, as the single
+    stream."""
+    return graph_rule(cfg, device)
+
+
+def _device_paths(cfg: ReceiverConfig, params: ReceiverParams,
+                  bank: bool = False) -> set:
     """The params a graph holds as device values, so that a block may
     change them without a capture: the tune (K1 reads its increment by
-    pointer), the volume and, off the rational route, the resample
+    pointer; a bank's increments are a tensor already), the volume and,
+    off the rational route (a bank is always off it), the resample
     ratio."""
     paths = {("dec", "phase_inc"), ("audio_gain",)}
-    if params.resamp is not None and not rational_tail(cfg, params):
+    if params.resamp is not None and (bank or not rational_tail(cfg, params)):
         paths |= {("resamp", "dt_hi"), ("resamp", "dt_lo")}
     return paths
 
 
 def device_params(cfg: ReceiverConfig, params: ReceiverParams,
-                  device) -> ReceiverParams:
+                  device, bank: bool = False) -> ReceiverParams:
     """The params a graph is captured with: a copy of every tensor, and
     the values of ``_device_paths`` as 0-dim device tensors."""
-    lifted = _device_paths(cfg, params)
+    lifted = _device_paths(cfg, params, bank)
     dtypes = {("dec", "phase_inc"): torch.int64}
 
     def leaf(path, v):
@@ -648,10 +662,11 @@ def device_params(cfg: ReceiverConfig, params: ReceiverParams,
     return stepgraph.tree_map(leaf, params)
 
 
-def graph_key(cfg: ReceiverConfig, params: ReceiverParams) -> tuple:
+def graph_key(cfg: ReceiverConfig, params: ReceiverParams,
+              bank: bool = False) -> tuple:
     """What a captured step bakes in: the params' host values and tensor
     shapes, the values of ``_device_paths`` excepted."""
-    lifted = _device_paths(cfg, params)
+    lifted = _device_paths(cfg, params, bank)
 
     def part(path, v):
         if isinstance(v, torch.Tensor):
@@ -679,44 +694,38 @@ def _update_params(static: ReceiverParams, old: ReceiverParams,
 
 
 class _Graphed:
-    """A captured step of a ``Receiver``: its key, its device params, the
-    host params they hold (``host``) and the ``StepGraph``."""
+    """A captured step: its key, its device params, the host params they
+    hold (``host``) and the ``StepGraph`` of ``step(cfg, params, state,
+    re, im)`` over blocks of ``block`` (a shape)."""
 
     def __init__(self, cfg: ReceiverConfig, params: ReceiverParams, key,
-                 state, device: torch.device):
+                 state, device: torch.device, step, block, bank: bool):
         self.key = key
         self.host = params
-        self.params = device_params(cfg, params, device)
+        self.params = device_params(cfg, params, device, bank)
         self.step = stepgraph.StepGraph(
-            lambda p, st, re, im: receiver_step_planes(cfg, p, st, re, im),
-            self.params, state, cfg.block_size, device)
+            lambda p, st, re, im: step(cfg, p, st, re, im), self.params,
+            state, block, device)
 
 
-class Receiver:
-    """Stateful wrapper: owns params and state on one device, the card
-    unless ``device`` says otherwise (no CUDA device raises).
+class GraphedStepper:
+    """Params, state and the replayed CUDA graph of a streaming step, the
+    bookkeeping ``Receiver`` and the banks (``shard/channels``) share.
 
-    ``process(iq)`` takes a complex64 block, ``process_planes(re, im)`` the
-    block as float32 or int16 planes (the radio's 16-bit wire format, cast
-    on the device).  Host numpy input is moved to the receiver's device.
+    Where ``graphed`` holds, each block replays the step as one CUDA graph
+    (module notes): ``state`` then reads a copy of the graph's static
+    buffers and assigning it copies into them, and ``params`` stays the
+    host form, whose changes reach the graph in place (a change of
+    ``graph_key`` captures a new graph at the next block).  A subclass
+    gives ``graphed``, ``_step`` (the eager step over planes), ``_block``
+    (the input block's shape) and ``_bank``."""
 
-    Where ``graph_rule(cfg, device)`` holds (``graphed``), each block
-    replays the step as one CUDA graph (module notes); ``state`` then reads a copy of the
-    graph's static buffers and assigning it copies into them, and
-    ``params`` stays the host form, whose changes reach the graph in
-    place."""
+    _bank = False
 
-    def __init__(self, cfg: ReceiverConfig, device="cuda"):
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self._params, self._state = init(cfg, self.device)
+    def _start(self, params: ReceiverParams, state: ReceiverState) -> None:
+        self._params, self._state = params, state
         self._graph: _Graphed | None = None   # holds the state when set
         self._key = None                      # graph_key of the params
-
-    @property
-    def graphed(self) -> bool:
-        """Whether this receiver's blocks replay a CUDA graph."""
-        return graph_rule(self.cfg, self.device)
 
     @property
     def params(self) -> ReceiverParams:
@@ -728,7 +737,7 @@ class Receiver:
         self._key = None
         g = self._graph
         if g is not None:
-            self._key = graph_key(self.cfg, value)
+            self._key = graph_key(self.cfg, value, self._bank)
             if g.key == self._key:
                 _update_params(g.params, g.host, value)
                 g.host = value
@@ -753,34 +762,72 @@ class Receiver:
         """The graph of the current params, captured anew where their key
         changed (the state carried over from the last one)."""
         if self._key is None:
-            self._key = graph_key(self.cfg, self._params)
+            self._key = graph_key(self.cfg, self._params, self._bank)
         g = self._graph
         if g is None or g.key != self._key:
             state = self._state if g is None else g.step.state
             self._graph = _Graphed(self.cfg, self._params, self._key, state,
-                                   self.device)
+                                   self.device, self._step, self._block,
+                                   self._bank)
             self._state = None
         return self._graph.step
 
-    def process(self, iq) -> StepOutput:
-        iq = self._to_device(iq, CDTYPE)
+    def _run(self, iq: torch.Tensor) -> StepOutput:
+        """One complex64 block on the device: replayed, or the eager step
+        over its planes (strided views, not copies)."""
         if self.graphed:
             return self._graph_step().run(iq)
-        self._state, out = receiver_step(self.cfg, self._params, self._state,
-                                         iq)
+        self._state, out = self._step(self.cfg, self._params, self._state,
+                                      iq.real, iq.imag)
         return out
 
-    def process_planes(self, re, im) -> StepOutput:
-        re, im = self._to_device(re), self._to_device(im)
+    def _run_planes(self, re: torch.Tensor, im: torch.Tensor) -> StepOutput:
+        """One block as float32 or int16 planes on the device (int16 wire
+        values are already in the +-32767 full-scale convention, so the
+        cast is exact)."""
         if self.graphed:
             return self._graph_step().run_planes(re, im)    # casts int16
         if re.dtype != RDTYPE:
-            # int16 wire values are already in the +-32767 full-scale
-            # convention, so the cast is exact
             re, im = re.to(RDTYPE), im.to(RDTYPE)
-        self._state, out = receiver_step_planes(self.cfg, self._params,
-                                                self._state, re, im)
+        self._state, out = self._step(self.cfg, self._params, self._state,
+                                      re, im)
         return out
+
+
+class Receiver(GraphedStepper):
+    """Stateful wrapper: owns params and state on one device, the card
+    unless ``device`` says otherwise (no CUDA device raises).
+
+    ``process(iq)`` takes a complex64 block, ``process_planes(re, im)`` the
+    block as float32 or int16 planes (the radio's 16-bit wire format, cast
+    on the device).  Host numpy input is moved to the receiver's device.
+
+    Where ``graph_rule(cfg, device)`` holds (``graphed``), each block
+    replays the step as one CUDA graph (``GraphedStepper``)."""
+
+    def __init__(self, cfg: ReceiverConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._start(*init(cfg, self.device))
+
+    @property
+    def graphed(self) -> bool:
+        """Whether this receiver's blocks replay a CUDA graph."""
+        return graph_rule(self.cfg, self.device)
+
+    @property
+    def _block(self) -> tuple:
+        return (self.cfg.block_size,)
+
+    @staticmethod
+    def _step(cfg, params, state, re, im):
+        return receiver_step_planes(cfg, params, state, re, im)
+
+    def process(self, iq) -> StepOutput:
+        return self._run(self._to_device(iq, CDTYPE))
+
+    def process_planes(self, re, im) -> StepOutput:
+        return self._run_planes(self._to_device(re), self._to_device(im))
 
     # --- live reconfiguration between blocks (a graph takes them in
     # place: the tune, the volume, a banded ratio, the filter and the DC

@@ -6,8 +6,11 @@ and can be captured.
 
 ``StepGraph(step, params, state, block, device)`` captures ``step(params,
 state, re, im) -> (state', out)`` once for the float32 planes of a
-complex64 block of ``block`` samples (the real and imaginary views of one
-static buffer: K1 reads them as interleaved pairs):
+complex64 block of ``block`` samples (an int, or a shape: a
+StackedReceiver's [C, block_size]; the real and imaginary views of one
+static buffer: K1 reads them as interleaved pairs), on ``device`` (made
+the current device for the capture and each replay, so a sub-bank on
+another card of a mesh captures there):
 
 * a warm-up step runs first, on a copy of the state, so that what is made
   at first use (cuFFT plans, cuDNN algorithms, cached tables, the kernel
@@ -103,8 +106,9 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         before = dict(LAUNCHES)
         try:
-            with scan.own_lookback(self.lookback), torch.cuda.graph(
-                    self.graph, capture_error_mode="thread_local"):
+            with torch.cuda.device(device), scan.own_lookback(
+                    self.lookback), torch.cuda.graph(
+                        self.graph, capture_error_mode="thread_local"):
                 new, out = step(params, self.state, re, im)
                 _copy_into(self.state, new)
         finally:
@@ -112,21 +116,34 @@ class StepGraph:
             LAUNCHES.update(before)
         self.out = out
 
+    def _fits(self, *ts: torch.Tensor) -> None:
+        """A block must fill the static one exactly: the copy would
+        broadcast a shared block over a stack's rows where the eager
+        step refuses it."""
+        for t in ts:
+            if t.shape != self.iq.shape:
+                raise ValueError(f"graphed step: expected a block of "
+                                 f"{tuple(self.iq.shape)}, got "
+                                 f"{tuple(t.shape)}")
+
     def run(self, iq: torch.Tensor):
         """One complex64 block: copied in, the graph replayed; returns the
         step's output (fresh tensors)."""
+        self._fits(iq)
         self.iq.copy_(iq)
         return self._replay()
 
     def run_planes(self, re: torch.Tensor, im: torch.Tensor):
         """``run`` of a block given as planes (int16 planes are cast by the
         copies)."""
+        self._fits(re, im)
         self.iq.real.copy_(re)
         self.iq.imag.copy_(im)
         return self._replay()
 
     def _replay(self):
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for k, v in self.launches.items():
             LAUNCHES[k] += v
         return clone(self.out)

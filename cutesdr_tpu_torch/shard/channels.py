@@ -91,13 +91,24 @@ def _cat_outputs(outs: list, device) -> rx.StepOutput:
                          probes=probes)
 
 
-class _Bank:
+class _Bank(rx.GraphedStepper):
     """The bank entry points over ``bank_receiver_step``, on the card
     unless ``device`` says otherwise; host numpy input is moved to the
     bank's device.  With a ``mesh`` the channels split into one sub-bank
-    (``parts``) per device along its ``axis``."""
+    (``parts``) per device along its ``axis``.
+
+    Where ``rx.bank_graph_rule(cfg, device)`` holds (``graphed``: on a
+    CUDA device without probes), each block replays
+    ``bank_receiver_step_planes`` as one CUDA graph, as ``Receiver``
+    replays its step (``rx.GraphedStepper``: ``state`` reads and loads the
+    graph's buffers, a change of ``params`` lands in place or captures
+    anew), the JAX package's jitted bank step; over a mesh each sub-bank
+    captures its own on its device.  The channels' DDS increments are a
+    device tensor that ``set_tune_freqs`` writes in place, and the volume
+    and the resample ratio device values of the captured params."""
 
     shared_input: bool
+    _bank = True
 
     def __init__(self, cfg: rx.ReceiverConfig, tune_freqs: Sequence[float],
                  device="cuda", mesh=None, axis: str = "ch"):
@@ -114,17 +125,30 @@ class _Bank:
             self.device = self.parts[0].device
             return
         self.device = resolve_device(device)
-        self.params, self.state = bank_init(self.cfg, tune_freqs,
-                                            self.device)
+        self._start(*bank_init(self.cfg, tune_freqs, self.device))
+
+    @property
+    def graphed(self) -> bool:
+        """Whether this bank's blocks replay a CUDA graph (a mesh's: each
+        sub-bank's)."""
+        if self.parts is not None:
+            return all(p.graphed for p in self.parts)
+        return rx.bank_graph_rule(self.cfg, self.device)
 
     @property
     def n_channels(self) -> int:
         if self.parts is not None:
             return sum(p.n_channels for p in self.parts)
-        return self.state.chan_filter.tail.shape[0]
+        return self._params.dec.phase_inc.shape[0]
 
-    def _to_device(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+    @property
+    def _block(self) -> tuple:
+        n = self.cfg.block_size
+        return (n,) if self.shared_input else (self.n_channels, n)
+
+    def _step(self, cfg, params, state, re, im):
+        return rx.bank_receiver_step_planes(cfg, params, state, re, im,
+                                            self.shared_input)
 
     def _split(self, call: str, *blocks) -> rx.StepOutput:
         """``call`` on each sub-bank: the shared block whole, or a stack's
@@ -141,23 +165,19 @@ class _Bank:
     def process(self, iq) -> rx.StepOutput:
         if self.parts is not None:
             return self._split("process", iq)
-        self.state, out = rx.bank_receiver_step(
-            self.cfg, self.params, self.state, self._to_device(iq, CDTYPE),
-            self.shared_input)
-        return out
+        return self._run(self._to_device(iq, CDTYPE))
 
     def process_planes(self, re, im) -> rx.StepOutput:
         """The block as float32 or int16 planes (the radio's 16-bit wire
         format, cast on the device)."""
         if self.parts is not None:
             return self._split("process_planes", re, im)
-        re, im = self._to_device(re, RDTYPE), self._to_device(im, RDTYPE)
-        self.state, out = rx.bank_receiver_step_planes(
-            self.cfg, self.params, self.state, re, im, self.shared_input)
-        return out
+        return self._run_planes(self._to_device(re), self._to_device(im))
 
     def set_tune_freqs(self, freqs: Sequence[float]) -> None:
-        """Retune every channel between blocks (one frequency each)."""
+        """Retune every channel between blocks (one frequency each): the
+        increments are written in place, into the bank's tensor and the
+        graph's copy of it."""
         if len(freqs) != self.n_channels:
             raise ValueError(f"{len(freqs)} frequencies for "
                              f"{self.n_channels} channels")
@@ -167,11 +187,14 @@ class _Bank:
                 part.set_tune_freqs(freqs[row:row + part.n_channels])
                 row += part.n_channels
             return
-        incs = [nco.phase_increment(f - self.cfg.cw_offset,
-                                    self.cfg.input_rate) for f in freqs]
-        self.params = self.params._replace(dec=self.params.dec._replace(
-            phase_inc=torch.tensor(incs, dtype=torch.int64,
-                                   device=self.device)))
+        incs = torch.tensor([nco.phase_increment(f - self.cfg.cw_offset,
+                                                 self.cfg.input_rate)
+                             for f in freqs], dtype=torch.int64)
+        held = [self._params.dec.phase_inc]
+        if self._graph is not None:
+            held.append(self._graph.params.dec.phase_inc)
+        for t in held:
+            t.copy_(incs)
 
 
 class ChannelBank(_Bank):

@@ -225,7 +225,7 @@ def test_agc_batch_fallback_is_voted_bank_wide(monkeypatch):
     np.testing.assert_allclose(ty.numpy(), want,
                                atol=1e-4 * np.abs(want).max())
     oks = [t_agc._averager_parallel(
-        tcfg, tp, tc, t_agc._prefix(tcfg, tc, _t(x[c]))[2], False)[1]
+        tcfg, tp, tc, t_agc._prefix(tcfg, tc, _t(x[c]))[2])[1]
         for c in range(3)]
     assert oks == [False, False, True]
 

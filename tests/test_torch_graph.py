@@ -85,7 +85,7 @@ def test_agc_fallback_merge(ok):
     where the flag holds, else the exact recurrence, counted once; the
     AGC's ``_fallback`` gives the same for a 0-dim flag and a host bool."""
     cfg, p, c, peak = _agc_case()
-    levels, _ = t_agc._averager_parallel(cfg, p, c, peak, fast=False)
+    levels, _ = t_agc._averager_parallel(cfg, p, c, peak)
     exact = t_agc._averager_scan(cfg, p, c, peak)
     count = torch.zeros((), dtype=torch.int32)
     got = t_agc._averager_scan(cfg, p, c, peak, levels, torch.tensor(ok),
@@ -266,9 +266,10 @@ def test_demod_tiers_match_jax(mode, stim):
 
 @pytest.mark.parametrize("mode", rx.PORTED_MODES)
 def test_graph_rule(mode):
-    """Graphed: a single stream on a CUDA device in every mode, mono and
-    stereo, with the two-rate AGC or the AGC off, with or without the
-    blanker.  Eager: hang-mode AGC, probes, every CPU receiver."""
+    """Graphed: a single stream or a bank on a CUDA device in every mode,
+    mono and stereo, with the two-rate or the hang-mode AGC or the AGC
+    off, with or without the blanker.  Eager: probes, every CPU
+    receiver; the rules are functions of (cfg, device) alone."""
     for device in ("cuda", "cuda:0", "cpu"):
         for stereo in (False, True):
             for agc_on, hang in ((True, False), (True, True), (False, False),
@@ -278,9 +279,9 @@ def test_graph_rule(mode):
                         cfg = rx.ReceiverConfig(
                             mode=mode, stereo=stereo, agc_on=agc_on,
                             agc_hang=hang, nb_on=nb_on, probes=probes)
-                        want = (device != "cpu" and not probes
-                                and not (agc_on and hang))
+                        want = device != "cpu" and not probes
                         assert rx.graph_rule(cfg, device) == want, cfg
+                        assert rx.bank_graph_rule(cfg, device) == want, cfg
 
 
 # ------------------------------------------------- the Receiver's graphs --
@@ -411,24 +412,41 @@ def test_reconfigure_drops_the_graph_and_its_key(graphed_cpu):
 
 @pytest.mark.parametrize("hang", [False, True])
 def test_hang_mode_reads_its_flag_on_the_host(monkeypatch, hang):
-    """The single stream's two-rate AGC hands ``_fallback`` its 0-dim
-    flag (N1 reads it on the card); hang mode, whose decay rounds read
-    the host already, hands it a host bool, so N1 launches only on a
-    fallback.  The solve's flag is made a 0-dim tensor, as the card's
-    kernel leaves it (the CPU's plain loop has read it)."""
-    seen = []
-    merge, solve = t_agc._fallback, scan.guess_verify_solve
-    monkeypatch.setattr(scan, "guess_verify_solve", lambda *a: (
-        lambda x, ok, rounds: (x, torch.tensor(ok), rounds))(*solve(*a)))
-    monkeypatch.setattr(t_agc, "_fallback",
-                        lambda *a: seen.append(a[-1]) or merge(*a))
+    """On the CPU the plain rounds read their flag on the host, hang
+    mode's too: a converged solve hands back True, read.  On the card
+    every solve (the two-rate averagers' K4, hang mode's N3h) leaves its
+    flag on the device, and the AGC hands ``_fallback`` the 0-dim flag of
+    both averagers (N1 reads it) in hang mode as in two-rate mode: no
+    host read.  The card's solves are stood in for by their plain
+    versions with the flag made a 0-dim tensor, as the kernels leave
+    it."""
     cfg = t_agc.AgcConfig(True, hang, 15_625.0)
     p = t_agc.make_params(cfg, -100.0, 30.0, 0.0, 200.0)
     x = _t(_tone(4096, 300.0, fs=15_625.0))
-    t_agc.process(cfg, p, t_agc.init_carry(cfg, "cpu"), x)
+    c = t_agc.init_carry(cfg, "cpu")
+    peak = t_agc._prefix(cfg, c, x)[2]
+    if hang:
+        _, _, ok = scan.hang_solve(peak, c.decay_ave, c.hang_timer,
+                                   p.decay_rise_alpha, p.decay_fall_alpha,
+                                   p.hang_time, t_agc.GUESS_ITERS)
+    else:
+        _, ok, _ = scan.guess_verify_solve(peak, c.attack_ave,
+                                           p.attack_rise_alpha,
+                                           p.attack_fall_alpha,
+                                           t_agc.GUESS_ITERS)
+    assert ok is True
+    seen = []
+    merge = t_agc._fallback
+    solve, hang_solve = scan.guess_verify_solve, scan.hang_solve
+    monkeypatch.setattr(scan, "guess_verify_solve", lambda *a: (
+        lambda x, ok, rounds: (x, torch.tensor(ok), rounds))(*solve(*a)))
+    monkeypatch.setattr(scan, "hang_solve", lambda *a: (
+        lambda d, timer, ok: (d, timer, torch.tensor(ok)))(*hang_solve(*a)))
+    monkeypatch.setattr(t_agc, "_fallback",
+                        lambda *a: seen.append(a[-1]) or merge(*a))
+    t_agc.process(cfg, p, c, x)
     assert len(seen) == 1
-    assert isinstance(seen[0], bool) == hang
-    assert isinstance(seen[0], torch.Tensor) == (not hang)
+    assert isinstance(seen[0], torch.Tensor) and seen[0].dim() == 0
 
 
 def test_graph_keys_and_device_params():

@@ -261,7 +261,7 @@ def test_agc_guess_verify_rounds_match_jax(monkeypatch):
                         lambda *a: rounds.append(1) or real(*a))
     tx, ok = t_agc._two_rate_parallel(p.attack_rise_alpha,
                                       p.attack_fall_alpha, c.attack_ave,
-                                      peak, t_agc.GUESS_ITERS, fast=False)
+                                      peak, t_agc.GUESS_ITERS)
     solve = jax.jit(lambda it: j_agc._two_rate_parallel(
         jnp.float32(p.attack_rise_alpha), jnp.float32(p.attack_fall_alpha),
         jnp.float32(-1.5), jnp.asarray(peak.numpy()), it))

@@ -174,12 +174,12 @@ def test_guess_verify_loop_reads_each_round_but_the_last():
     peak, x0, p = _peak(3)
     rise, fall = p.attack_rise_alpha, p.attack_fall_alpha
     x, ok = t_agc._two_rate_parallel(rise, fall, x0, peak,
-                                     t_agc.GUESS_ITERS, fast=True)
+                                     t_agc.GUESS_ITERS)
     assert ok is True
     _, cut, rounds = scan.guess_verify_solve_plain(peak, x0, rise, fall, 1)
     assert isinstance(cut, torch.Tensor) and cut.dim() == 0 and rounds == 1
     rows = torch.stack([peak, _peak(4)[0]])
     xb, okb = t_agc._two_rate_parallel(rise, fall, torch.stack([x0, x0]),
-                                       rows, t_agc.GUESS_ITERS, fast=False)
+                                       rows, t_agc.GUESS_ITERS)
     assert okb is True
     assert torch.equal(xb[0], x)
