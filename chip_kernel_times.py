@@ -25,6 +25,18 @@ solve is timed as the receiver calls it, one two-rate averager through
 ``agc._two_rate_parallel``, where the call time (``ms``) is what counts:
 the rounds' host reads are the cost there.
 
+``diversity session usb 2br`` times ``DiversitySession.pump`` a block
+at the flagship's width and splits its host time among the session's
+parts (``diversity_session_case``).
+
+The ``gate`` cases decide where the single stream's resampler takes the
+exact rational path (``pipeline/receiver.RATIONAL_MIN_SAMPLES``): the
+whole tail (``resampler.process``, as ``_tail`` calls it) at the nominal
+ratio through the rational ``conv1d`` path and through the banded path
+(K9), at the demodulated block sizes of the bench rows and the smoke's
+paths, at the flagship's 62.5 kHz and the 20 MSPS rows' 78.125 kHz;
+timed as ``route`` cases (all of the call's device work).
+
 Each case first runs back to back for half a second, so that the card's
 clocks settle under its load.  Prints one JSON line per case: the
 kernel's own device time per call (``device_ms``: torch.profiler's CUDA
@@ -203,6 +215,25 @@ def resamp_case(resampler, resamp, gen, n_streams, n, ratio, nominal,
     return lambda: resamp.resample_band(z, t_int, t_frac, M, periods, True)
 
 
+GATE_SIZES = (8_192, 16_384, 65_536, 131_072, 262_144)
+GATE_RATES = (62_500.0, 78_125.0)
+
+
+def gate_case(resampler, gen, n, fs, rational):
+    """``resampler.process`` of one real block of ``n`` samples at
+    ``fs`` -> 48 kHz, nominal ratio, interpolated sinc (the receiver's
+    default), through the rational path or the banded one."""
+    ratio = fs / 48_000.0
+    params, carry = resampler.init(ratio, "cuda")
+    cap = resampler.max_out_for(n, ratio)
+    pq = resampler.rational_for(fs, 48_000.0) if rational else None
+    if rational and not resampler.rational_route(
+            params, pq, n, cap, carry.tail.shape[-1]):
+        raise ValueError(f"the rational route refuses {n} at {fs}")
+    x = torch.randn(n, generator=gen, device="cuda") * 1000.0
+    return lambda: resampler.process(params, carry, x, cap, True, pq)
+
+
 def agc_case(agc, gen, n, kind):
     """One two-rate averager (the attack's) of the AGC over n samples at
     62.5 kHz, as the receiver calls it: the window peak of a -30 dBFS tone
@@ -334,6 +365,72 @@ def seqloop_cases(gen, seqloop, fm, sam):
     ]
 
 
+SESSION_PARTS = (("display feed", "analyzer", "feed"),
+                 ("display accumulate (in feed)", "analyzer", "_acc"),
+                 ("receiver", "receiver", "process"),
+                 ("entry and delivery", None, "_enter"))
+
+
+def diversity_session_case(rx, session, gen, smi, root, warm: int = 2,
+                           blocks: int = 4) -> None:
+    """``diversity session usb 2br``: ``DiversitySession.pump`` at the
+    flagship's width, one block a call (two branches of 8,388,608
+    complex64 samples in host numpy: branch 1 = 0.8 at 40 degrees x
+    branch 0's carrier 1 kHz above the tune, independent noise), as
+    ``chip_smoke.py``'s profile pumps it.  Prints the wall ms a block
+    over ``blocks`` blocks after ``warm`` (the card drained before and
+    after) and the host ms a block in the session's parts, each method
+    wrapped by a timer for that run (``SESSION_PARTS``): the display's
+    feed, its accumulates (inside the feed), the receiver's
+    ``process``, the step's entry (its copies to the host started, an
+    earlier step's delivery); ``pump``'s own share (re-blocking, its
+    loop) is the rest."""
+    cfg = rx.ReceiverConfig(mode="usb", input_rate=2e6, tune_freq=100e3,
+                            frames_per_block=256)
+    n = cfg.block_size
+    t = torch.arange(n, device="cuda", dtype=torch.float64) / cfg.input_rate
+    tone = 0.1 * 32767.0 * torch.exp(2j * torch.pi * (cfg.tune_freq
+                                                      + 1000.0) * t)
+    g1 = 0.8 * complex(torch.exp(torch.tensor(1j * torch.pi * 40 / 180)))
+    inputs = []
+    for _ in range(warm + blocks):
+        noise = [torch.complex(*(torch.randn(n, generator=gen, device="cuda",
+                                             dtype=torch.float64) * 300.0
+                                 for _ in range(2))) for _ in range(2)]
+        x = torch.stack([tone + noise[0], g1 * tone + noise[1]])
+        inputs.append(x.to(torch.complex64).cpu().numpy())
+    del t, tone
+    sess = session.DiversitySession(cfg, smoothing_blocks=1.0)
+    sess.start()
+    for x in inputs[:warm]:
+        sess.pump(x)
+    spent = {}
+    for name, owner, attr in SESSION_PARTS:
+        obj = sess if owner is None else getattr(sess, owner)
+        spent[name] = 0.0
+
+        def timed(*a, _fn=getattr(obj, attr), _name=name, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        setattr(obj, attr, timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in inputs[warm:]:
+        sess.pump(x)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / blocks
+    sess.stop()
+    split = {k: v * 1e3 / blocks for k, v in spent.items()}
+    split["pump's own"] = wall - sum(
+        v for k, v in split.items() if "(in feed)" not in k)
+    print(json.dumps({"case": "diversity session usb 2br", "ms": wall,
+                      "host_split_ms": split, "blocks": blocks,
+                      "root": root, "gpu": smi}), flush=True)
+
+
 def event_counts(events, steps: int = 1) -> tuple[float, float]:
     """(kernel launches, host reads) a step of a profiled window of
     ``steps`` steps (``events``: its ``prof.key_averages()``): the
@@ -410,6 +507,15 @@ def main() -> int:
     cases = [(label, fn, "kernel") for label, fn in cases]
     cases += scan_cases(gen, scan, fm, am, smeter, agcseq)
     cases += seqloop_cases(gen, seqloop, fm, sam)
+    cases += [(f"gate {route} {n:,} at {fs / 1e3:g} kHz",
+               gate_case(resampler, gen, n, fs, route == "rational"),
+               "route")
+              for fs in GATE_RATES for n in GATE_SIZES
+              for route in ("rational", "banded")]
+    if "diversity session usb 2br".startswith(only):
+        from cutesdr_tpu_torch import session
+        from cutesdr_tpu_torch.pipeline import receiver as rx
+        diversity_session_case(rx, session, gen, smi, root)
     for label, fn, kind in cases:
         if not label.startswith(only):
             continue

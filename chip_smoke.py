@@ -40,9 +40,16 @@ audio (``path_specs``):
   separate full-width 2 MSPS streams, each replaying one CUDA graph;
 * ``check_graph``: the single-stream paths (hang mode and its fallback
   among them) and five banks, eager against graphed through a retune, a
-  volume and a ratio change, bitwise, a replay with no host read and one
-  graph launch; ``check_graph_rule``: 84 receivers and 14 banks the
-  rules admit, and probes eager;
+  volume and a ratio change, bitwise, a replay with no host read, no
+  kernel launch and one graph launch; then the flagship and full-width
+  FM with probes on (the taps bitwise too), the two- and four-branch
+  ``DiversityReceiver`` (a retune, a volume change and, pairwise,
+  steering in place: one capture), ``ShardedReceiver`` over four shards
+  of cuda:0 (a retune in place) and ``PipelinedReceiver`` on cuda:0 (two
+  captures a stage, one block late), each against its eager step
+  functions, bitwise, with no host read and no kernel launch a replayed
+  step; ``check_graph_rule``: 84 receivers, 14 banks and four probes
+  configurations the rules admit;
 * a live ``ReceiverSession`` at the default block (one frame, 2 MSPS
   USB) with the noise blanker and the spectrum display, fed int16 planes
   of a tone with impulses while an audio consumer drains its queue
@@ -63,8 +70,9 @@ audio (``path_specs``):
 * the multi-device layer (``check_shard``, inputs from a generator of its
   own): the flagship over four time shards on one card (two superblocks
   of 33,554,432 samples against the single receiver over the same eight
-  blocks, each shard's mixdec and fastfir call and the gathered
-  1,048,576-sample S-meter and AGC solves held against their plain
+  blocks, one CUDA graph a superblock; each shard's mixdec and fastfir
+  call and the gathered 1,048,576-sample S-meter and AGC solves,
+  recorded on the same step run eagerly, held against their plain
   versions), the two-stage ``PipelinedReceiver`` with its front on a
   second stream (bitwise the single receiver one block late), the
   64-channel bank over a 4-entry channel axis (bitwise the unsharded
@@ -115,9 +123,10 @@ the serving paths, the time shards and the pipeline, and the command
 line's ``run`` paths instead (step
 time, device busy time, launches and host reads per step or block; see
 ``profile_paths``, ``profile_serving``, ``profile_shard`` and
-``profile_cli``); with ``--only``, only the lines of ``profile_paths``
-whose label is listed (the receiver paths, FM's biquad alone, the
-session), on the same inputs as the whole run.
+``profile_cli``); with ``--only``, only the lines of ``profile_paths``,
+``profile_serving`` and ``profile_shard`` whose label is listed (the
+receiver paths, FM's biquad alone, the session, the serving paths, the
+time shard and the pipeline), on the same inputs as the whole run.
 """
 
 from __future__ import annotations
@@ -2168,16 +2177,78 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def step_ms(step, blocks) -> float:
-    """The median wall ms of ``step(re, im)`` over chained blocks, each
-    step ended by a synchronize."""
+    """The median wall ms of ``step(*b)`` over chained blocks ``b`` (tuples
+    of arguments), each step ended by a synchronize."""
     times = []
-    for re, im in blocks:
+    for b in blocks:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(re, im)
+        step(*b)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+FIELDS = ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db")
+
+
+def output_bits(want: list, got: list) -> list:
+    """(block, field) of every output field, probe tap included, that is
+    not the same bits in ``got`` as in ``want``."""
+    bad = []
+    for b, (w, g) in enumerate(zip(want, got)):
+        bad += [(b, f) for f in FIELDS
+                if not same_bits(getattr(w, f), getattr(g, f))]
+        if w.probes is not None:
+            if g.probes is None or g.probes.keys() != w.probes.keys():
+                bad.append((b, "probes"))
+                continue
+            bad += [(b, k) for k, v in w.probes.items()
+                    if not same_bits(v, g.probes[k])]
+    return bad
+
+
+def replay_check(label: str, step, x, graphs: list) -> dict:
+    """One graphed step ``step(x)`` under torch.profiler (each session
+    records the second of two steps; the first warms the tracer up): no
+    host read (``aten::_local_scalar_dense``), no kernel launch
+    (``cudaLaunchKernel``: the input and the outputs move by memcpy), one
+    graph launch for each of ``graphs``, and the card running each
+    kernel as many times as the graphs count a replay (the kernel events
+    by name).  A session that lost kernel records, as a profiler now and
+    then does after many launches (``chip_kernel_times.device_ms``), is
+    taken again, up to three.  Returns the kernels the card ran."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    captured = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for g in graphs:
+        for k, v in captured_kernel_counts(g.launches).items():
+            captured[k] += v
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                step(x)
+                torch.cuda.synchronize()
+                prof.step()
+        events = prof.key_averages()
+        ran = device_kernel_counts(events)
+        if ran == captured:
+            break
+    count = {e.key: e.count for e in events}
+    reads = count.get("aten::_local_scalar_dense", 0)
+    launches = count.get("cudaLaunchKernel", 0)
+    graph_launches = sum(v for k, v in count.items()
+                         if k.startswith("cudaGraphLaunch"))
+    if reads or launches or graph_launches != len(graphs) or ran != captured:
+        raise AssertionError(f"{label}: a replayed step made {reads} host "
+                             f"reads, {launches} kernel launches and "
+                             f"{graph_launches} graph launches (want "
+                             f"{len(graphs)}); the card ran {ran}, the "
+                             f"graphs count {captured}")
+    return ran
 
 
 def graph_path(label, kind, cfg, freqs, stim, iters, gen,
@@ -2247,10 +2318,7 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
                 change_graphed()
             got.append(r.process_planes(re, im))
         got_counts = step_counts()
-        fields = ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db")
-        bad = [(b, f) for b, (w, g) in enumerate(zip(want, got))
-               for f in fields
-               if not same_bits(getattr(w, f), getattr(g, f))]
+        bad = output_bits(want, got)
         carries = list(zip(stepgraph.walk(state), stepgraph.walk(r.state)))
         bad += [("carry", p) for (p, w), (_, g) in carries
                 if isinstance(w, torch.Tensor) and not same_bits(w, g)]
@@ -2258,37 +2326,10 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
             raise AssertionError(f"graph {label}: eager and graphed differ "
                                  f"at {bad[:6]}; counts {want_counts} "
                                  f"against {got_counts}")
-        from torch.profiler import ProfilerActivity, profile, schedule
         re, im = blocks[GRAPH_BLOCKS]
         eager(re, im)
-        torch.cuda.synchronize()
-        captured = captured_kernel_counts(r._graph.step.launches)
-        # each session records the second of two replays (the first warms
-        # the tracer up); a session that lost kernel records, as a
-        # profiler now and then does after many launches
-        # (chip_kernel_times.device_ms), is taken again, up to three
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1,
-                                           repeat=1)) as prof:
-                for _ in range(2):
-                    r.process_planes(re, im)
-                    torch.cuda.synchronize()
-                    prof.step()
-            events = prof.key_averages()
-            ran = device_kernel_counts(events)
-            if ran == captured:
-                break
-        count = {e.key: e.count for e in events}
-        reads = count.get("aten::_local_scalar_dense", 0)
-        graph_launches = sum(v for k, v in count.items()
-                             if k.startswith("cudaGraphLaunch"))
-        if reads or graph_launches != 1 or ran != captured:
-            raise AssertionError(f"graph {label}: a replayed step made "
-                                 f"{reads} host reads and {graph_launches} "
-                                 f"graph launches; the card ran {ran}, the "
-                                 f"graph counts {captured}")
+        ran = replay_check(f"graph {label}", r.process,
+                           torch.complex(re, im), [r._graph.step])
         timed = blocks[GRAPH_BLOCKS + 1:]
         eager_ms = step_ms(eager, timed)
         graph_ms = step_ms(r.process_planes, timed)
@@ -2297,9 +2338,10 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
                                **{f"sam_{t}": n for t, n in
                                   got_counts["sam"].items()}}.items() if v}
     phase(f"graph {label}: {GRAPH_BLOCKS} blocks bitwise eager = graphed "
-          f"(outputs, {len(carries)} carry leaves, counts; tiers {tiers}, "
-          f"agc fallbacks {got_counts['fallbacks']}), replay: 0 host reads, "
-          f"1 graph launch, the card ran the counted kernels "
+          f"(outputs{', taps' if cfg.probes else ''}, {len(carries)} carry "
+          f"leaves, counts; tiers {tiers}, agc fallbacks "
+          f"{got_counts['fallbacks']}), replay: 0 host reads, 0 kernel "
+          f"launches, 1 graph launch, the card ran the counted kernels "
           f"({sum(ran.values())}); ms a step (median of {len(timed)} "
           f"chained): "
           f"eager {eager_ms:.4f}, graphed {graph_ms:.4f} ({gpu_label})")
@@ -2316,9 +2358,10 @@ def check_graph_rule(gen, gpu_label: str) -> dict:
     """Every configuration the graph rules admit at one frame (2 MSPS:
     the seven modes, mono and stereo, the two-rate or the hang-mode AGC
     or the AGC off, the blanker on or off: 84 receivers; a two-channel
-    ChannelBank of each mode in both AGC modes: 14 banks) captures, and
-    replays three blocks bitwise the eager step's; probes run eager
-    (a receiver's and a bank's).  Returns the graphed runs' launches."""
+    ChannelBank of each mode in both AGC modes: 14 banks; USB and FM with
+    probes on, a receiver and a bank each) captures, and replays three
+    blocks bitwise the eager step's.  Returns the graphed runs'
+    launches."""
     total = dict.fromkeys(KERNELS, 0)
     t0 = time.perf_counter()
     n = 0
@@ -2357,26 +2400,258 @@ def check_graph_rule(gen, gpu_label: str) -> dict:
                                        tune_freq=100e3),
                      "bank", [100e3, 150e3])
     for kind, freqs in (("single", None), ("bank", [100e3, 150e3])):
-        r = make_receiver(kind, rx.ReceiverConfig(probes=True), freqs)
-        r.process(torch.zeros(r.cfg.block_size, dtype=torch.complex64,
-                              device="cuda"))
-        if r.graphed or r._graph is not None:
-            raise AssertionError(f"graph rule: a {kind} with probes "
-                                 "replayed a graph")
-    phase(f"graph rule: {n} admitted configurations (receivers and banks) "
-          "captured and replayed bitwise the eager step; probes eager "
-          f"({time.perf_counter() - t0:.1f} s, {gpu_label})")
+        for mode in ("usb", "fm"):
+            replayed(rx.ReceiverConfig(mode=mode, probes=True,
+                                       tune_freq=100e3), kind, freqs)
+    phase(f"graph rule: {n} admitted configurations (receivers and banks, "
+          "probes on among them) captured and replayed bitwise the eager "
+          f"step ({time.perf_counter() - t0:.1f} s, {gpu_label})")
     return total
 
 
-def check_graph(gen, gpu_label: str) -> dict:
+# The entry points beyond ``Receiver`` and the banks, each replaying CUDA
+# graphs on one card: the diversity receivers (the combine and the step one
+# graph), the time shard (the superblock one graph) and the pipeline (a
+# graph a stage, two captures each).  Fewer, larger blocks than
+# GRAPH_BLOCKS: a diversity block or a superblock is 134-268 MB.
+ENTRY_BLOCKS = 8          # blocks (superblocks) each run of an entry path
+ENTRY_CHANGE = 4          # the block the changes made in place land on
+ENTRY_STEPS = 6           # chained steps timed each way
+
+
+def graph_entry(label, g, eager, blocks, change, carries, graphs, replayed,
+                gpu_label, late: bool = False) -> dict:
+    """One entry path of ``check_graph``: ENTRY_BLOCKS blocks through
+    ``eager(x)`` (the eager step functions from the entry point's fresh
+    state) and through ``g.process(x)`` (graphed), ``change(i, graphed)``
+    before each block; outputs (one block late and a flush with
+    ``late``), carries (``carries()``: the eager's and the graphed's) and
+    counts bitwise equal, the graphs (``graphs()``) captured once at the
+    first block and never again; one step under the profiler
+    (``replay_check``: no host read, no kernel launch, a graph launch for
+    each of ``replayed()``); the step's ms both ways.  Returns the
+    graphed run's counts."""
+    run, extra = blocks[:ENTRY_BLOCKS], blocks[ENTRY_BLOCKS]
+    timed = [(x,) for x in blocks[ENTRY_BLOCKS + 1:]]
+    reset_counts()
+    want = []
+    for i, x in enumerate(run):
+        change(i, False)
+        want.append(eager(x))
+    want_counts = step_counts()
+    reset_counts()
+    got = []
+    for i, x in enumerate(run):
+        change(i, True)
+        got.append(g.process(x))
+        if i == 0:
+            first = [id(t) for t in graphs()]
+    if late:
+        if got[0] is not None:
+            raise AssertionError(f"graph {label}: an output at the first "
+                                 "block")
+        got = got[1:] + [g.flush()]
+    got_counts = step_counts()
+    bad = output_bits(want, got)
+    pairs = list(zip(*(stepgraph.walk(c) for c in carries())))
+    bad += [("carry", p) for (p, w), (_, v) in pairs
+            if isinstance(w, torch.Tensor) and not same_bits(w, v)]
+    if bad or got_counts != want_counts:
+        raise AssertionError(f"graph {label}: eager and graphed differ at "
+                             f"{bad[:6]}; counts {want_counts} against "
+                             f"{got_counts}")
+    if [id(t) for t in graphs()] != first:
+        raise AssertionError(f"graph {label}: captured again after the "
+                             "first block")
+    eager(extra)
+    ran = replay_check(f"graph {label}", g.process, extra, replayed())
+    eager_ms = step_ms(eager, timed)
+    graph_ms = step_ms(g.process, timed)
+    phase(f"graph {label}: {ENTRY_BLOCKS} blocks bitwise eager = graphed "
+          f"{'one block late ' if late else ''}(outputs, {len(pairs)} carry "
+          f"leaves, counts; {len(first)} capture(s) at the first block, "
+          f"none after the changes on block {ENTRY_CHANGE}), replay: 0 host "
+          f"reads, 0 kernel launches, {len(replayed())} graph launch(es), "
+          f"the card ran the counted kernels ({sum(ran.values())}); ms a "
+          f"step (median of {len(timed)} chained): eager {eager_ms:.4f}, "
+          f"graphed {graph_ms:.4f} ({gpu_label})")
+    print(json.dumps({"graph_path": label, "eager_ms": eager_ms,
+                      "graphed_ms": graph_ms, "captures": len(first),
+                      "graph_launches_per_step": len(replayed()),
+                      "launches": got_counts["launches"],
+                      "replay_kernels_ran": ran, "gpu": gpu_label}),
+          flush=True)
+    return got_counts
+
+
+def graph_diversity(gen, gpu_label: str, n_branches: int) -> dict:
+    """``diversity usb 2br`` / ``diversity array 4br``: a
+    ``DiversityReceiver`` at the flagship's width against the eager
+    combine (``coherent.process`` / ``array_process`` with host-bool
+    params) and ``rx.receiver_step``; a retune and a volume change on
+    ENTRY_CHANGE (pairwise: steering fixed there and back to tracking two
+    blocks later), in place."""
+    from cutesdr_tpu_torch.shard import coherent
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    pair = n_branches == 2
+    label = "diversity usb 2br" if pair else "diversity array 4br"
+    gains = (1.0, DIVERSITY_GAIN) if pair else ARRAY_GAINS
+    blocks = [diversity_block(cfg, gen, b, gains, 20.0 if pair else 30.0,
+                              (1.0, abs(DIVERSITY_GAIN)) if pair else None)
+              for b in range(ENTRY_BLOCKS + 1 + ENTRY_STEPS)]
+    g = coherent.DiversityReceiver(cfg, n_branches=n_branches)
+    if not g.graphed:
+        raise AssertionError(f"graph {label}: the rule leaves it eager")
+    params, (state, cc) = stepgraph.clone(g.params), stepgraph.clone(g.carry)
+    if pair:
+        cp, combine = coherent.init(g.smoothing_blocks)[0], coherent.process
+    else:
+        cp = coherent.array_init(n_branches, g.smoothing_blocks)[0]
+        combine = coherent.array_process
+    steer = 0.7 * np.exp(1j * np.deg2rad(35.0))
+    tune = cfg.tune_freq + 25.0
+
+    def eager(x):
+        nonlocal state, cc
+        cc, y = combine(cp, cc, x)
+        state, out = rx.receiver_step(cfg, params, state, y)
+        return out
+
+    def change(i, graphed):
+        nonlocal params, cp
+        if i == ENTRY_CHANGE:
+            if graphed:
+                g.set_tune_freq(tune)
+                g.set_volume(72)
+            else:
+                params = rx.volume_params(rx.tune_params(cfg, params, tune),
+                                          72)
+        if not pair or i not in (ENTRY_CHANGE, ENTRY_CHANGE + 2):
+            return
+        fixed = i == ENTRY_CHANGE
+        if graphed:
+            g.set_steering(steer if fixed else None)
+        else:
+            cp = cp._replace(manual=fixed, fixed_gain=torch.tensor(
+                complex(np.complex64(steer)), dtype=torch.complex64,
+                device="cuda") if fixed else cp.fixed_gain)
+
+    out = graph_entry(label, g, eager, blocks, change,
+                      lambda: ((state, cc), g.carry),
+                      lambda: [g._graph.step], lambda: [g._graph.step],
+                      gpu_label)
+    del blocks
+    return out
+
+
+def graph_timeshard(gen, gpu_label: str) -> dict:
+    """``timeshard usb 4x``: ``ShardedReceiver`` over four shards of
+    cuda:0 (the superblock one graph) against ``timeshard.sharded_step``
+    run eagerly over the same shard views; a retune and a volume change
+    (assigned params) on ENTRY_CHANGE, in place."""
+    from cutesdr_tpu_torch.shard import ShardedReceiver, make_mesh
+    from cutesdr_tpu_torch.shard import timeshard
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    sbs = superblocks(cfg, gen, ENTRY_BLOCKS + 1 + ENTRY_STEPS)
+    g = ShardedReceiver(cfg, make_mesh(time=SHARDS,
+                                       devices=["cuda:0"] * SHARDS))
+    if not g.graphed:
+        raise AssertionError("graph timeshard usb 4x: eager on one card")
+    params, carry = stepgraph.clone(g.params), stepgraph.clone(g.carry)
+    ex, S = timeshard.LocalExchange([g.device] * SHARDS), cfg.block_size
+    tune = cfg.tune_freq + 25.0
+
+    def eager(x):
+        nonlocal carry
+        shards = [(x[i * S:(i + 1) * S].real, x[i * S:(i + 1) * S].imag)
+                  for i in range(SHARDS)]
+        carry, out = timeshard.sharded_step(cfg, ex, [params] * SHARDS,
+                                            params, carry, shards,
+                                            g.superblock_size)
+        return out
+
+    def change(i, graphed):
+        nonlocal params
+        if i == ENTRY_CHANGE:
+            if graphed:
+                g.params = rx.volume_params(rx.tune_params(cfg, g.params,
+                                                           tune), 72)
+            else:
+                params = rx.volume_params(rx.tune_params(cfg, params, tune),
+                                          72)
+
+    out = graph_entry("timeshard usb 4x", g, eager, sbs, change,
+                      lambda: (carry, g.carry), lambda: [g._graph.step],
+                      lambda: [g._graph.step], gpu_label)
+    del sbs
+    return out
+
+
+def graph_pipelined(gen, gpu_label: str) -> dict:
+    """``pipelined usb``: ``PipelinedReceiver`` on cuda:0 (two front and
+    two back captures, the front on a stream of its own) against the
+    single receiver's eager step one block late; a retune and a volume
+    change on ENTRY_CHANGE, in place: the front's params with that block,
+    the back's with the next, whose back stage runs then."""
+    from cutesdr_tpu_torch.shard import PipelinedReceiver
+    cfg = rx.ReceiverConfig(mode="usb", **FULL)
+    blocks = stimulus(cfg, ENTRY_BLOCKS + 1 + ENTRY_STEPS, gen,
+                      carriers=(dict(offset_hz=1000.0),))
+    g = PipelinedReceiver(cfg, "cuda:0", "cuda:0")
+    if not g.graphed:
+        raise AssertionError("graph pipelined usb: eager on one card")
+    params = stepgraph.clone(g.params)
+    state = rx.ReceiverState(**stepgraph.clone(g.front_state),
+                             **stepgraph.clone(g.back_state))
+
+    def eager(x):
+        nonlocal state
+        state, out = rx.receiver_step(cfg, params, state, x)
+        return out
+
+    tune = cfg.tune_freq + 25.0
+
+    def change(i, graphed):
+        nonlocal params
+        if i == ENTRY_CHANGE:
+            if graphed:
+                g.params = rx.volume_params(rx.tune_params(cfg, g.params,
+                                                           tune), 72)
+            else:
+                params = rx.volume_params(rx.tune_params(cfg, params, tune),
+                                          72)
+        if graphed and i == ENTRY_CHANGE + 1:
+            g.back_params = g.params
+
+    graphs = lambda: [*g._graphs[0], *g._graphs[1]]
+    out = graph_entry("pipelined usb", g, eager, blocks, change,
+                      lambda: (state, rx.ReceiverState(**g.front_state,
+                                                       **g.back_state)),
+                      graphs, lambda: [g._graphs[0][0], g._graphs[1][0]],
+                      gpu_label, late=True)
+    del blocks
+    return out
+
+
+def check_graph(gen, gpu_label: str, gen_entries) -> dict:
     """Every path of ``graph_specs`` (``graph_path``); the card must have
     decided each kind of block: an AGC fallback (N1), K7's chunked and
-    scan tiers, K8's scan tier.  Returns the graphed runs' launches."""
+    scan tiers, K8's scan tier.  Then, on inputs of ``gen_entries``, the
+    flagship and full-width FM with probes on (``graph_path``: the taps
+    bitwise too), the diversity receivers, the time shard and the
+    pipeline (``graph_entry``).  Returns the graphed runs' launches."""
     total = dict.fromkeys(KERNELS, 0)
     seen = {"fallbacks": 0, "fm_chunked": 0, "fm_scan": 0, "sam_scan": 0}
-    for label, kind, cfg, freqs, stim, iters in graph_specs():
-        counts = graph_path(label, kind, cfg, freqs, stim, iters, gen,
+    specs = [(spec, gen) for spec in graph_specs()]
+    fm_cfg = rx.ReceiverConfig(mode="fm", probes=True, **FULL)
+    specs += [(("usb probes", "single",
+                rx.ReceiverConfig(mode="usb", probes=True, **FULL), None,
+                dict(carriers=(dict(offset_hz=1000.0),)), None),
+               gen_entries),
+              (("fm probes", "single", fm_cfg, None,
+                dict(carriers=(), noise_db=-60.0), None), gen_entries)]
+    for (label, kind, cfg, freqs, stim, iters), g in specs:
+        counts = graph_path(label, kind, cfg, freqs, stim, iters, g,
                             gpu_label)
         for k, v in counts["launches"].items():
             total[k] += v
@@ -2387,6 +2662,12 @@ def check_graph(gen, gpu_label: str) -> dict:
     missing = [k for k, v in seen.items() if not v]
     if missing:
         raise AssertionError(f"graph paths: no block of {missing}")
+    for entry in (lambda: graph_diversity(gen_entries, gpu_label, 2),
+                  lambda: graph_diversity(gen_entries, gpu_label, 4),
+                  lambda: graph_timeshard(gen_entries, gpu_label),
+                  lambda: graph_pipelined(gen_entries, gpu_label)):
+        for k, v in entry()["launches"].items():
+            total[k] += v
     return total
 
 
@@ -3165,12 +3446,14 @@ def check_serving(gen, gpu_label: str) -> dict:
     return total
 
 
-def profile_serving(gen, gpu_label: str) -> None:
+def profile_serving(gen, gpu_label: str, only=None) -> None:
     """``--profile`` of the serving surface: one JSON line each for the
     flagship with probes on feeding its p2 tap to a ProbeSpectrum on the
     card, full-width FM with probes on noise, the probe scope's session
     (p2 spectrum), the diversity session, the 4-branch receiver and the
-    bank session with the monitor's p2 spectrum (per block)."""
+    bank session with the monitor's p2 spectrum (per block).  With
+    ``only`` (a set of labels) those lines alone, the others' inputs still
+    drawn so that the lines kept see the inputs of the whole run."""
     from torch.profiler import ProfilerActivity, profile
 
     from cutesdr_tpu_torch.bank import BankSession
@@ -3179,6 +3462,8 @@ def profile_serving(gen, gpu_label: str) -> None:
     from cutesdr_tpu_torch.testbench.probes import ProbeSpectrum
 
     def measure(label, step, inputs, warm, steps, blocks_per_call=1):
+        if only is not None and label not in only:
+            return
         for x in inputs[:warm]:
             step(x)
         torch.cuda.synchronize()
@@ -3209,14 +3494,16 @@ def profile_serving(gen, gpu_label: str) -> None:
     cfg = session_cfg()
     packet = cfg.block_size * 8
     re, im, _ = session_planes(cfg, packet * 12, SEED + 9)
-    sess = ReceiverSession(cfg)
-    sess.start()
-    sess.set_probe("p2")
-    measure("session probe scope (p2 spectrum)",
-            lambda i: sess.pump_planes(re[i * packet:(i + 1) * packet],
-                                       im[i * packet:(i + 1) * packet])
-            or sess.flush(), list(range(12)), 4, 4, blocks_per_call=8)
-    sess.stop()
+    keep = lambda label: only is None or label in only
+    if keep("session probe scope (p2 spectrum)"):
+        sess = ReceiverSession(cfg)
+        sess.start()
+        sess.set_probe("p2")
+        measure("session probe scope (p2 spectrum)",
+                lambda i: sess.pump_planes(re[i * packet:(i + 1) * packet],
+                                           im[i * packet:(i + 1) * packet])
+                or sess.flush(), list(range(12)), 4, 4, blocks_per_call=8)
+        sess.stop()
 
     full = rx.ReceiverConfig(mode="usb", **FULL)
     div_in = [diversity_block(full, gen, b, (1.0, DIVERSITY_GAIN), 20.0,
@@ -3235,15 +3522,16 @@ def profile_serving(gen, gpu_label: str) -> None:
 
     grid = [-4.5e6 + 140e3 * i for i in range(64)]
     bcfg = rx.ReceiverConfig(input_rate=10e6, mode="usb")
-    bsess = BankSession(bcfg, grid)
-    bsess.start()
-    bsess.set_probe("p2")
-    measure("bank session usb 64ch (p2 spectrum)", bsess.pump,
-            [x.cpu().numpy() for x in stimulus(bcfg, 24, gen, noise_db=-60.0,
-                                                carriers=(dict(
-                                                    freq_hz=grid[20] + 1500.0),
-                                                ))], 8, 8)
-    bsess.stop()
+    label = "bank session usb 64ch (p2 spectrum)"
+    inputs = [x.cpu().numpy() for x in stimulus(
+        bcfg, 24, gen, noise_db=-60.0,
+        carriers=(dict(freq_hz=grid[20] + 1500.0),))]
+    if keep(label):
+        bsess = BankSession(bcfg, grid)
+        bsess.start()
+        bsess.set_probe("p2")
+        measure(label, bsess.pump, inputs, 8, 8)
+        bsess.stop()
 
 
 # ------------------------------------------------------ the multi-device layer
@@ -3369,22 +3657,34 @@ def check_timeshard(gen, gpu_label: str) -> dict:
     cfg = rx.ReceiverConfig(mode="usb", **FULL)
     sbs = superblocks(cfg, gen, 4)
     n = cfg.block_size
-    srx = ShardedReceiver(cfg, make_mesh(time=SHARDS,
-                                         devices=["cuda:0"] * SHARDS))
+    mesh = make_mesh(time=SHARDS, devices=["cuda:0"] * SHARDS)
+    srx = ShardedReceiver(cfg, mesh)
     single = rx.Receiver(cfg)
     reset_counts()
+    outs = [srx.process(sb) for sb in sbs[:2]]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # the kernel calls of the path, recorded on its step run eagerly from
+    # a fresh state over the same superblocks (a graph's arguments are
+    # its static buffers; ``graph_timeshard`` holds the graph to this
+    # step bitwise)
+    ref = ShardedReceiver(cfg, mesh)
+    carry, S = ref.carry, n
     with contextlib.ExitStack() as stack:
         calls = {name: stack.enter_context(recording(mod, name))
                  for mod, name in ((timeshard.mixdec, "process_planes"),
                                    (timeshard.fastfir_k, "filter_frames"),
                                    (scan, "smeter_last"),
                                    (scan, "guess_verify_solve"))}
-        outs = [srx.process(sb) for sb in sbs[:2]]
+        for sb in sbs[:2]:
+            carry, _ = timeshard.sharded_step(
+                cfg, ref.exchange, [ref.params] * SHARDS, ref.params, carry,
+                [(sb[i * S:(i + 1) * S].real, sb[i * S:(i + 1) * S].imag)
+                 for i in range(SHARDS)], ref.superblock_size)
         torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
     fallbacks = agc.STATS["scan_fallbacks"]
     phase(f"{label} launches {launches}, agc scan fallbacks {fallbacks} "
-          "over 2 superblocks")
+          f"over 2 superblocks (graphed {srx.graphed})")
     check_routed(label, launches, routed_kernels(cfg, False, srx.params))
     for sb, out in zip(sbs[:2], outs):
         refs = [single.process(sb[b * n:(b + 1) * n]) for b in range(SHARDS)]
@@ -3573,9 +3873,9 @@ def check_shard(gen, gpu_label: str) -> dict:
     return total
 
 
-def profile_shard(gen, gpu_label: str) -> None:
+def profile_shard(gen, gpu_label: str, only=None) -> None:
     """``--profile`` of ``timeshard usb 4x`` (per superblock) and
-    ``pipelined usb`` (per block)."""
+    ``pipelined usb`` (per block); with ``only``, the listed labels."""
     from torch.profiler import ProfilerActivity, profile
 
     from cutesdr_tpu_torch.shard import (PipelinedReceiver, ShardedReceiver,
@@ -3590,6 +3890,8 @@ def profile_shard(gen, gpu_label: str) -> None:
             ("timeshard usb 4x (per superblock)", srx.process, sbs),
             ("pipelined usb", pp.process,
              [sb[b * n:(b + 1) * n] for sb in sbs for b in range(SHARDS)])):
+        if only is not None and label not in only:
+            continue
         warm, steps = len(inputs) // 5, 2 * len(inputs) // 5
         for x in inputs[:warm]:
             step(x)
@@ -4330,7 +4632,10 @@ def main() -> int:
     gen_shard = torch.Generator(device="cuda")       # the shard paths'
     gen_shard.manual_seed(SEED + 11)
     if sys.argv[1:3] == ["--profile", "--only"] and len(sys.argv) == 4:
-        profile_paths(gen, smi, set(sys.argv[3].split(",")))
+        only = set(sys.argv[3].split(","))
+        profile_paths(gen, smi, only)
+        profile_serving(gen_serve, smi, only)
+        profile_shard(gen_shard, smi, only)
         return 0
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
@@ -4370,7 +4675,9 @@ def main() -> int:
     launches = check_paths(gen, smi)
     gen_graph = torch.Generator(device="cuda")       # the graph paths'
     gen_graph.manual_seed(SEED + 12)
-    for k, v in check_graph(gen_graph, smi).items():
+    gen_entries = torch.Generator(device="cuda")     # the graphed entries'
+    gen_entries.manual_seed(SEED + 15)
+    for k, v in check_graph(gen_graph, smi, gen_entries).items():
         launches[k] += v
     for k, v in check_graph_rule(gen_graph, smi).items():
         launches[k] += v

@@ -38,19 +38,24 @@ resampler.
 The step's data-dependent choices (the AGC's sequential fallback, FM's
 and SAM's PLL tiers) are made on the device, as the JAX package's
 ``lax.cond``s make them inside its ``jax.jit`` of the step, so on the card
-neither step makes a host read.  ``Receiver`` replays its step as one
-CUDA graph (``pipeline/stepgraph``) where ``graph_rule(cfg, device)``
-holds, and a bank (``shard/channels``) replays ``bank_receiver_step_planes``
-where ``bank_graph_rule(cfg, device)`` does (``GraphedStepper``):
+neither step makes a host read.  Every step of the port on one CUDA
+device replays as CUDA graphs (``pipeline/stepgraph``), the JAX
+package's jits:
 
-* graphed: a single stream or a bank on a CUDA device, in every mode
-  (USB, LSB, CWU, CWL, AM, FM, SAM; mono and stereo), with the two-rate
-  or the hang-mode AGC or the AGC off, with or without the noise
-  blanker;
-* eager, for now: ``probes`` (taps of the step's intermediates) and every
-  CPU receiver;
-* not on this path: the time-sharded and pipelined receivers and
-  ``DiversitySession``, which call the step functions eagerly.
+* ``Receiver`` where ``graph_rule(cfg, device)`` holds, and a bank
+  (``shard/channels``) where ``bank_graph_rule(cfg, device)`` does: any
+  CUDA device, in every mode (USB, LSB, CWU, CWL, AM, FM, SAM; mono and
+  stereo), with the two-rate or the hang-mode AGC or the AGC off, with or
+  without the noise blanker, with or without ``probes`` (the taps, FM's
+  and SAM's p6 and ``pll_tier`` too, are outputs of the graph, cloned on
+  return as the audio is);
+* ``shard.coherent.DiversityReceiver`` (the combine and this step, one
+  graph), ``shard.timeshard.ShardedReceiver`` over shards of one card
+  (the whole superblock, one graph) and ``shard.pipeline.
+  PipelinedReceiver`` on one card (a graph a stage), all through
+  ``GraphedStepper`` or ``StepGraph``;
+* eager: every CPU step, and a time shard or a pipeline over several
+  cards or ranks (their module notes say why).
 
 A graph is captured at the first block, for its block shape and the host
 values of its params (``graph_key``).  The tune, the volume and a banded
@@ -112,7 +117,16 @@ MODE_DEFAULT_CUTS = {
 }
 
 PORTED_MODES = tuple(MODE_LIMITS)   # all seven modes of the JAX package
-RATIONAL_MIN_SAMPLES = 131072   # receiver.py:543 (set by TPU timing)
+# The single stream's resampler takes the exact rational path from this
+# many demodulated samples up (the JAX package's value, kept after timing
+# both tails on an H100: ``chip_kernel_times.py --only gate``).  At
+# 62.5 kHz the rational conv1d tail is the faster from 65,536 samples up
+# (by 7 us a block there) and the banded K9 tail below 16,384; no bench
+# row or smoke path runs between, so each takes the faster tail with
+# this value.  At 78.125 kHz the banded tail is the faster at every size
+# to 262,144, but no bench row or smoke path at that rate reaches this
+# gate (PERF.md, F5).
+RATIONAL_MIN_SAMPLES = 131072
 
 
 @dataclass(frozen=True)
@@ -619,15 +633,16 @@ def volume_params(params: ReceiverParams, vol_0_99: int) -> ReceiverParams:
 
 def graph_rule(cfg: ReceiverConfig, device) -> bool:
     """The rule (module notes): whether a ``Receiver`` of ``cfg`` on
-    ``device`` replays its step as one CUDA graph."""
-    return torch.device(device).type == "cuda" and not cfg.probes
+    ``device`` replays its step as one CUDA graph: on any CUDA device,
+    every configuration (probes too)."""
+    return torch.device(device).type == "cuda"
 
 
 def bank_graph_rule(cfg: ReceiverConfig, device) -> bool:
     """Whether a bank of ``cfg`` on ``device`` (a ``ChannelBank``, a
     ``StackedReceiver``, each sub-bank of one over a mesh) replays
-    ``bank_receiver_step_planes`` as one CUDA graph: on a CUDA device,
-    without probes, in every mode and AGC setting, as the single
+    ``bank_receiver_step_planes`` as one CUDA graph: on a CUDA device, in
+    every mode and AGC setting, with or without probes, as the single
     stream."""
     return graph_rule(cfg, device)
 
@@ -694,38 +709,52 @@ def _update_params(static: ReceiverParams, old: ReceiverParams,
 
 
 class _Graphed:
-    """A captured step: its key, its device params, the host params they
-    hold (``host``) and the ``StepGraph`` of ``step(cfg, params, state,
-    re, im)`` over blocks of ``block`` (a shape)."""
+    """A captured step: its key, its device params (``held``), the host
+    params they hold (``host``) and the ``StepGraph`` of ``step(cfg,
+    params, state, *block)`` over blocks of ``block`` (a shape), given as
+    planes or, with ``planes`` False, as the complex block."""
 
-    def __init__(self, cfg: ReceiverConfig, params: ReceiverParams, key,
-                 state, device: torch.device, step, block, bank: bool):
+    def __init__(self, cfg: ReceiverConfig, params: ReceiverParams,
+                 held: ReceiverParams, key, state, device: torch.device,
+                 step, block, planes: bool = True):
         self.key = key
         self.host = params
-        self.params = device_params(cfg, params, device, bank)
+        self.params = held
         self.step = stepgraph.StepGraph(
-            lambda p, st, re, im: step(cfg, p, st, re, im), self.params,
-            state, block, device)
+            lambda p, st, *x: step(cfg, p, st, *x), self.params, state,
+            block, device, planes=planes)
 
 
 class GraphedStepper:
     """Params, state and the replayed CUDA graph of a streaming step, the
-    bookkeeping ``Receiver`` and the banks (``shard/channels``) share.
+    bookkeeping ``Receiver``, the banks (``shard/channels``), the
+    diversity receiver and the one-card time shard share.
 
     Where ``graphed`` holds, each block replays the step as one CUDA graph
-    (module notes): ``state`` then reads a copy of the graph's static
-    buffers and assigning it copies into them, and ``params`` stays the
-    host form, whose changes reach the graph in place (a change of
-    ``graph_key`` captures a new graph at the next block).  A subclass
-    gives ``graphed``, ``_step`` (the eager step over planes), ``_block``
-    (the input block's shape) and ``_bank``."""
+    (module notes): ``carry`` (``state`` unless a subclass splits it) then
+    reads a copy of the graph's static buffers and assigning it copies
+    into them, and ``params`` stays the host form, whose changes reach
+    the graph in place (a change of ``_graph_key`` captures a new graph
+    at the next block).  A subclass gives ``graphed``, ``_step`` (the
+    eager step over the block's planes or, with ``_planes`` False, over
+    the complex block), ``_block`` (the input block's shape) and
+    ``_bank``."""
 
     _bank = False
+    _planes = True
 
-    def _start(self, params: ReceiverParams, state: ReceiverState) -> None:
+    def _start(self, params: ReceiverParams, state) -> None:
         self._params, self._state = params, state
         self._graph: _Graphed | None = None   # holds the state when set
-        self._key = None                      # graph_key of the params
+        self._key = None                      # _graph_key of the params
+
+    def _graph_key(self, params: ReceiverParams) -> tuple:
+        """What a captured step bakes in (``graph_key``)."""
+        return graph_key(self.cfg, params, self._bank)
+
+    def _device_params(self, params: ReceiverParams) -> ReceiverParams:
+        """The params a graph is captured with (``device_params``)."""
+        return device_params(self.cfg, params, self.device, self._bank)
 
     @property
     def params(self) -> ReceiverParams:
@@ -737,23 +766,33 @@ class GraphedStepper:
         self._key = None
         g = self._graph
         if g is not None:
-            self._key = graph_key(self.cfg, value, self._bank)
+            self._key = self._graph_key(value)
             if g.key == self._key:
                 _update_params(g.params, g.host, value)
                 g.host = value
 
     @property
-    def state(self) -> ReceiverState:
+    def carry(self):
+        """The stream state (a copy of the graph's static buffers where a
+        graph holds it)."""
         if self._graph is None:
             return self._state
         return stepgraph.clone(self._graph.step.state)
 
-    @state.setter
-    def state(self, value: ReceiverState) -> None:
+    @carry.setter
+    def carry(self, value) -> None:
         if self._graph is None:
             self._state = value
         else:
             self._graph.step.load_state(value)
+
+    state = carry
+
+    def _live_carry(self):
+        """The stream state itself: the graph's static buffers where a
+        graph holds it (read, never kept: the next block overwrites
+        them)."""
+        return self._state if self._graph is None else self._graph.step.state
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
@@ -762,24 +801,28 @@ class GraphedStepper:
         """The graph of the current params, captured anew where their key
         changed (the state carried over from the last one)."""
         if self._key is None:
-            self._key = graph_key(self.cfg, self._params, self._bank)
+            self._key = self._graph_key(self._params)
         g = self._graph
         if g is None or g.key != self._key:
             state = self._state if g is None else g.step.state
-            self._graph = _Graphed(self.cfg, self._params, self._key, state,
-                                   self.device, self._step, self._block,
-                                   self._bank)
+            self._graph = _Graphed(self.cfg, self._params,
+                                   self._device_params(self._params),
+                                   self._key, state, self.device, self._step,
+                                   self._block, self._planes)
             self._state = None
         return self._graph.step
 
+    def _eager(self, x: tuple) -> StepOutput:
+        self._state, out = self._step(self.cfg, self._params, self._state,
+                                      *x)
+        return out
+
     def _run(self, iq: torch.Tensor) -> StepOutput:
         """One complex64 block on the device: replayed, or the eager step
-        over its planes (strided views, not copies)."""
+        over its planes (strided views, not copies) or over the block."""
         if self.graphed:
             return self._graph_step().run(iq)
-        self._state, out = self._step(self.cfg, self._params, self._state,
-                                      iq.real, iq.imag)
-        return out
+        return self._eager((iq.real, iq.imag) if self._planes else (iq,))
 
     def _run_planes(self, re: torch.Tensor, im: torch.Tensor) -> StepOutput:
         """One block as float32 or int16 planes on the device (int16 wire
@@ -789,9 +832,8 @@ class GraphedStepper:
             return self._graph_step().run_planes(re, im)    # casts int16
         if re.dtype != RDTYPE:
             re, im = re.to(RDTYPE), im.to(RDTYPE)
-        self._state, out = self._step(self.cfg, self._params, self._state,
-                                      re, im)
-        return out
+        return self._eager((re, im) if self._planes
+                           else (torch.complex(re, im),))
 
 
 class Receiver(GraphedStepper):

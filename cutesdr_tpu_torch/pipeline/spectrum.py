@@ -214,18 +214,28 @@ class SpectrumAnalyzer:
         return bool(self._overload)
 
     def feed(self, iq: np.ndarray) -> bool:
-        """Append raw IQ; returns True when a new display frame is ready."""
-        buf = np.concatenate([self._pending, np.asarray(iq, np.complex64)])
+        """Append raw IQ; returns True when a new display frame is ready.
+        Every ``_skip``-th fft_size frame of the stream is accumulated;
+        only those frames are sliced out (the others are counted, not
+        copied), and the tail short of a frame is kept."""
+        iq = np.asarray(iq, np.complex64)
         n = self.cfg.fft_size
-        ready = False
-        while len(buf) >= n:
-            frame, buf = buf[:n], buf[n:]
-            self._skip_count += 1
-            if self._skip_count >= self._skip:
-                self._skip_count = 0
-                self._acc(frame.real, frame.imag)
-                ready = True
-        self._pending = buf
+        pend = len(self._pending)
+        frames = (pend + len(iq)) // n
+        # frame f spans stream samples [f*n, (f+1)*n) of pending ++ iq;
+        # the first one the throttle keeps is the one that brings the
+        # count up to _skip
+        for f in range(self._skip - 1 - self._skip_count, frames,
+                       self._skip):
+            lo = f * n - pend
+            frame = (iq[lo:lo + n] if lo >= 0 else
+                     np.concatenate([self._pending, iq[:n - pend]]))
+            self._acc(frame.real, frame.imag)
+        ready = self._skip - 1 - self._skip_count < frames
+        self._skip_count = (self._skip_count + frames) % self._skip
+        lo = frames * n - pend
+        self._pending = (np.concatenate([self._pending, iq]) if lo < 0
+                         else iq[lo:].copy())
         return ready
 
     def feed_planes(self, re, im) -> bool:

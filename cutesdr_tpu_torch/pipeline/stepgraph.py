@@ -7,28 +7,40 @@ and can be captured.
 ``StepGraph(step, params, state, block, device)`` captures ``step(params,
 state, re, im) -> (state', out)`` once for the float32 planes of a
 complex64 block of ``block`` samples (an int, or a shape: a
-StackedReceiver's [C, block_size]; the real and imaginary views of one
-static buffer: K1 reads them as interleaved pairs), on ``device`` (made
-the current device for the capture and each replay, so a sub-bank on
-another card of a mesh captures there):
+StackedReceiver's [C, block_size], a diversity receiver's [M,
+block_size]; the real and imaginary views of one static buffer: K1 reads
+them as interleaved pairs), on ``device`` (made the current device for
+the capture and each replay, so a sub-bank on another card of a mesh
+captures there).  With ``planes=False`` the step takes the complex
+block itself, ``step(params, state, x)``.  ``block`` may also be a
+tensor, which then is the static input as it stands (the pipeline's back
+stage reads the block its front stage's graph leaves), and ``share``
+another graph whose static state (and, without a tensor ``block``, whose
+static input) this one uses, so that two captures of one stream take
+turns (the pipeline's ping-pong):
 
 * a warm-up step runs first, on a copy of the state, so that what is made
   at first use (cuFFT plans, cuDNN algorithms, cached tables, the kernel
   library, look-back memory, device counters) is made outside the
   capture; its launches and counts are set-up (``kernels.uncounted``);
 * the state lives in static buffers: the graph's last nodes copy the new
-  carry into them, and ``load_state`` copies a state in;
+  carry into them, and ``load_state`` copies a state in; an output that
+  is a strided view (USB's audio, the real part of a complex block) is
+  made dense inside the graph;
 * ``run(iq)`` and ``run_planes(re, im)`` copy the input into the static
   block (one copy, or one a plane), replay, and return the outputs
-  cloned, so that a returned output stays valid after the next call (as
-  JAX's fresh arrays do);
+  cloned (the probe taps' dict too), so that a returned output stays
+  valid after the next call (as JAX's fresh arrays do); ``replay()``
+  replays alone and returns the static outputs themselves;
 * the graph owns its look-back memory (``kernels/scan.own_lookback``),
   and ``kernels.LAUNCHES`` gains the captured launches on every replay;
 * a capture that fails raises: nothing falls back to the eager step.
 
-``params`` are captured by reference: a caller changes a value between
-replays by writing the tensor in place (``Receiver`` does, for the tune,
-the volume and a banded resample ratio).
+``params`` are captured by reference, and the graph keeps them (a graph
+reads its params' memory at every replay, so a params tree dropped by
+its caller must not go back to the allocator): a caller changes a value
+between replays by writing the tensor in place (``Receiver`` does, for
+the tune, the volume and a banded resample ratio).
 """
 
 from __future__ import annotations
@@ -47,8 +59,12 @@ COUNTS = (agc.STATS, fm.STATS, sam.STATS)
 # --------------------------------------------------------------- trees ---
 
 def walk(tree, path=()):
-    """(path, leaf) of every leaf of a tree of (Named)tuples, in order."""
-    if isinstance(tree, tuple):
+    """(path, leaf) of every leaf of a tree of (Named)tuples and dicts, in
+    order."""
+    if isinstance(tree, dict):
+        for name, sub in tree.items():
+            yield from walk(sub, path + (name,))
+    elif isinstance(tree, tuple):
         names = getattr(tree, "_fields", range(len(tree)))
         for name, sub in zip(names, tree):
             yield from walk(sub, path + (name,))
@@ -58,6 +74,9 @@ def walk(tree, path=()):
 
 def tree_map(fn, tree, path=()):
     """The tree with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {name: tree_map(fn, sub, path + (name,))
+                for name, sub in tree.items()}
     if isinstance(tree, tuple):
         names = getattr(tree, "_fields", range(len(tree)))
         subs = [tree_map(fn, sub, path + (name,))
@@ -93,15 +112,21 @@ def _copy_into(dst, src) -> None:
 class StepGraph:
     """One captured step on a CUDA device (module notes)."""
 
-    def __init__(self, step, params, state, block: int,
-                 device: torch.device):
+    def __init__(self, step, params, state, block, device: torch.device,
+                 planes: bool = True, share: "StepGraph | None" = None):
         self.device = device
-        self.iq = torch.zeros(block, dtype=CDTYPE, device=device)
-        self.state = clone(state)
+        self.params = params       # read by pointer: kept alive with the graph
+        if isinstance(block, torch.Tensor):
+            self.iq = block
+        elif share is not None:
+            self.iq = share.iq
+        else:
+            self.iq = torch.zeros(block, dtype=CDTYPE, device=device)
+        self.state = clone(state) if share is None else share.state
         self.lookback = scan.Lookback(device)
-        re, im = self.iq.real, self.iq.imag
+        x = (self.iq.real, self.iq.imag) if planes else (self.iq,)
         with uncounted(*COUNTS), scan.own_lookback(self.lookback):
-            step(params, clone(self.state), re, im)
+            step(params, clone(self.state), *x)
         torch.cuda.synchronize(device)
         self.graph = torch.cuda.CUDAGraph()
         before = dict(LAUNCHES)
@@ -109,8 +134,11 @@ class StepGraph:
             with torch.cuda.device(device), scan.own_lookback(
                     self.lookback), torch.cuda.graph(
                         self.graph, capture_error_mode="thread_local"):
-                new, out = step(params, self.state, re, im)
+                new, out = step(params, self.state, *x)
                 _copy_into(self.state, new)
+                # dense outputs, so that a replay's clones are memcpys
+                out = tree_map(lambda _, t: t.contiguous()
+                               if isinstance(t, torch.Tensor) else t, out)
         finally:
             self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             LAUNCHES.update(before)
@@ -127,11 +155,12 @@ class StepGraph:
                                  f"{tuple(t.shape)}")
 
     def run(self, iq: torch.Tensor):
-        """One complex64 block: copied in, the graph replayed; returns the
-        step's output (fresh tensors)."""
+        """One complex64 block: copied in (``non_blocking`` from pinned
+        host memory: its caller keeps the block until the copy has run),
+        the graph replayed; returns the step's output (fresh tensors)."""
         self._fits(iq)
-        self.iq.copy_(iq)
-        return self._replay()
+        self.iq.copy_(iq, non_blocking=True)
+        return clone(self.replay())
 
     def run_planes(self, re: torch.Tensor, im: torch.Tensor):
         """``run`` of a block given as planes (int16 planes are cast by the
@@ -139,14 +168,16 @@ class StepGraph:
         self._fits(re, im)
         self.iq.real.copy_(re)
         self.iq.imag.copy_(im)
-        return self._replay()
+        return clone(self.replay())
 
-    def _replay(self):
+    def replay(self):
+        """The graph replayed on the static input as it stands; returns the
+        static outputs, which the next replay overwrites."""
         with torch.cuda.device(self.device):
             self.graph.replay()
         for k, v in self.launches.items():
             LAUNCHES[k] += v
-        return clone(self.out)
+        return self.out
 
     def load_state(self, state) -> None:
         """Copy ``state`` (the captured structure) into the static

@@ -24,7 +24,10 @@ On the card the host and the device overlap as in the JAX package:
   reads the device inside ``pump``.
 
 ``DiversitySession`` runs the dual-RX combiner (``shard/coherent``) in
-front of one receiver chain, with the same staged delivery.
+front of one receiver chain, with the same staged delivery.  Its
+re-blocking buffer is one block of pinned memory: each piece is copied
+into the block it completes, and the receiver copies a full block from
+there into its graph's static input ``non_blocking``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from cutesdr_tpu_torch.shard.coherent import DiversityReceiver
 from cutesdr_tpu_torch.testbench.probes import (ProbeSpectrum,
                                                 TriggeredCapture,
                                                 TriggerMode)
-from cutesdr_tpu_torch.types import resolve_device
+from cutesdr_tpu_torch.types import CDTYPE, resolve_device
 
 
 class _Staged:
@@ -429,6 +432,41 @@ class _IngestWorker:
         self._t.join(timeout=10.0)
 
 
+class _Reblocker:
+    """Re-blocks [rows, n] complex pieces (any n) into [rows, block]
+    blocks in one staging buffer, pinned on the card: each piece is
+    copied into the block it completes, and a full block is handed on as
+    the buffer itself, which its consumer copies to the card
+    ``non_blocking``.  The buffer is refilled once the consumer's work
+    queued on the current stream has run (an event)."""
+
+    def __init__(self, rows: int, block: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.buf = torch.empty((rows, block), dtype=CDTYPE, pin_memory=cuda)
+        self._done = torch.cuda.Event() if cuda else None
+        self.fill = 0                   # samples pending in the buffer
+
+    def push(self, piece: np.ndarray):
+        """Each full block that ``piece`` completes (the staging buffer,
+        valid until the next block is pushed)."""
+        host = self.buf.numpy()
+        block = host.shape[1]
+        pos, n = 0, piece.shape[1]
+        while pos < n:
+            if self._done is not None:
+                self._done.synchronize()    # at once if never recorded
+            take = min(block - self.fill, n - pos)
+            host[:, self.fill:self.fill + take] = piece[:, pos:pos + take]
+            self.fill += take
+            pos += take
+            if self.fill < block:
+                return
+            self.fill = 0
+            yield self.buf
+            if self._done is not None:
+                self._done.record()
+
+
 @dataclass
 class ReceiverSession(_LiveSession):
     """Pull-based session: call ``pump()`` with raw IQ (any length) or
@@ -747,25 +785,21 @@ class DiversitySession(_LiveSession):
                                           device=self.device)
         self.receiver.set_volume(self.settings.volume)
         self.analyzer = self._analyzer()
-        self._pending = np.zeros((2, 0), np.complex64)
+        self._blocks = _Reblocker(2, self.cfg.block_size, self.device)
 
     def pump(self, iq_stack) -> int:
-        """Feed a [2, n] coherent complex stack (any n; re-blocked);
-        returns the receiver blocks run."""
+        """Feed a [2, n] coherent complex stack (any n; re-blocked through
+        pinned staging); returns the receiver blocks run."""
         if not self.running:
             return 0
         with self._lock:
-            buf = np.concatenate(
-                [self._pending, np.asarray(iq_stack, np.complex64)], axis=1)
-            bs = self.cfg.block_size
             blocks = 0
-            while buf.shape[1] >= bs:
-                chunk, buf = buf[:, :bs], buf[:, bs:]
-                if self.analyzer.feed(chunk[0]) and self.on_spectrum:
+            for block in self._blocks.push(
+                    np.asarray(iq_stack, np.complex64)):
+                if self.analyzer.feed(block[0].numpy()) and self.on_spectrum:
                     self.on_spectrum(self.analyzer.spectrum_db())
-                self._enter(self.receiver.process(chunk))
+                self._enter(self.receiver.process(block))
                 blocks += 1
-            self._pending = buf
             self._rate_lock()
             return blocks
 

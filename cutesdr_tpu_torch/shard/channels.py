@@ -98,7 +98,7 @@ class _Bank(rx.GraphedStepper):
     (``parts``) per device along its ``axis``.
 
     Where ``rx.bank_graph_rule(cfg, device)`` holds (``graphed``: on a
-    CUDA device without probes), each block replays
+    CUDA device, probes too), each block replays
     ``bank_receiver_step_planes`` as one CUDA graph, as ``Receiver``
     replays its step (``rx.GraphedStepper``: ``state`` reads and loads the
     graph's buffers, a change of ``params`` lands in place or captures

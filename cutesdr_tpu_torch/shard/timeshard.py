@@ -25,10 +25,24 @@ The front end is written against an exchange of three methods:
 ``gather(ys)`` the whole stream on the home device.  ``LocalExchange``
 does it by device copies between the shards of this process;
 ``shard.multihost.DistributedExchange`` over ``torch.distributed``.
+
+Where every device of the axis is the same CUDA device and the mesh has
+no ranks (``make_mesh(time=4, devices=["cuda:0"] * 4)``), the whole
+superblock replays as one CUDA graph (``pipeline.receiver.
+GraphedStepper``): each shard's K1 and K2 with its halos, the
+``LocalExchange`` copies, the gather, the back end and the carry update,
+as the JAX package jits its sharded step as one function.  The carry's
+phase base advances by the device value of the tune's increment, which
+a retune (assigning ``params``) writes in place, as the single
+receiver's graph takes it.  A mesh over several cards, or over ranks
+(``DistributedExchange``), runs the same step eagerly: the machine that
+checks the port has one card, so nothing there could hold a cross-card
+or NCCL capture to its eager step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -145,14 +159,35 @@ def front_end_sharded(cfg: rx.ReceiverConfig, ex, params: list,
     return y_all, TimeShardCarry(carry.nco_base, in_tail, dec_tail, nb_tail)
 
 
-class ShardedReceiver:
+def sharded_step(cfg: rx.ReceiverConfig, ex, shard_params: list,
+                 params: rx.ReceiverParams, carry: tuple, shards: list,
+                 n_in: int) -> tuple[tuple, rx.StepOutput]:
+    """One superblock of ``n_in`` samples: the sharded front end, the back
+    end once on the gathered block and the carry update.  ``carry`` is
+    (``TimeShardCarry``, ``ReceiverState``: the back end's carries);
+    returns the next one and the ``StepOutput``."""
+    ts, state = carry
+    probes = {} if cfg.probes else None
+    y_all, ts = front_end_sharded(cfg, ex, shard_params, ts, shards, probes)
+    sm_c, agc_c, dm_c, rs_c, out = rx.back_end(cfg, params, state, y_all,
+                                               probes)
+    ts = ts._replace(nco_base=nco.advance(ts.nco_base, params.dec.phase_inc,
+                                          n_in))
+    return (ts, state._replace(smeter=sm_c, agc=agc_c, demod=dm_c,
+                               resamp=rs_c)), out
+
+
+class ShardedReceiver(rx.GraphedStepper):
     """One stream time-sharded over the ``axis`` of ``mesh``: each step
     takes a superblock of n_dev * cfg.block_size samples and gives the
     single receiver's audio and meters over it (within the AGC's and the
     resampler's rounding: the back end runs once over the superblock).
     A mesh that spans ranks (``shard.multihost.global_time_mesh``)
     exchanges its halos over ``torch.distributed``; every rank then
-    holds the whole output."""
+    holds the whole output.  Over shards of one card a superblock
+    replays one CUDA graph (module notes).  ``state`` holds the back
+    end's carries and ``ts_carry`` the front end's (copies of the graph's
+    buffers where a graph holds them; assigning either loads it)."""
 
     def __init__(self, cfg: rx.ReceiverConfig, mesh: Mesh, axis: str = "t"):
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
@@ -167,14 +202,25 @@ class ShardedReceiver:
         self.device = resolve_device(self.exchange.home)
         for d in set(self.exchange.devices):
             resolve_device(d)
-        self.params, self.state = rx.init(cfg, self.device)
+        self._one_card = (ranks is None and self.device.type == "cuda"
+                          and all(d == self.device
+                                  for d in self.exchange.devices))
+        params, state = rx.init(cfg, self.device)
         nb_tail = None
         if cfg.nb_on:
             nb_tail = torch.zeros(noiseblanker.history_len(rx._nb_cfg(cfg)),
                                   dtype=CDTYPE, device=self.device)
-        self.ts_carry = TimeShardCarry(
-            nco_base=self.state.dec.phase, in_tail=self.state.dec.raw_tail,
-            dec_tail=self.state.chan_filter.tail, nb_tail=nb_tail)
+        ts_carry = TimeShardCarry(
+            nco_base=state.dec.phase, in_tail=state.dec.raw_tail,
+            dec_tail=state.chan_filter.tail, nb_tail=nb_tail)
+        self._start(params, (ts_carry, state))
+        self._place(params)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether a superblock replays a CUDA graph: every shard on the
+        same CUDA device, no ranks."""
+        return self._one_card
 
     @property
     def params(self) -> rx.ReceiverParams:
@@ -183,8 +229,12 @@ class ShardedReceiver:
     @params.setter
     def params(self, params: rx.ReceiverParams) -> None:
         """Assigning the params also places them once on each device of
-        the axis, so a step copies no params."""
-        self._params = params
+        the axis, so a step copies no params (a graph takes them in
+        place)."""
+        rx.GraphedStepper.params.fset(self, params)
+        self._place(params)
+
+    def _place(self, params: rx.ReceiverParams) -> None:
         placed = {}
         for d in self.exchange.devices:
             if d not in placed:
@@ -192,8 +242,48 @@ class ShardedReceiver:
         self._shard_params = [placed[d] for d in self.exchange.devices]
 
     @property
+    def state(self) -> rx.ReceiverState:
+        return self.carry[1]
+
+    @state.setter
+    def state(self, value: rx.ReceiverState) -> None:
+        self.carry = (self._live_carry()[0], value)
+
+    @property
+    def ts_carry(self) -> TimeShardCarry:
+        return self.carry[0]
+
+    @ts_carry.setter
+    def ts_carry(self, value: TimeShardCarry) -> None:
+        self.carry = (value, self._live_carry()[1])
+
+    @property
     def superblock_size(self) -> int:
         return self.n_dev * self.cfg.block_size
+
+    @property
+    def _block(self) -> tuple:
+        return (self.superblock_size,)
+
+    def _route_cfg(self) -> rx.ReceiverConfig:
+        """The configuration whose block is the superblock: the back end's
+        resampler route is decided at its length."""
+        return dataclasses.replace(
+            self.cfg, frames_per_block=self.cfg.frames_per_block * self.n_dev)
+
+    def _graph_key(self, params: rx.ReceiverParams) -> tuple:
+        return rx.graph_key(self._route_cfg(), params)
+
+    def _device_params(self, params: rx.ReceiverParams) -> rx.ReceiverParams:
+        return rx.device_params(self._route_cfg(), params, self.device)
+
+    def _step(self, cfg, params, carry, re, im):
+        """The graphed step over the superblock's planes on one card."""
+        S = cfg.block_size
+        shards = [(re[i * S:(i + 1) * S], im[i * S:(i + 1) * S])
+                  for i in range(self.n_dev)]
+        return sharded_step(cfg, self.exchange, [params] * self.n_dev,
+                            params, carry, shards, self.superblock_size)
 
     def _local_slices(self, n: int) -> list[slice]:
         if n != self.superblock_size:
@@ -208,36 +298,39 @@ class ShardedReceiver:
         """One superblock of complex samples (host or any device), or the
         list of this process's shards (``HostShardedStream.assemble``)."""
         devs = self.exchange.devices
+        if self.graphed:
+            if isinstance(iq, (list, tuple)):
+                iq = torch.cat([torch.as_tensor(x).to(self.device, CDTYPE)
+                                for x in iq])
+            iq = self._to_device(iq, CDTYPE)
+            self._local_slices(iq.shape[-1])
+            return self._graph_step().run(iq)
         if isinstance(iq, (list, tuple)):
             xs = [torch.as_tensor(x).to(d, CDTYPE) for x, d in zip(iq, devs)]
         else:
             iq = torch.as_tensor(iq)
             xs = [iq[s].to(d, CDTYPE)
                   for s, d in zip(self._local_slices(iq.shape[-1]), devs)]
-        return self._step([(x.real, x.imag) for x in xs])
+        return self._eager_shards([(x.real, x.imag) for x in xs])
 
     def process_planes(self, re, im) -> rx.StepOutput:
         """One superblock as float32 or int16 planes (int16 is cast on the
         device, exactly)."""
         re, im = torch.as_tensor(re), torch.as_tensor(im)
+        slices = self._local_slices(re.shape[-1])
+        if self.graphed:
+            return self._graph_step().run_planes(self._to_device(re),
+                                                 self._to_device(im))
         planes = []
-        for s, d in zip(self._local_slices(re.shape[-1]),
-                        self.exchange.devices):
+        for s, d in zip(slices, self.exchange.devices):
             planes.append((re[s].to(d).to(RDTYPE), im[s].to(d).to(RDTYPE)))
-        return self._step(planes)
+        return self._eager_shards(planes)
 
-    def _step(self, planes: list) -> rx.StepOutput:
-        cfg = self.cfg
-        probes = {} if cfg.probes else None
-        y_all, carry = front_end_sharded(cfg, self.exchange,
-                                         self._shard_params,
-                                         self.ts_carry, planes, probes)
-        sm_c, agc_c, dm_c, rs_c, out = rx.back_end(cfg, self.params,
-                                                   self.state, y_all, probes)
-        self.ts_carry = carry._replace(nco_base=nco.advance(
-            carry.nco_base, self.params.dec.phase_inc, self.superblock_size))
-        self.state = self.state._replace(smeter=sm_c, agc=agc_c, demod=dm_c,
-                                         resamp=rs_c)
+    def _eager_shards(self, planes: list) -> rx.StepOutput:
+        self._state, out = sharded_step(self.cfg, self.exchange,
+                                        self._shard_params, self._params,
+                                        self._state, planes,
+                                        self.superblock_size)
         return out
 
     def host_stream(self):

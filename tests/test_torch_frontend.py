@@ -206,6 +206,37 @@ def test_analyzer_matches_jax(method):
     assert ta.overload == ja.overload
 
 
+@pytest.mark.parametrize("skip", [1, 4, 7])
+def test_analyzer_feed_keeps_the_throttled_frames(skip):
+    """SpectrumAnalyzer.feed slices out only the frames its throttle
+    keeps: fed in pieces shorter than a frame, spanning many frames and
+    ending mid-frame, it accumulates the frames (and flags the pieces)
+    that a frame-by-frame count does, bitwise."""
+    rng = np.random.default_rng(65 + skip)
+    cfg = t_sp.SpectrumConfig(fft_size=512, ave_size=2,
+                              sample_rate=512 * 10.0 * skip)
+    a = t_sp.SpectrumAnalyzer(cfg, max_display_rate=10.0, device="cpu")
+    b = t_sp.SpectrumAnalyzer(cfg, max_display_rate=10.0, device="cpu")
+    assert a._skip == skip
+    x = _frames(rng, 40, 512).reshape(-1)
+    pending, count, pos = np.zeros(0, np.complex64), 0, 0
+    for n in (200, 200, 57, 4000, 1, 511, 6600, 512, 6000, len(x) - 18081):
+        piece = x[pos:pos + n]
+        pos += n
+        buf, ready = np.concatenate([pending, piece]), False
+        while len(buf) >= 512:
+            frame, buf = buf[:512], buf[512:]
+            count += 1
+            if count == skip:
+                count, ready = 0, True
+                b._acc(frame.real, frame.imag)
+        pending = buf
+        assert a.feed(piece) == ready
+        assert np.array_equal(a._pending, pending)
+    for f in t_sp.SpectrumState._fields:
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f))
+
+
 def test_analyzer_feed_equals_feed_planes():
     """Without a throttle (one display frame per FFT frame) feed and
     feed_planes accumulate the same frames: equal states."""

@@ -11,7 +11,7 @@ bookkeeping, on the CPU.
   JAX package (jitted on the CPU), the tiers and fallback counts equal.
 * The graph rule (``pipeline/receiver.graph_rule``) over every mode, AGC,
   blanker and probes setting on "cuda" and "cpu" configurations, without
-  a card.
+  a card (probes are graphed too).
 * ``Receiver``'s graph path with ``StepGraph`` stood in for by the eager
   step on static buffers (a capture needs the card): params changed
   between blocks reach the captured params in place, a change of host
@@ -268,8 +268,9 @@ def test_demod_tiers_match_jax(mode, stim):
 def test_graph_rule(mode):
     """Graphed: a single stream or a bank on a CUDA device in every mode,
     mono and stereo, with the two-rate or the hang-mode AGC or the AGC
-    off, with or without the blanker.  Eager: probes, every CPU
-    receiver; the rules are functions of (cfg, device) alone."""
+    off, with or without the blanker, with or without probes.  Eager:
+    every CPU receiver; the rules are functions of (cfg, device)
+    alone."""
     for device in ("cuda", "cuda:0", "cpu"):
         for stereo in (False, True):
             for agc_on, hang in ((True, False), (True, True), (False, False),
@@ -279,7 +280,7 @@ def test_graph_rule(mode):
                         cfg = rx.ReceiverConfig(
                             mode=mode, stereo=stereo, agc_on=agc_on,
                             agc_hang=hang, nb_on=nb_on, probes=probes)
-                        want = device != "cpu" and not probes
+                        want = device != "cpu"
                         assert rx.graph_rule(cfg, device) == want, cfg
                         assert rx.bank_graph_rule(cfg, device) == want, cfg
 
@@ -293,7 +294,7 @@ class _EagerGraph:
 
     made = []
 
-    def __init__(self, step, params, state, block, device):
+    def __init__(self, step, params, state, block, device, planes=True):
         self.step, self.params = step, params
         self.state = stepgraph.clone(state)
         _EagerGraph.made.append(self)

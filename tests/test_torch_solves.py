@@ -543,7 +543,7 @@ class _EagerGraph:
     made = []
     _fits = stepgraph.StepGraph._fits
 
-    def __init__(self, step, params, state, block, device):
+    def __init__(self, step, params, state, block, device, planes=True):
         self.step, self.params, self.block = step, params, block
         self.iq = torch.zeros(block, dtype=torch.complex64)
         self.state = stepgraph.clone(state)
