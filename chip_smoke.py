@@ -155,7 +155,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from chip_kernel_times import device_ms, event_counts, warm_up  # noqa: E402
-from cutesdr_tpu_torch import bench_suite, kernels  # noqa: E402
+from cutesdr_tpu_torch import bench_suite, kernels, metrics  # noqa: E402
 from cutesdr_tpu_torch.demod import fm, sam  # noqa: E402
 from cutesdr_tpu_torch.design.decimation_plan import (  # noqa: E402
     plan_decimation)
@@ -866,7 +866,7 @@ def flagship_agc_inputs(gen) -> list[tuple]:
     blocks = stimulus(cfg, 2, gen, carriers=({"offset_hz": 1000.0},))
     state, _ = rx.receiver_step(cfg, params, state, blocks[0])
     seen, real = [], scan.guess_verify_solve
-    scan.guess_verify_solve = lambda *a: seen.append(a) or real(*a)
+    scan.guess_verify_solve = lambda *a, **k: seen.append(a) or real(*a, **k)
     try:
         rx.receiver_step(cfg, params, state, blocks[1])
     finally:
@@ -3572,7 +3572,7 @@ def recording(module, name: str):
     """The calls of ``module.name`` made inside the block: their
     arguments, in order (the call goes through)."""
     seen, real = [], getattr(module, name)
-    setattr(module, name, lambda *a: seen.append(a) or real(*a))
+    setattr(module, name, lambda *a, **k: seen.append(a) or real(*a, **k))
     try:
         yield seen
     finally:
@@ -4614,8 +4614,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    phase(f"build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds} s, hash {_build.source_hash()})")
+    phase(f"build: {time.perf_counter() - t0:.1f} s (built "
+          f"{metrics.COUNTERS.get('setup.kernels_built', 0)}, hash "
+          f"{_build.source_hash()})")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)

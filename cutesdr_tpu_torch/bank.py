@@ -21,6 +21,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from cutesdr_tpu_torch import metrics as spans
 from cutesdr_tpu_torch.pipeline.receiver import ReceiverConfig, volume_params
 from cutesdr_tpu_torch.pipeline.spectrum import SpectrumConfig
 from cutesdr_tpu_torch.session import (PROBE_TAPS, _Staged, _StagedSession,
@@ -97,18 +98,18 @@ class BankSession(_StagedSession):
         with self._lock:
             if not self.running:
                 return 0
-            buf = np.concatenate([self._pending,
-                                  np.asarray(iq, np.complex64)])
-            bs = self.cfg.block_size
-            blocks = 0
-            while len(buf) >= bs:
-                chunk, buf = buf[:bs], buf[bs:]
-                if self.analyzer.feed(chunk) and self.on_spectrum:
-                    self.on_spectrum(self.analyzer.spectrum_db())
-                self._enter(self.bank.process(chunk))
-                blocks += 1
-            self._pending = buf
-            return blocks
+            on, pump = self._pump_span()
+            with pump:
+                with spans.span("pump.reblock", on):
+                    buf = np.concatenate([self._pending,
+                                          np.asarray(iq, np.complex64)])
+                    bs = self.cfg.block_size
+                    n = len(buf) // bs
+                    chunks = [buf[k * bs:(k + 1) * bs] for k in range(n)]
+                for chunk in chunks:
+                    self._block(on, chunk, self._show, self.bank.process)
+                self._pending = buf[n * bs:]
+                return n
 
     # ---------------------------------------------------------- controls --
     @property

@@ -149,7 +149,19 @@ struct Rounds {
     unsigned* done;                // row form: blocks finished and the rounds'
                                    //   max (zeroed by the caller); null: one
                                    //   block
+    int* tally;                    // [2] or null: the rounds run and 1 are
+                                   //   added (the caller's device counts)
 };
+
+// The rounds run, written once a solve has ended, and added to the tally.
+// One thread calls.
+__device__ __forceinline__ void put_rounds(const Rounds& o, int r) {
+    o.rounds[0] = r;
+    if (o.tally) {
+        atomicAdd(o.tally, r);
+        atomicAdd(o.tally + 1, 1);
+    }
+}
 
 __device__ __forceinline__ int* count_slot(const Rounds& o, int row, int r) {
     return o.counts + row * (o.n_iters + 1) + r;
@@ -217,7 +229,7 @@ __device__ bool grid_rounds_left(const Rounds& o, int r) {
         all = __syncthreads_and(all);
         if (threadIdx.x == 0) {
             o.ok[o.rows] = all;
-            o.rounds[0] = r;
+            put_rounds(o, r);
         }
     }
     return false;
@@ -231,7 +243,7 @@ __device__ void rows_finish(const Rounds& o, int most) {
     if (!o.done) {                        // one block, one row
         if (threadIdx.x == 0) {
             o.ok[o.rows] = o.ok[0];
-            o.rounds[0] = most;
+            put_rounds(o, most);
         }
         return;
     }
@@ -249,7 +261,7 @@ __device__ void rows_finish(const Rounds& o, int most) {
     all = __syncthreads_and(all);
     if (threadIdx.x == 0) {
         o.ok[o.rows] = all;
-        o.rounds[0] = (int)__ldcg(o.done + 1);
+        put_rounds(o, (int)__ldcg(o.done + 1));
     }
 }
 
@@ -475,7 +487,7 @@ __global__ void __launch_bounds__(SCAN_THREADS) solve_one_kernel(SolveArgs s) {
         if (count == 0 || r >= s.n_iters) {
             if (blockIdx.x == 0 && threadIdx.x == 0) {
                 s.out.ok[0] = s.out.ok[1] = count == 0;
-                s.out.rounds[0] = r;
+                put_rounds(s.out, r);
             }
             return;
         }
@@ -810,10 +822,11 @@ CUTESDR_API int cutesdr_scan_affine(const float* a, float a_scalar,
 // it) up to n_iters rounds, a row frozen once it validates.  Writes x and
 // the last pattern [rows, n], counts [rows, n_iters + 1] (the mismatches
 // of each round a row ran), rounds [1] (the rounds run), ok [rows + 1]
-// (each row converged, then all rows).  Rows of several chunks take one
-// cooperative launch (tot_a, tot_b: [rows * ceil(n / 2048)] scratch);
-// rows of one chunk a block each, with done [2] zeroed by the caller
-// (null for one row).
+// (each row converged, then all rows), and adds the rounds run and 1 to
+// tally [2] (null: none).  Rows of several chunks take one cooperative
+// launch (tot_a, tot_b: [rows * ceil(n / 2048)] scratch); rows of one
+// chunk a block each, with done [2] zeroed by the caller (null for one
+// row).
 CUTESDR_API int cutesdr_scan_solve(const float* peak,
                                    const unsigned char* pattern_in,
                                    float rise, float fall, float ag,
@@ -822,13 +835,14 @@ CUTESDR_API int cutesdr_scan_solve(const float* peak,
                                    unsigned char* pattern, int* counts,
                                    int* rounds, unsigned char* ok,
                                    float* tot_a, float* tot_b,
-                                   unsigned* done, void* stream) {
+                                   unsigned* done, int* tally,
+                                   void* stream) {
     if (n <= 0 || rows <= 0 || n_iters <= 0)
         return (int)cudaErrorInvalidValue;
     const int nchunks = (n + SCAN_CHUNK - 1) / SCAN_CHUNK;
     SolveArgs s{peak, pattern_in, pattern, x, x0, rise, fall, ag, n,
                 nchunks, rows, n_iters, tot_a, tot_b,
-                {rows, n_iters, counts, rounds, ok, done}};
+                {rows, n_iters, counts, rounds, ok, done, tally}};
     if (nchunks == 1) {
         if (rows > 1 && !done) return (int)cudaErrorInvalidValue;
         solve_rows_kernel<<<rows, SCAN_THREADS, 0, (cudaStream_t)stream>>>(s);
@@ -869,7 +883,7 @@ CUTESDR_API int cutesdr_hang_solve(const float* peak, const float* d0,
     const int nchunks = (n + SCAN_CHUNK - 1) / SCAN_CHUNK;
     HangArgs s{peak, d0, timer0, rise, fall, hang_time, n, nchunks, rows,
                n_iters, pattern, d, timer, last, carry, {nullptr, agg},
-               {rows, n_iters, counts, rounds, ok, done}};
+               {rows, n_iters, counts, rounds, ok, done, nullptr}};
     if (nchunks == 1) {
         if (rows > 1 && !done) return (int)cudaErrorInvalidValue;
         hang_rows_kernel<<<rows, SCAN_THREADS, 0, (cudaStream_t)stream>>>(s);

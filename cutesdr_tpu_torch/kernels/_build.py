@@ -10,6 +10,10 @@ mixdec oscillator needs the accurate ``sincosf``.
 
 Every C entry point enqueues its kernels on the caller's stream and
 returns ``cudaGetLastError()``; ``check`` raises on anything but 0.
+
+The first ``library()`` of a process (the hash, the build where it is
+missing, the load) is the set-up span ``setup.kernels``, and
+``metrics.COUNTERS["setup.kernels_built"]`` is 1 where it compiled.
 """
 
 from __future__ import annotations
@@ -21,10 +25,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
+
+from cutesdr_tpu_torch import metrics
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -55,9 +60,9 @@ SIGNATURES = {
     "cutesdr_scan_affine": [P, F32, P, F32, P, I32, F32, I32, I32, I32, P,
                             P, P, P, P],
     # peak, pattern_in, rise, fall, ag, x0, n, rows, n_iters, x, pattern,
-    # counts, rounds, ok, totals_a, totals_b, done, stream
+    # counts, rounds, ok, totals_a, totals_b, done, tally, stream
     "cutesdr_scan_solve": [P, P, F32, F32, F32, P, I32, I32, I32, P, P, P, P,
-                           P, P, P, P, P],
+                           P, P, P, P, P, P],
     # peak, d0, timer0, rise, fall, hang_time, n, rows, n_iters, d, timer,
     # pattern, counts, rounds, ok, last, carry, agg, done, stream
     "cutesdr_hang_solve": [P, P, P, F32, F32, I32, I32, I32, I32, P, P, P, P,
@@ -91,7 +96,6 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None
 
 
 def _sources() -> list[Path]:
@@ -128,7 +132,6 @@ def _run_all(cmds: list[list[str]]) -> None:
 def build() -> Path:
     """Compile the library if this source hash has not been built yet: one
     nvcc per source, all at once, then one link."""
-    global build_seconds
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -139,13 +142,12 @@ def build() -> Path:
     cus = [p for p in _sources() if p.suffix == ".cu"]
     objs = [str(obj_dir / (p.stem + ".o")) for p in cus]
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
               for p, o in zip(cus, objs)])
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])
     os.replace(tmp, lib)
     shutil.rmtree(obj_dir, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
+    metrics.count("setup.kernels_built")
     return lib
 
 
@@ -154,11 +156,12 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, args in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
+            with metrics.span("setup.kernels"):
+                lib = ctypes.CDLL(str(build()))
+                for name, args in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 

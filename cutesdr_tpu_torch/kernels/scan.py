@@ -345,12 +345,13 @@ def _launch_rounds(t: torch.Tensor, rows: int, n: int, slots: int,
 
 
 def _solve_launch(peak: torch.Tensor, pattern, x0, rise_alpha, fall_alpha,
-                  n_iters: int):
+                  n_iters: int, tally=None):
     """One launch of the solve over the rows of ``peak`` ([n] or [C, n]):
     (x, last pattern, int32 [rows * (n_iters + 1) + 1] = each row's
     per-round counts, then the rounds run; bool [rows + 1] = each row
     converged, then all rows), all on the device, x and the pattern in
-    ``peak``'s shape."""
+    ``peak``'s shape.  ``tally``: an int32 [2] on the device, or None,
+    to which the kernel adds the rounds run and 1."""
     p2, x0 = _rows_of(peak, x0, "peak")
     rows, n = p2.shape
     if pattern is not None:
@@ -370,24 +371,31 @@ def _solve_launch(peak: torch.Tensor, pattern, x0, rise_alpha, fall_alpha,
             warm_rate(rise_alpha, fall_alpha), x0.data_ptr(), n, rows,
             n_iters, x.data_ptr(), newpat.data_ptr(), ints.data_ptr(),
             ints.data_ptr() + 4 * rows * (n_iters + 1), ok.data_ptr(),
-            ta.data_ptr(), tb.data_ptr(), done, _build.stream(p2)))),
+            ta.data_ptr(), tb.data_ptr(), done,
+            None if tally is None else tally.data_ptr(),
+            _build.stream(p2)))),
         "scan_solve")
     LAUNCHES["scan_solve"] += 1
     return x.reshape(peak.shape), newpat.reshape(peak.shape), ints, ok
 
 
 def guess_verify_solve(peak: torch.Tensor, x0, rise_alpha, fall_alpha,
-                       n_iters: int):
+                       n_iters: int, tally=None):
     """(x, ok, rounds) of ``guess_verify_solve_plain`` for one stream ([n])
     or a bank's rows ([C, n], ``x0`` one value or one per row): the plain
     loop for CPU tensors, one launch of the kernel for CUDA ones, its ok
     (every row converged, a 0-dim bool) and round count (0-dim int32)
-    left on the device."""
+    left on the device.  ``tally``, where given, is an int32 [2] on
+    ``peak``'s device that gains the rounds run and 1 (on the card the
+    kernel adds them: no host read, and a graph counts every replay)."""
     if _build.on_cpu(peak, *(t for t in (x0,) if isinstance(t, torch.Tensor))):
-        return guess_verify_solve_plain(peak, x0, rise_alpha, fall_alpha,
-                                        n_iters)
+        x, ok, rounds = guess_verify_solve_plain(peak, x0, rise_alpha,
+                                                 fall_alpha, n_iters)
+        if tally is not None:
+            tally += torch.tensor([rounds, 1], dtype=tally.dtype)
+        return x, ok, rounds
     x, _, ints, ok = _solve_launch(peak, None, x0, rise_alpha, fall_alpha,
-                                   n_iters)
+                                   n_iters, tally)
     return x, ok[-1], ints[-1]
 
 

@@ -51,9 +51,11 @@ MAX_DELAY_SAMPLES = 2047
 GUESS_ITERS = 24              # cap on guess-verify rounds per averager
 
 # how often the exact sequential fallback ran (it should not, in steady
-# state), counted where it runs (N1 on the card); read by tests and
-# chip_smoke.py, which is the only host read of it
-STATS = DeviceCounts("scan_fallbacks")
+# state), counted where it runs (N1 on the card), and the two-rate
+# averagers' guess-verify solves and the rounds they ran, counted by K4
+# (``solve_rounds`` / ``solves``: the rounds a solve); read by tests, the
+# benchmark and chip_smoke.py, the only host reads of them
+STATS = DeviceCounts("scan_fallbacks", "solve_rounds", "solves")
 
 
 @dataclass(frozen=True)
@@ -138,7 +140,8 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak: torch.Tensor,
     Returns (trajectory, every row converged: a 0-dim device bool, or
     True where the plain loop has read it)."""
     x, ok, _ = scan.guess_verify_solve(peak, x0, rise_alpha, fall_alpha,
-                                       n_iters)
+                                       n_iters,
+                                       tally=STATS.slots(peak.device)[1:])
     return x, ok
 
 

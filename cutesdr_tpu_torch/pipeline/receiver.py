@@ -81,7 +81,9 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
+from cutesdr_tpu_torch import metrics
 from cutesdr_tpu_torch.demod import DEMOD_AM, DEMOD_FM, DEMOD_SAM, MODE_IDS
 from cutesdr_tpu_torch.demod import am as am_demod
 from cutesdr_tpu_torch.demod import fm as fm_demod
@@ -738,7 +740,14 @@ class GraphedStepper:
     at the next block).  A subclass gives ``graphed``, ``_step`` (the
     eager step over the block's planes or, with ``_planes`` False, over
     the complex block), ``_block`` (the input block's shape) and
-    ``_bank``."""
+    ``_bank``.
+
+    ``process(iq)`` takes a complex64 block, ``process_planes(re, im)``
+    the block as float32 or int16 planes (the radio's 16-bit wire format,
+    cast on the device); host numpy input is moved to the device.  While
+    tracing is on (``metrics``) each call is an ``entry`` span: on a graph
+    split into ``entry.input``, ``entry.replay`` and ``entry.outputs``
+    (``StepGraph.run_traced``), else around ``entry.step``."""
 
     _bank = False
     _planes = True
@@ -797,6 +806,34 @@ class GraphedStepper:
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
+    def _input(self, iq) -> torch.Tensor:
+        """A complex block as ``_run`` takes it."""
+        return self._to_device(iq, CDTYPE)
+
+    def process(self, iq) -> StepOutput:
+        if metrics.tracing_on or _profiler._is_profiler_enabled:
+            return self._traced((iq,))
+        return self._run(self._input(iq))
+
+    def process_planes(self, re, im) -> StepOutput:
+        if metrics.tracing_on or _profiler._is_profiler_enabled:
+            return self._traced((re, im))
+        return self._run_planes(self._to_device(re), self._to_device(im))
+
+    def _traced(self, x: tuple) -> StepOutput:
+        """``process`` (one block) or ``process_planes`` (two planes) with
+        the entry's spans (class notes)."""
+        metrics.tracing(True)
+        with metrics.span("entry", block=True):
+            if len(x) == 2:
+                x = (self._to_device(x[0]), self._to_device(x[1]))
+            else:
+                x = (self._input(x[0]),)
+            if self.graphed:
+                return self._graph_step().run_traced(*x)
+            with metrics.span("entry.step"):
+                return self._run_planes(*x) if len(x) == 2 else self._run(*x)
+
     def _graph_step(self) -> stepgraph.StepGraph:
         """The graph of the current params, captured anew where their key
         changed (the state carried over from the last one)."""
@@ -841,8 +878,7 @@ class Receiver(GraphedStepper):
     unless ``device`` says otherwise (no CUDA device raises).
 
     ``process(iq)`` takes a complex64 block, ``process_planes(re, im)`` the
-    block as float32 or int16 planes (the radio's 16-bit wire format, cast
-    on the device).  Host numpy input is moved to the receiver's device.
+    block as float32 or int16 planes (``GraphedStepper``).
 
     Where ``graph_rule(cfg, device)`` holds (``graphed``), each block
     replays the step as one CUDA graph (``GraphedStepper``)."""
@@ -864,12 +900,6 @@ class Receiver(GraphedStepper):
     @staticmethod
     def _step(cfg, params, state, re, im):
         return receiver_step_planes(cfg, params, state, re, im)
-
-    def process(self, iq) -> StepOutput:
-        return self._run(self._to_device(iq, CDTYPE))
-
-    def process_planes(self, re, im) -> StepOutput:
-        return self._run_planes(self._to_device(re), self._to_device(im))
 
     # --- live reconfiguration between blocks (a graph takes them in
     # place: the tune, the volume, a banded ratio, the filter and the DC

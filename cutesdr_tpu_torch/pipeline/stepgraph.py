@@ -34,6 +34,11 @@ turns (the pipeline's ping-pong):
   replays alone and returns the static outputs themselves;
 * the graph owns its look-back memory (``kernels/scan.own_lookback``),
   and ``kernels.LAUNCHES`` gains the captured launches on every replay;
+* the warm-up step and the capture are set-up spans (``metrics``:
+  ``setup.warmup``, ``setup.capture``; the kernel library is loaded
+  before them, ``setup.kernels``); ``run_traced`` is ``run`` or
+  ``run_planes`` with the entry's spans, its input copies timed on the
+  card too, and nothing added inside the graph;
 * a capture that fails raises: nothing falls back to the eager step.
 
 ``params`` are captured by reference, and the graph keeps them (a graph
@@ -47,8 +52,9 @@ from __future__ import annotations
 
 import torch
 
+from cutesdr_tpu_torch import metrics
 from cutesdr_tpu_torch.demod import fm, sam
-from cutesdr_tpu_torch.kernels import LAUNCHES, scan, uncounted
+from cutesdr_tpu_torch.kernels import LAUNCHES, _build, scan, uncounted
 from cutesdr_tpu_torch.ops import agc
 from cutesdr_tpu_torch.types import CDTYPE
 
@@ -125,15 +131,19 @@ class StepGraph:
         self.state = clone(state) if share is None else share.state
         self.lookback = scan.Lookback(device)
         x = (self.iq.real, self.iq.imag) if planes else (self.iq,)
-        with uncounted(*COUNTS), scan.own_lookback(self.lookback):
-            step(params, clone(self.state), *x)
-        torch.cuda.synchronize(device)
+        if device.type == "cuda":
+            _build.library()       # its own set-up span, not the warm-up's
+        with metrics.span("setup.warmup"):
+            with uncounted(*COUNTS), scan.own_lookback(self.lookback):
+                step(params, clone(self.state), *x)
+            torch.cuda.synchronize(device)
         self.graph = torch.cuda.CUDAGraph()
         before = dict(LAUNCHES)
         try:
-            with torch.cuda.device(device), scan.own_lookback(
-                    self.lookback), torch.cuda.graph(
-                        self.graph, capture_error_mode="thread_local"):
+            with metrics.span("setup.capture"), torch.cuda.device(
+                    device), scan.own_lookback(self.lookback), \
+                    torch.cuda.graph(self.graph,
+                                     capture_error_mode="thread_local"):
                 new, out = step(params, self.state, *x)
                 _copy_into(self.state, new)
                 # dense outputs, so that a replay's clones are memcpys
@@ -169,6 +179,26 @@ class StepGraph:
         self.iq.real.copy_(re)
         self.iq.imag.copy_(im)
         return clone(self.replay())
+
+    def run_traced(self, *x: torch.Tensor):
+        """``run`` (one complex block) or ``run_planes`` (two planes)
+        with the entry's spans: ``entry.input`` (the fit and the copies,
+        which a pair of timing events also times on the compute stream,
+        back to back), ``entry.replay`` and ``entry.outputs``."""
+        with metrics.span("entry.input"):
+            self._fits(*x)
+            marks = metrics.device_marks("entry.input", self.iq.device)
+            pair = marks.start()
+            if len(x) == 2:
+                self.iq.real.copy_(x[0])
+                self.iq.imag.copy_(x[1])
+            else:
+                self.iq.copy_(x[0], non_blocking=True)
+            marks.stop(pair)
+        with metrics.span("entry.replay"):
+            out = self.replay()
+        with metrics.span("entry.outputs"):
+            return clone(out)
 
     def replay(self):
         """The graph replayed on the static input as it stands; returns the

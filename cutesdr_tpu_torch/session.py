@@ -41,6 +41,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from cutesdr_tpu_torch import metrics as spans
 from cutesdr_tpu_torch.io.audio_sink import RateLockedQueue
 from cutesdr_tpu_torch.kernels import _build
 from cutesdr_tpu_torch.metrics import StreamMetrics
@@ -124,7 +125,14 @@ class _StagedSession:
     started, the probe tap handed to the scope), its delivery
     pipeline_depth-1 steps later, ``start``/``stop``/``flush`` and the
     click rounding.  BankSession, whose steps carry a row per channel,
-    overrides ``_probe_leaf`` and ``_finish``."""
+    overrides ``_probe_leaf`` and ``_finish``.
+
+    While tracing is on (``metrics``) a pump is a ``pump`` span over
+    ``pump.reblock`` (its input cut into blocks: once a pump, or a pull
+    of the diversity session's staging) and, a block each,
+    ``pump.display``, ``pump.step`` (the entry call, whose ``entry``
+    spans nest in it) and ``pump.audio`` (``_enter``); the spans of one
+    block share its number."""
 
     def _setup(self) -> None:
         """The state every session starts with, on its device (the kernel
@@ -182,6 +190,38 @@ class _StagedSession:
                 self._finish(staged)
             self._inflight.clear()
             return n
+
+    @staticmethod
+    def _pump_span():
+        """(whether this pump traces, its ``pump`` span), the pump's
+        first block numbered where it does."""
+        on = spans.wanted()
+        if on:
+            spans.next_block(hold=True)
+        return on, spans.span("pump", on)
+
+    def _show(self, chunk: np.ndarray) -> None:
+        """A block of the raw (pre-mix) stream into the display path."""
+        if self.analyzer.feed(chunk) and self.on_spectrum:
+            self.on_spectrum(self.analyzer.spectrum_db())
+
+    def _block(self, on: bool, chunk, show, entry) -> None:
+        """One block of a pump: shown (``show(chunk)``), then ``_step``."""
+        if on:
+            spans.next_block(hold=True)
+        with spans.span("pump.display", on):
+            show(chunk)
+        self._step(on, entry, chunk)
+
+    def _step(self, on: bool, entry, x) -> None:
+        """A block stepped (``entry(x)``) and entered, each a span where
+        ``on``."""
+        if on:
+            spans.next_block(hold=True)
+        with spans.span("pump.step", on):
+            out = entry(x)
+        with spans.span("pump.audio", on):
+            self._enter(out)
 
     def _probe_leaf(self, probes: dict) -> Optional[torch.Tensor]:
         """The selected tap of a step's probes, as the scope takes it."""
@@ -527,25 +567,27 @@ class ReceiverSession(_LiveSession):
         if not self.running:
             return 0
         with self._lock:
-            buf = np.concatenate([self._pending,
-                                  np.asarray(iq, np.complex64)])
-            bs = self.cfg.block_size
-            blocks = 0
-            while len(buf) >= bs:
-                chunk, buf = buf[:bs], buf[bs:]
-                # the display path takes the raw (pre-mix) stream
-                if self.analyzer.feed(chunk) and self.on_spectrum:
-                    self.on_spectrum(self.analyzer.spectrum_db())
-                self._enter(self.receiver.process(chunk))
-                blocks += 1
-            self._pending = buf
-            self._rate_lock()
-            return blocks
+            on, pump = self._pump_span()
+            with pump:
+                with spans.span("pump.reblock", on):
+                    buf = np.concatenate([self._pending,
+                                          np.asarray(iq, np.complex64)])
+                    bs = self.cfg.block_size
+                    n = len(buf) // bs
+                    chunks = [buf[k * bs:(k + 1) * bs] for k in range(n)]
+                for chunk in chunks:
+                    # the display path takes the raw (pre-mix) stream
+                    self._block(on, chunk, self._show, self.receiver.process)
+                self._pending = buf[n * bs:]
+                self._rate_lock()
+                return n
 
-    def _dispatch_uploaded(self, item) -> None:
-        """Run the receiver step on an uploaded plane pair."""
+    def _dispatch_uploaded(self, item, on: bool = False) -> None:
+        """Run the receiver step on an uploaded plane pair (its spans
+        where ``on``)."""
         if item is not None:
-            self._enter(self.receiver.process_planes(*item))
+            self._step(on, lambda planes: self.receiver.process_planes(
+                *planes), item)
 
     def pump_planes(self, re, im) -> int:
         """High-rate ingest: separate re/im planes, int16 straight off the
@@ -556,43 +598,48 @@ class ReceiverSession(_LiveSession):
         if not self.running:
             return 0
         with self._lock:
-            return self._pump_planes_locked(re, im)
+            on, pump = self._pump_span()
+            with pump:
+                return self._pump_planes_locked(re, im, on)
 
-    def _pump_planes_locked(self, re, im) -> int:
+    def _pump_planes_locked(self, re, im, on: bool) -> int:
         if self._ingest is None:
             self._ingest = _IngestWorker(self.device,
                                          depth=max(1, self.pipeline_depth))
-        re, im = np.asarray(re), np.asarray(im)
-        if not len(self._pending_re):
-            self._pending_re = self._pending_re.astype(re.dtype)
-            self._pending_im = self._pending_im.astype(im.dtype)
-        elif self._pending_re.dtype != re.dtype:
-            # a wire-dtype change with a partial block pending: promote
-            # both sides to float32 (int16 would wrap float values)
-            self._pending_re = self._pending_re.astype(np.float32)
-            self._pending_im = self._pending_im.astype(np.float32)
-            re, im = re.astype(np.float32), im.astype(np.float32)
-        buf_re = np.concatenate([self._pending_re, re])
-        buf_im = np.concatenate([self._pending_im, im])
-        if buf_re.dtype not in (np.int16, np.float32):
-            buf_re = buf_re.astype(np.float32)
-            buf_im = buf_im.astype(np.float32)
-        bs = self.cfg.block_size
-        blocks = 0
-        while len(buf_re) >= bs:
-            rb, buf_re = buf_re[:bs], buf_re[bs:]
-            ib, buf_im = buf_im[:bs], buf_im[bs:]
-            if self.analyzer.feed_planes(rb, ib) and self.on_spectrum:
-                self.on_spectrum(self.analyzer.spectrum_db())
+        with spans.span("pump.reblock", on):
+            re, im = np.asarray(re), np.asarray(im)
+            if not len(self._pending_re):
+                self._pending_re = self._pending_re.astype(re.dtype)
+                self._pending_im = self._pending_im.astype(im.dtype)
+            elif self._pending_re.dtype != re.dtype:
+                # a wire-dtype change with a partial block pending: promote
+                # both sides to float32 (int16 would wrap float values)
+                self._pending_re = self._pending_re.astype(np.float32)
+                self._pending_im = self._pending_im.astype(np.float32)
+                re, im = re.astype(np.float32), im.astype(np.float32)
+            buf_re = np.concatenate([self._pending_re, re])
+            buf_im = np.concatenate([self._pending_im, im])
+            if buf_re.dtype not in (np.int16, np.float32):
+                buf_re = buf_re.astype(np.float32)
+                buf_im = buf_im.astype(np.float32)
+            bs = self.cfg.block_size
+            n = len(buf_re) // bs
+            pairs = [(buf_re[k * bs:(k + 1) * bs], buf_im[k * bs:(k + 1) * bs])
+                     for k in range(n)]
+        for rb, ib in pairs:
+            if on:
+                spans.next_block(hold=True)
+            with spans.span("pump.display", on):
+                if self.analyzer.feed_planes(rb, ib) and self.on_spectrum:
+                    self.on_spectrum(self.analyzer.spectrum_db())
             self._ingest.submit(rb, ib)
-            self._dispatch_uploaded(self._ingest.poll())
-            blocks += 1
-        self._pending_re, self._pending_im = buf_re, buf_im
+            self._dispatch_uploaded(self._ingest.poll(), on)
+        self._pending_re, self._pending_im = buf_re[n * bs:], buf_im[n * bs:]
         # dispatch the uploads that completed meanwhile
         while (item := self._ingest.poll()) is not None:
-            self._dispatch_uploaded(item)
+            self._dispatch_uploaded(item, on)
         self._rate_lock()
-        return blocks
+        return n
 
     # ----------------------------------------------- mode / rate switches --
     @staticmethod
@@ -793,15 +840,21 @@ class DiversitySession(_LiveSession):
         if not self.running:
             return 0
         with self._lock:
-            blocks = 0
-            for block in self._blocks.push(
-                    np.asarray(iq_stack, np.complex64)):
-                if self.analyzer.feed(block[0].numpy()) and self.on_spectrum:
-                    self.on_spectrum(self.analyzer.spectrum_db())
-                self._enter(self.receiver.process(block))
-                blocks += 1
-            self._rate_lock()
-            return blocks
+            on, pump = self._pump_span()
+            with pump:
+                blocks = 0
+                pieces = self._blocks.push(np.asarray(iq_stack, np.complex64))
+                while True:
+                    # the staging buffer is filled as a block is pulled
+                    with spans.span("pump.reblock", on):
+                        block = next(pieces, None)
+                    if block is None:
+                        break
+                    self._block(on, block, lambda b: self._show(b[0].numpy()),
+                                self.receiver.process)
+                    blocks += 1
+                self._rate_lock()
+                return blocks
 
     # ---------------------------------------------------------- controls --
     @property

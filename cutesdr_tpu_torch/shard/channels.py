@@ -28,7 +28,7 @@ import torch
 
 from cutesdr_tpu_torch.ops import nco
 from cutesdr_tpu_torch.pipeline import receiver as rx
-from cutesdr_tpu_torch.types import CDTYPE, RDTYPE, resolve_device
+from cutesdr_tpu_torch.types import resolve_device
 
 PER_CHANNEL = {("dec", "phase_inc"), ("chan_filter", "h_freq"),
                ("dc_offset",)}
@@ -165,14 +165,14 @@ class _Bank(rx.GraphedStepper):
     def process(self, iq) -> rx.StepOutput:
         if self.parts is not None:
             return self._split("process", iq)
-        return self._run(self._to_device(iq, CDTYPE))
+        return super().process(iq)
 
     def process_planes(self, re, im) -> rx.StepOutput:
         """The block as float32 or int16 planes (the radio's 16-bit wire
         format, cast on the device)."""
         if self.parts is not None:
             return self._split("process_planes", re, im)
-        return self._run_planes(self._to_device(re), self._to_device(im))
+        return super().process_planes(re, im)
 
     def set_tune_freqs(self, freqs: Sequence[float]) -> None:
         """Retune every channel between blocks (one frequency each): the

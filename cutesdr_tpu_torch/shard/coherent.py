@@ -199,19 +199,16 @@ class DiversityReceiver(rx.GraphedStepper):
         state, out = rx.receiver_step(cfg, params, state, y)
         return (state, comb), out
 
-    def process(self, iq_stack) -> rx.StepOutput:
-        """A [n_branches, block_size] complex64 stack (host numpy is moved
-        to the receiver's device; a complex64 tensor in pinned host memory
-        goes straight into a graph's static input, ``non_blocking``)."""
+    def _input(self, iq_stack) -> torch.Tensor:
+        """A [n_branches, block_size] complex64 stack for ``process``
+        (host numpy is moved to the receiver's device; a complex64 tensor
+        in pinned host memory goes straight into a graph's static input,
+        ``non_blocking``).  ``process_planes`` takes the stack as
+        [n_branches, block_size] float32 or int16 planes."""
         if (self.graphed and isinstance(iq_stack, torch.Tensor)
                 and iq_stack.dtype == CDTYPE and iq_stack.is_pinned()):
-            return self._graph_step().run(iq_stack)
-        return self._run(self._to_device(iq_stack, CDTYPE))
-
-    def process_planes(self, re, im) -> rx.StepOutput:
-        """The stack as [n_branches, block_size] float32 or int16 planes
-        (the radio's 16-bit wire format, cast on the device)."""
-        return self._run_planes(self._to_device(re), self._to_device(im))
+            return iq_stack
+        return self._to_device(iq_stack, CDTYPE)
 
     @property
     def state(self) -> rx.ReceiverState:

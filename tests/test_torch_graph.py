@@ -439,8 +439,8 @@ def test_hang_mode_reads_its_flag_on_the_host(monkeypatch, hang):
     seen = []
     merge = t_agc._fallback
     solve, hang_solve = scan.guess_verify_solve, scan.hang_solve
-    monkeypatch.setattr(scan, "guess_verify_solve", lambda *a: (
-        lambda x, ok, rounds: (x, torch.tensor(ok), rounds))(*solve(*a)))
+    monkeypatch.setattr(scan, "guess_verify_solve", lambda *a, **k: (
+        lambda x, ok, rounds: (x, torch.tensor(ok), rounds))(*solve(*a, **k)))
     monkeypatch.setattr(scan, "hang_solve", lambda *a: (
         lambda d, timer, ok: (d, timer, torch.tensor(ok)))(*hang_solve(*a)))
     monkeypatch.setattr(t_agc, "_fallback",
