@@ -183,6 +183,9 @@ SEED = 1234
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "mixdec": ("cutesdr_tpu_torch/csrc/mixdec.cu",
                "cutesdr_tpu/kernels/mixdec.py:696"),
+    # K1 over int16 planes: the same kernel with an int16 load stage
+    "mixdec_int16": ("cutesdr_tpu_torch/csrc/mixdec.cu",
+                     "cutesdr_tpu/kernels/mixdec.py:696"),
     "fastfir": ("cutesdr_tpu_torch/csrc/fastfir.cu",
                 "cutesdr_tpu/kernels/fastfir4.py:238"),
     "fastfir_batch": ("cutesdr_tpu_torch/csrc/fastfir.cu",
@@ -335,13 +338,43 @@ def compare(name: str, got, want, tol: float, results: dict,
 
 def mixdec_planes(gen, n: int, layout: str):
     """re, im planes of n samples: views of one complex tensor ("iq", as
-    the receiver passes them: the kernel's float2 path) or every third
-    float of one buffer ("strided": the general-stride path)."""
+    the receiver passes them: the kernel's float2 path), every third
+    float of one buffer ("strided": the general-stride path), or int16
+    planes ("int16": the radio's wire planes, K1's int16 route;
+    "int16 unaligned": the same starting one sample past a 4-byte
+    boundary, so no pair is staged as one word)."""
     if layout == "iq":
         x = torch.complex(randn(n, gen, 1000.0), randn(n, gen, 1000.0))
         return x.real, x.imag
+    if layout.startswith("int16"):
+        skip = 1 if layout == "int16 unaligned" else 0
+        return tuple(wire_plane(n + skip, gen)[skip:] for _ in range(2))
     buf = randn(3 * n, gen, 1000.0)
     return buf[0::3], buf[1::3]
+
+
+def wire_plane(shape, gen) -> torch.Tensor:
+    """An int16 plane of whole values, +-1000 RMS."""
+    return torch.round(torch.randn(shape, generator=gen, device="cuda")
+                       * 1000.0).to(torch.int16)
+
+
+def hold_wire_route(label: str, run_wire, run_float, gpu_label: str) -> None:
+    """K1 on int16 planes (``run_wire``) bitwise K1's float2 route on the
+    same planes cast to float32 (``run_float``), carry included; then both
+    routes' device ms a call, in turns (float, int16, int16, float)."""
+    (cw, yw), (cf, yf) = run_wire(), run_float()
+    torch.cuda.synchronize()
+    if not (same_bits(yw, yf) and same_bits(cw.raw_tail, cf.raw_tail)
+            and torch.equal(cw.phase, cf.phase)):
+        raise AssertionError(f"mixdec int16{label}: not bitwise the float2 "
+                             "route on the cast planes")
+    warm_up(run_wire)
+    turns = [device_ms(f)[0] for f in (run_float, run_wire, run_wire,
+                                        run_float)]
+    phase(f"kernel mixdec int16{label}: bitwise the float2 route on the "
+          f"cast planes; device ms a call in turns (float2, int16, int16, "
+          f"float2) {[round(t, 5) for t in turns]} ({gpu_label})")
 
 
 def held_tail(carry, recent: torch.Tensor) -> torch.Tensor:
@@ -353,8 +386,11 @@ def held_tail(carry, recent: torch.Tensor) -> torch.Tensor:
                      -1)
 
 
-def check_mixdec(gen, results, input_rate, label, n=N_IN, layout="iq"):
-    """K1 on one stream of n samples at the plan for ``input_rate``."""
+def check_mixdec(gen, results, input_rate, label, n=N_IN, layout="iq",
+                 gpu_label=""):
+    """K1 on one stream of n samples at the plan for ``input_rate``; on
+    int16 planes also bitwise its float2 route on the cast planes, both
+    timed in turns (``hold_wire_route``)."""
     plan = plan_decimation(input_rate, 20_000.0)
     params, carry = mixdec.init(plan, input_rate / 17.0, "cuda")
     t = decimator.tail_length(plan)
@@ -377,10 +413,16 @@ def check_mixdec(gen, results, input_rate, label, n=N_IN, layout="iq"):
     # bytes: the two input planes, tail, taps, output; operations: the DC
     # cal (2), oscillator phase and sincos (counted 2) and complex mix (6)
     # per input sample, a complex-by-real tap (4) per tap and output
-    work = (8 * n + 8 * t + 4 * L + 8 * n // D,
+    wire = layout.startswith("int16")
+    work = ((4 if wire else 8) * n + 8 * t + 4 * L + 8 * n // D,
             10 * n + 4 * L * n // D)
-    compare("mixdec", [yk.real, yk.imag], [yp.real, yp.imag], 5e-5 * scale,
-            results, run_k, run_p, label, work=work)
+    compare("mixdec_int16" if wire else "mixdec", [yk.real, yk.imag],
+            [yp.real, yp.imag], 5e-5 * scale, results, run_k, run_p, label,
+            work=work)
+    if wire:
+        x = torch.complex(re.float(), im.float())
+        hold_wire_route(label, run_k, lambda: mixdec.process_planes(
+            plan, params, carry, x.real, x.imag, dc), gpu_label)
     lp = mixdec.launch_plan(n // D, 1, D, L, _build.sm_count(re.device))
     phase(f"  (D={D}, {L} taps, {n} samples, {layout} planes; "
           f"{lp.n_tiles} blocks of {lp.tile_out} outputs, {lp.threads} "
@@ -438,11 +480,13 @@ def check_fastfir_batch(gen, results):
         phase(f"  ({n_ch} channels x {frames} frames, 2048/1025)")
 
 
-def check_mixdec_bank(gen):
+def check_mixdec_bank(gen, wire: bool = False, gpu_label: str = ""):
     """K1 with its channel axis: 64 channels at D = 128 over one shared
     131,072-sample block (the config-4 bank), and 2 stacked channels at
     D = 32 (the stacked path's 8,388,608 samples each); each channel with
-    its own increment, phase (near the wrap), raw tail and DC cal."""
+    its own increment, phase (near the wrap), raw tail and DC cal.  With
+    ``wire`` over int16 planes, also bitwise the float2 route on the cast
+    planes (``hold_wire_route``)."""
     for input_rate, n_ch, n, shared in ((10e6, 64, 131_072, True),
                                          (2e6, 2, N_IN, False)):
         plan = plan_decimation(input_rate, 20_000.0)
@@ -459,21 +503,34 @@ def check_mixdec_bank(gen):
             phase=2**32 - 12345 * torch.arange(1, n_ch + 1, device="cuda"))
         dc = torch.complex(randn(n_ch, gen), randn(n_ch, gen))
         rows = n if shared else n_ch * n
-        x = torch.complex(randn(rows, gen, 1000.0), randn(rows, gen, 1000.0))
+        if wire:
+            re, im = (wire_plane(rows, gen) for _ in range(2))
+            x = torch.complex(re.float(), im.float())
+        else:
+            x = torch.complex(randn(rows, gen, 1000.0),
+                              randn(rows, gen, 1000.0))
         x = x if shared else x.reshape(n_ch, n)
-        run_k = lambda: mixdec.process_planes(plan, params, carry, x.real,
-                                              x.imag, dc)
+        if not wire:
+            re, im = x.real, x.imag
+        elif not shared:
+            re, im = re.reshape(n_ch, n), im.reshape(n_ch, n)
+        run_k = lambda: mixdec.process_planes(plan, params, carry, re, im,
+                                              dc)
         run_p = lambda: mixdec.process_planes_plain(plan, params, carry,
-                                                    x.real, x.imag, dc)
+                                                    re, im, dc)
         (ck, yk), (cp, yp) = run_k(), run_p()
         torch.cuda.synchronize()
         if not (torch.equal(ck.raw_tail, cp.raw_tail)
                 and torch.equal(ck.phase, cp.phase)):
             raise AssertionError("mixdec bank carries differ")
-        compare("mixdec", [yk.real, yk.imag], [yp.real, yp.imag],
-                5e-5 * float(yp.abs().max()), {}, run_k, run_p,
-                f" {n_ch} channels {'shared' if shared else 'stacked'} "
-                f"D={plan.decimation}")
+        label = (f" {n_ch} channels {'shared' if shared else 'stacked'} "
+                 f"D={plan.decimation}")
+        compare("mixdec_int16" if wire else "mixdec", [yk.real, yk.imag],
+                [yp.real, yp.imag], 5e-5 * float(yp.abs().max()), {}, run_k,
+                run_p, label)
+        if wire:
+            hold_wire_route(label, run_k, lambda: mixdec.process_planes(
+                plan, params, carry, x.real, x.imag, dc), gpu_label)
 
 
 def check_seqloops_bank(gen):
@@ -1743,7 +1800,8 @@ def banded_tail(cfg, bank: bool, params) -> bool:
     return bank or not rx.rational_tail(cfg, params)
 
 
-def routed_kernels(cfg, bank: bool, params, counted=None) -> set[str]:
+def routed_kernels(cfg, bank: bool, params, counted=None,
+                   wire: bool = False) -> set[str]:
     """The kernels a configuration's path routes to, by the port's gates.
     The choices JAX makes with ``lax.cond`` are made on the card: every
     FM block launches K7 and every SAM block K8 (a kernel that returns at
@@ -1755,9 +1813,12 @@ def routed_kernels(cfg, bank: bool, params, counted=None) -> set[str]:
     (``scan_solve``, a bank's rows in one launch), hang mode's decay
     averager N3h (``hang_solve``).  Every path runs the S-meter kernel;
     the affine scan runs the AM/SAM DC block and FM's three EMAs; FM's
-    audio biquad is N2 (``biquad``)."""
+    audio biquad is N2 (``biquad``).  K1 takes its int16 route where the
+    path is fed int16 planes (``wire``) and no blanker reads them
+    first."""
     counted = counted or bench_suite.counts()
-    want = {"mixdec", "smeter"}
+    want = {"mixdec_int16" if wire and not cfg.nb_on else "mixdec",
+            "smeter"}
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
         want.add("fastfir_batch" if bank else "fastfir")
     if banded_tail(cfg, bank, params):
@@ -2128,7 +2189,9 @@ def graph_specs() -> list:
 # the device symbols (``cutesdr::``) of each counted wrapper's kernels;
 # fastfir_batch launches fastfir's kernel, and is counted under it
 KERNEL_SYMBOLS = {
-    "mixdec": "mixdec_kernel", "fastfir": "fastfir_kernel",
+    "mixdec": r"mixdec_kernel<\d+, [01], float>",
+    "mixdec_int16": r"mixdec_kernel<\d+, 2, short>",
+    "fastfir": "fastfir_kernel",
     "scan_plain": "affine_scan_kernel",
     "scan_solve": "solve_kernel|solve_one_kernel|solve_rows_kernel",
     "hang_solve": "hang_kernel|hang_rows_kernel", "biquad": "biquad_kernel",
@@ -2259,12 +2322,21 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
     outputs, carries and counts bitwise equal; one replay under the
     profiler with no host read, one graph launch, and the card running
     each kernel as many times as the graph counts a replay (the kernel
-    events by name); the step's ms both ways.  Returns the graphed run's
-    counts."""
+    events by name); the step's ms both ways.  A path whose label ends in
+    " int16" feeds the graph the blocks rounded to int16 planes (an int16
+    static block, K1's int16 route) and the eager step their float32 cast
+    (K1's float route): the same bits, K1's launches counted under the
+    other route.  Returns the graphed run's counts."""
     ratio = cfg.output_rate / cfg.audio_rate
     ppm = 50e-6 if label == "usb ratelock" else 0.0
+    wire = label.endswith(" int16")
     blocks = [(b.real.contiguous(), b.imag.contiguous()) for b in path_blocks(
         kind, cfg, gen, stim, GRAPH_BLOCKS + 1 + GRAPH_STEPS)]
+    fed = blocks
+    if wire:
+        fed = [tuple(torch.round(p).to(torch.int16) for p in b)
+               for b in blocks]
+        blocks = [tuple(p.float() for p in b) for b in fed]
     r = make_receiver(kind, cfg, freqs)
     if not r.graphed:
         raise AssertionError(f"graph {label}: the rule leaves it eager")
@@ -2313,11 +2385,18 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
         want_counts = step_counts()
         reset_counts()
         got = []
-        for i, (re, im) in enumerate(blocks[:GRAPH_BLOCKS]):
+        for i, (re, im) in enumerate(fed[:GRAPH_BLOCKS]):
             if i == GRAPH_CHANGE:
                 change_graphed()
             got.append(r.process_planes(re, im))
         got_counts = step_counts()
+        if wire:
+            # K1's launches, counted under the float route's name
+            k1 = got_counts["launches"]
+            if k1["mixdec"] or k1["mixdec_int16"] != GRAPH_BLOCKS:
+                raise AssertionError(f"graph {label}: K1 launches {k1}")
+            got_counts["launches"] = dict(k1, mixdec=k1["mixdec_int16"],
+                                          mixdec_int16=0)
         bad = output_bits(want, got)
         carries = list(zip(stepgraph.walk(state), stepgraph.walk(r.state)))
         bad += [("carry", p) for (p, w), (_, g) in carries
@@ -2328,11 +2407,16 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
                                  f"against {got_counts}")
         re, im = blocks[GRAPH_BLOCKS]
         eager(re, im)
-        ran = replay_check(f"graph {label}", r.process,
-                           torch.complex(re, im), [r._graph.step])
+        if wire:
+            ran = replay_check(f"graph {label}",
+                               lambda x: r.process_planes(*x),
+                               fed[GRAPH_BLOCKS], [r._graph.step])
+        else:
+            ran = replay_check(f"graph {label}", r.process,
+                               torch.complex(re, im), [r._graph.step])
         timed = blocks[GRAPH_BLOCKS + 1:]
         eager_ms = step_ms(eager, timed)
-        graph_ms = step_ms(r.process_planes, timed)
+        graph_ms = step_ms(r.process_planes, fed[GRAPH_BLOCKS + 1:])
     tiers = {k: v for k, v in {**{f"fm_{t}": n for t, n in
                                   got_counts["fm"].items()},
                                **{f"sam_{t}": n for t, n in
@@ -2633,12 +2717,14 @@ def graph_pipelined(gen, gpu_label: str) -> dict:
     return out
 
 
-def check_graph(gen, gpu_label: str, gen_entries) -> dict:
+def check_graph(gen, gpu_label: str, gen_entries, gen_wire) -> dict:
     """Every path of ``graph_specs`` (``graph_path``); the card must have
     decided each kind of block: an AGC fallback (N1), K7's chunked and
     scan tiers, K8's scan tier.  Then, on inputs of ``gen_entries``, the
     flagship and full-width FM with probes on (``graph_path``: the taps
-    bitwise too), the diversity receivers, the time shard and the
+    bitwise too), on inputs of ``gen_wire`` the flagship, the 64-channel
+    bank and the stacked pair fed int16 planes (``graph_path``'s " int16"
+    paths), then the diversity receivers, the time shard and the
     pipeline (``graph_entry``).  Returns the graphed runs' launches."""
     total = dict.fromkeys(KERNELS, 0)
     seen = {"fallbacks": 0, "fm_chunked": 0, "fm_scan": 0, "sam_scan": 0}
@@ -2650,6 +2736,9 @@ def check_graph(gen, gpu_label: str, gen_entries) -> dict:
                gen_entries),
               (("fm probes", "single", fm_cfg, None,
                 dict(carriers=(), noise_db=-60.0), None), gen_entries)]
+    wired = {"flagship usb", "bank usb 64ch", "stacked usb 2ch agc fallback"}
+    specs += [((label + " int16",) + spec[1:], gen_wire)
+              for spec in graph_specs() if (label := spec[0]) in wired]
     for (label, kind, cfg, freqs, stim, iters), g in specs:
         counts = graph_path(label, kind, cfg, freqs, stim, iters, g,
                             gpu_label)
@@ -2934,7 +3023,8 @@ def check_session(gpu_label: str, periods: int = resampler.SINC_PERIODS,
     if devices != {"cuda"}:
         raise AssertionError(f"session tensors on {devices}")
     want = set().union(*(routed_kernels(dataclasses.replace(cfg, mode=mode),
-                                        False, sess.receiver.params)
+                                        False, sess.receiver.params,
+                                        wire=True)
                          for mode, _ in walk))
     check_routed("session", launches, want)
     return launches
@@ -3158,7 +3248,8 @@ def check_session_probes(gpu_label: str) -> dict:
     if off is not None or sess.cfg.probes:
         raise AssertionError("session probe scope: off left probes on")
     want = set().union(*(routed_kernels(dataclasses.replace(cfg, mode=mode),
-                                        False, sess.receiver.params)
+                                        False, sess.receiver.params,
+                                        wire=True)
                          for mode in ("usb", "fm")))
     check_routed("session probe scope", launches, want)
 
@@ -4523,7 +4614,8 @@ def bench_row_check(label: str, res: dict, cfg, bank: bool, ms_key: str,
         raise AssertionError(f"{label}: {res['error']}")
     params = rx.init(cfg, "cuda")[0]
     check_routed(label, res["launches"],
-                 routed_kernels(cfg, bank, params, res))
+                 routed_kernels(cfg, bank, params, res,
+                                res.get("wire") == "int16-planes"))
     ms, ev = res[ms_key], res["event_" + ms_key]
     if not (0 < ev <= ms and math.isfinite(ms)):
         raise AssertionError(f"{label}: wall {ms} ms against event {ev} ms")
@@ -4651,6 +4743,14 @@ def main() -> int:
     check_mixdec(gen, results, 250e3, " D=4", n=262_144)
     check_mixdec(gen, results, 20e6, " D=256")
     check_mixdec_bank(gen)
+    gen_k1 = torch.Generator(device="cuda")          # K1's int16 route
+    gen_k1.manual_seed(SEED + 17)
+    check_mixdec(gen_k1, results, 2e6, "", layout="int16", gpu_label=smi)
+    check_mixdec(gen_k1, results, 2e6, " session block", n=32_768,
+                 layout="int16", gpu_label=smi)
+    check_mixdec(gen_k1, results, 2e6, " unaligned", layout="int16 unaligned",
+                 gpu_label=smi)
+    check_mixdec_bank(gen_k1, wire=True, gpu_label=smi)
     check_fastfir(gen, results)
     check_fastfir_batch(gen, results)
     check_scans(gen, results, gen_new)
@@ -4678,7 +4778,9 @@ def main() -> int:
     gen_graph.manual_seed(SEED + 12)
     gen_entries = torch.Generator(device="cuda")     # the graphed entries'
     gen_entries.manual_seed(SEED + 15)
-    for k, v in check_graph(gen_graph, smi, gen_entries).items():
+    gen_wire = torch.Generator(device="cuda")        # the int16 paths'
+    gen_wire.manual_seed(SEED + 16)
+    for k, v in check_graph(gen_graph, smi, gen_entries, gen_wire).items():
         launches[k] += v
     for k, v in check_graph_rule(gen_graph, smi).items():
         launches[k] += v

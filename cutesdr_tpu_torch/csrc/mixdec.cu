@@ -14,7 +14,8 @@
 // StackedReceiver).  One stream is C = 1.
 //
 // Bound on the H100: bytes (the flagship reads 67 MB of float32 planes per
-// step, 20 us at 3.35 TB/s), with the FIR's float32 FMAs close behind
+// step, 20 us at 3.35 TB/s; 34 MB as int16 planes, 10 us), with the FIR's
+// float32 FMAs close behind
 // (~0.57 G at D=32, L=1,063: 17 us at 67 TFLOP/s) and one accurate sincosf
 // per input sample beside them.  So the loads must overlap the arithmetic,
 // and the sum must run near the FMA rate, which a per-tap shared-memory
@@ -40,6 +41,15 @@
 //   in registers from chunk to chunk;
 // * interleaved input (im = re + 1 float, both strides 2: the complex iq
 //   views the receiver passes) is copied as one float2 per sample;
+// * int16 planes (the radio's wire values, ``cutesdr_mixdec_i16``) are
+//   staged as int16: a thread's two block samples as one 4-byte copy a
+//   plane into the pair's slot, widened to float in the mix pass beside
+//   the sincosf and the DC cal.  The cast is exact, so the mixed window,
+//   and every output, is bitwise the float path's on the cast planes; the
+//   block is read at half the bytes.  A pair that reaches into the tail or
+//   past the window, or whose samples are not 4-byte aligned, takes one
+//   sample at a time (the tail's float2 by cp.async, the int16 by plain
+//   loads);
 // * the tile and the block size come from the wrapper's per-call plan
 //   (kernels/mixdec.py:launch_plan), which spreads small calls over many
 //   SMs and keeps the window overlap of the large ones near 13%.  This
@@ -53,6 +63,10 @@ namespace cutesdr {
 
 constexpr int MIX_R = 8;            // outputs per thread
 constexpr int MIX_MAX_THREADS = 512;
+
+// input layouts: float planes of any stride, interleaved float2 (the
+// complex iq views), int16 planes
+constexpr int IN_STRIDED = 0, IN_IL = 1, IN_I16 = 2;
 
 // asynchronous global -> shared copies of 16, 8 and 4 bytes (cp.async)
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
@@ -174,15 +188,16 @@ __device__ __forceinline__ void group_write(float (&acc)[2 * MIX_R],
     }
 }
 
-// P: lanes per output group (min(D, 32)); IL: interleaved float2 input.
-// incs: one uint32 increment per channel (held as int64), or null for one
-// stream, whose increment is inc0.  With one chunk of phases a warp walks
-// the tile's groups in turn; with several (D > 32) each warp owns one
-// group (tile_out = R * warps) and keeps its sums in registers from chunk
-// to chunk.
-template <int P, bool IL>
+// P: lanes per output group (min(D, 32)); IN: the input layout (IN_*),
+// T its element type (float, or short for IN_I16).  incs: one uint32
+// increment per channel (held as int64), or null for one stream, whose
+// increment is inc0.  With one chunk of phases a warp walks the tile's
+// groups in turn; with several (D > 32) each warp owns one group
+// (tile_out = R * warps) and keeps its sums in registers from chunk to
+// chunk.
+template <int P, int IN, typename T>
 __global__ void __launch_bounds__(MIX_MAX_THREADS, 2)
-mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
+mixdec_kernel(const T* __restrict__ re, const T* __restrict__ im,
               long long re_cstride, long long im_cstride,
               long long re_stride, long long im_stride,
               const float2* __restrict__ tail, int tail_len,
@@ -216,6 +231,14 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
     const unsigned int base = (unsigned int)phase[ch];
     const unsigned int inc = incs ? (unsigned int)incs[ch] : inc0;
     const float2 d = dc[ch];
+    // int16 planes: a pair's samples (i even, so k = zi - tail_len has the
+    // parity of z0 - tail_len throughout) are one aligned 4-byte word a
+    // plane where the planes are dense and so aligned
+    const bool words =
+        IN == IN_I16 && re_stride == 1 && im_stride == 1 &&
+        (((reinterpret_cast<uintptr_t>(re) >> 1) + (z0 - tail_len)) & 1) ==
+            0 &&
+        (((reinterpret_cast<uintptr_t>(im) >> 1) + (z0 - tail_len)) & 1) == 0;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int sub = lane / P, pl = lane % P;
     const int groups = (outs + MIX_R - 1) / MIX_R;
@@ -243,10 +266,20 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
             float2* dst = win + e + (e >> (LG_P + LG_R)) * PAD;
             const long long zi = z0 + i;
             const bool two = e + 1 < nwin;
+            if constexpr (IN == IN_I16) {
+                if (words && zi >= tail_len && two && i + 1 < wlen) {
+                    // re[k..k+1] and im[k..k+1] into the pair's slot
+                    const long long k = zi - tail_len;
+                    cp_async4(&dst->x, re + k);
+                    cp_async4(&dst->y, im + k);
+                    continue;
+                }
+            }
             const float2* src = zi < tail_len
                 ? tail + zi
-                : IL ? reinterpret_cast<const float2*>(re) + (zi - tail_len)
-                     : nullptr;
+                : IN == IN_IL
+                    ? reinterpret_cast<const float2*>(re) + (zi - tail_len)
+                    : nullptr;
             if (i + 1 < wlen && two && src &&
                 (zi + 1 < tail_len) == (zi < tail_len) &&
                 ((reinterpret_cast<uintptr_t>(src) |
@@ -259,13 +292,19 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
                     dst[h] = make_float2(0.f, 0.f);
                 } else if (zi + h < tail_len) {
                     cp_async8(dst + h, tail + zi + h);
-                } else if (IL) {
+                } else if (IN == IN_IL) {
                     cp_async8(dst + h, reinterpret_cast<const float2*>(re)
                                            + (zi + h - tail_len));
+                } else if (IN == IN_I16) {
+                    const long long k = zi + h - tail_len;
+                    dst[h] = make_float2((float)re[k * re_stride],
+                                         (float)im[k * im_stride]);
                 } else {
                     const long long k = zi + h - tail_len;
-                    cp_async4(&dst[h].x, re + k * re_stride);
-                    cp_async4(&dst[h].y, im + k * im_stride);
+                    cp_async4(&dst[h].x, reinterpret_cast<const float*>(re)
+                                             + k * re_stride);
+                    cp_async4(&dst[h].y, reinterpret_cast<const float*>(im)
+                                             + k * im_stride);
                 }
             }
         }
@@ -275,15 +314,32 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
         for (int e = 2 * threadIdx.x; e < nwin; e += 2 * blockDim.x) {
             const int i = (e >> LG_P) * dec + p0 + (e & (P - 1));
             float2* dst = win + e + (e >> (LG_P + LG_R)) * PAD;
+            float2 wire[2];
+            bool staged16 = false;
+            if constexpr (IN == IN_I16) {
+                staged16 = words && z0 + i >= tail_len && e + 1 < nwin &&
+                           i + 1 < wlen;
+                if (staged16) {
+                    // the low halves are sample i, the high ones i + 1
+                    const int2 w = *reinterpret_cast<const int2*>(dst);
+                    wire[0] = make_float2((float)(short)w.x, (float)(short)w.y);
+                    wire[1] = make_float2((float)(short)(w.x >> 16),
+                                          (float)(short)(w.y >> 16));
+                }
+            }
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 if (i + h >= wlen || e + h >= nwin) break;
                 float sn, cs;
                 sincosf((float)(ph0 + (unsigned int)(i + h) * inc) * scale,
                         &sn, &cs);
-                const float2 x = dst[h];
+                const float2 x = staged16 ? wire[h] : dst[h];
                 const float xr = x.x - d.x, xi = x.y - d.y;
-                dst[h] = make_float2(xr * cs - xi * sn, xr * sn + xi * cs);
+                // the roundings written out, so that the compiler fuses
+                // them alike in every layout's kernel (each component's
+                // first product fused, as the float path always compiled)
+                dst[h] = make_float2(__fmaf_rn(xr, cs, -__fmul_rn(xi, sn)),
+                                     __fmaf_rn(xr, sn, __fmul_rn(xi, cs)));
             }
         }
         __syncthreads();
@@ -304,15 +360,15 @@ mixdec_kernel(const float* __restrict__ re, const float* __restrict__ im,
     if (nchunk > 1) group_write<P>(acc, y, warp, pl, outs);
 }
 
-template <int P>
-int launch(bool il, dim3 grid, int threads, size_t smem, cudaStream_t st,
-           const float* re, const float* im, long long re_cstride,
-           long long im_cstride, long long re_stride, long long im_stride,
-           const float2* tail, int tail_len, long long tail_cstride,
-           const float* taps, int ntaps, const float2* dc,
-           const long long* phase, const long long* incs, unsigned int inc0,
-           float scale, int dec, int n_out, int tile_out, int K, float2* y) {
-    auto kern = il ? mixdec_kernel<P, true> : mixdec_kernel<P, false>;
+template <int P, int IN, typename T>
+int launch(dim3 grid, int threads, size_t smem, cudaStream_t st, const T* re,
+           const T* im, long long re_cstride, long long im_cstride,
+           long long re_stride, long long im_stride, const float2* tail,
+           int tail_len, long long tail_cstride, const float* taps,
+           int ntaps, const float2* dc, const long long* phase,
+           const long long* incs, unsigned int inc0, float scale, int dec,
+           int n_out, int tile_out, int K, float2* y) {
+    auto kern = mixdec_kernel<P, IN, T>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -323,23 +379,19 @@ int launch(bool il, dim3 grid, int threads, size_t smem, cudaStream_t st,
     return (int)cudaGetLastError();
 }
 
-}  // namespace cutesdr
-
-using namespace cutesdr;
-
-// tile_out and threads come from the wrapper's plan: tile_out a multiple
-// of R * threads/32 * 32/P, and for D > 32 exactly R * threads/32 (a group
-// per warp); dec must be a power of two.
-CUTESDR_API int cutesdr_mixdec(const float* re, const float* im,
-                               long long re_cstride, long long im_cstride,
-                               long long re_stride, long long im_stride,
-                               const void* tail, int tail_len,
-                               long long tail_cstride, const float* taps,
-                               int ntaps, const void* dc,
-                               const long long* phase, const long long* incs,
-                               unsigned int inc0, float scale, int dec,
-                               int n_out, int n_ch, int tile_out, int threads,
-                               void* y, void* stream) {
+// One call of either entry: checks the plan (tile_out and threads come
+// from the wrapper's: tile_out a multiple of R * threads/32 * 32/P, and
+// for D > 32 exactly R * threads/32, a group per warp; dec a power of
+// two), sizes shared memory and launches the layout's kernel.
+template <int IN, typename T>
+int mixdec_call(const T* re, const T* im, long long re_cstride,
+                long long im_cstride, long long re_stride,
+                long long im_stride, const void* tail, int tail_len,
+                long long tail_cstride, const float* taps, int ntaps,
+                const void* dc, const long long* phase,
+                const long long* incs, unsigned int inc0, float scale,
+                int dec, int n_out, int n_ch, int tile_out, int threads,
+                void* y, void* stream) {
     if (n_out <= 0 || n_ch <= 0) return 0;
     const int P = dec < 32 ? dec : 32;
     const int unit = MIX_R * (threads / 32) * (32 / P);
@@ -351,24 +403,63 @@ CUTESDR_API int cutesdr_mixdec(const float* re, const float* im,
     const int row = MIX_R * P + (P < 32 ? P : 0);
     const size_t smem = ((size_t)((tile_out + K) / MIX_R + 1) * row
                          + (K * P + 1) / 2) * sizeof(float2);
-    // one float2 copy per sample where im is re + 1 float, both stride 2
-    const bool il = im == re + 1 && re_stride == 2 && im_stride == 2 &&
-                    re_cstride == im_cstride && re_cstride % 2 == 0 &&
-                    reinterpret_cast<uintptr_t>(re) % 8 == 0;
     const dim3 grid((n_out + tile_out - 1) / tile_out, n_ch);
     cudaStream_t st = (cudaStream_t)stream;
 #define CUTESDR_MIX_ARGS                                                    \
-    il, grid, threads, smem, st, re, im, re_cstride, im_cstride, re_stride, \
+    grid, threads, smem, st, re, im, re_cstride, im_cstride, re_stride,     \
         im_stride, (const float2*)tail, tail_len, tail_cstride, taps, ntaps,\
         (const float2*)dc, phase, incs, inc0, scale, dec, n_out, tile_out,  \
         K, (float2*)y
     switch (P) {
-        case 1: return launch<1>(CUTESDR_MIX_ARGS);
-        case 2: return launch<2>(CUTESDR_MIX_ARGS);
-        case 4: return launch<4>(CUTESDR_MIX_ARGS);
-        case 8: return launch<8>(CUTESDR_MIX_ARGS);
-        case 16: return launch<16>(CUTESDR_MIX_ARGS);
-        default: return launch<32>(CUTESDR_MIX_ARGS);
+        case 1: return launch<1, IN>(CUTESDR_MIX_ARGS);
+        case 2: return launch<2, IN>(CUTESDR_MIX_ARGS);
+        case 4: return launch<4, IN>(CUTESDR_MIX_ARGS);
+        case 8: return launch<8, IN>(CUTESDR_MIX_ARGS);
+        case 16: return launch<16, IN>(CUTESDR_MIX_ARGS);
+        default: return launch<32, IN>(CUTESDR_MIX_ARGS);
     }
 #undef CUTESDR_MIX_ARGS
+}
+
+}  // namespace cutesdr
+
+using namespace cutesdr;
+
+// float32 planes (the complex iq views, or any strides)
+CUTESDR_API int cutesdr_mixdec(const float* re, const float* im,
+                               long long re_cstride, long long im_cstride,
+                               long long re_stride, long long im_stride,
+                               const void* tail, int tail_len,
+                               long long tail_cstride, const float* taps,
+                               int ntaps, const void* dc,
+                               const long long* phase, const long long* incs,
+                               unsigned int inc0, float scale, int dec,
+                               int n_out, int n_ch, int tile_out, int threads,
+                               void* y, void* stream) {
+    // one float2 copy per sample where im is re + 1 float, both stride 2
+    const bool il = im == re + 1 && re_stride == 2 && im_stride == 2 &&
+                    re_cstride == im_cstride && re_cstride % 2 == 0 &&
+                    reinterpret_cast<uintptr_t>(re) % 8 == 0;
+    return (il ? mixdec_call<IN_IL, float> : mixdec_call<IN_STRIDED, float>)(
+        re, im, re_cstride, im_cstride, re_stride, im_stride, tail, tail_len,
+        tail_cstride, taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out,
+        n_ch, tile_out, threads, y, stream);
+}
+
+// int16 planes (the radio's wire values), the same arguments
+CUTESDR_API int cutesdr_mixdec_i16(const short* re, const short* im,
+                                   long long re_cstride, long long im_cstride,
+                                   long long re_stride, long long im_stride,
+                                   const void* tail, int tail_len,
+                                   long long tail_cstride, const float* taps,
+                                   int ntaps, const void* dc,
+                                   const long long* phase,
+                                   const long long* incs, unsigned int inc0,
+                                   float scale, int dec, int n_out, int n_ch,
+                                   int tile_out, int threads, void* y,
+                                   void* stream) {
+    return mixdec_call<IN_I16, short>(
+        re, im, re_cstride, im_cstride, re_stride, im_stride, tail, tail_len,
+        tail_cstride, taps, ntaps, dc, phase, incs, inc0, scale, dec, n_out,
+        n_ch, tile_out, threads, y, stream);
 }

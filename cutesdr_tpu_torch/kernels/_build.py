@@ -50,6 +50,9 @@ SIGNATURES = {
     # n_ch, tile_out, threads, y, stream
     "cutesdr_mixdec": [P, P, I64, I64, I64, I64, P, I32, I64, P, I32, P, P,
                        P, U32, F32, I32, I32, I32, I32, I32, P, P],
+    # the same, over int16 planes
+    "cutesdr_mixdec_i16": [P, P, I64, I64, I64, I64, P, I32, I64, P, I32, P,
+                           P, P, U32, F32, I32, I32, I32, I32, I32, P, P],
     # tail, block, h, twiddles, y, nfft, ntaps, n_frames, n_ch,
     # frames_per_block, tail_cstride, block_cstride, h_cstride, y_cstride,
     # stream

@@ -19,6 +19,12 @@ A channel bank adds a leading channel axis to the carry, the DC cal and
 the increments (a [C] int64 tensor of uint32 values); the composed taps
 are shared.  Its input is one block for every channel (shared) or one row
 per channel (stacked), and one launch serves the whole bank.
+
+The planes are float32 or int16 (the radio's wire values, in the same
++-32767 convention, so a cast is exact).  The kernel reads int16 planes
+as they are, at half the bytes (``LAUNCHES["mixdec_int16"]``), and gives
+the same bits as on the planes cast to float32; the plain version and the
+carry's raw tail cast them.
 """
 
 from __future__ import annotations
@@ -168,15 +174,23 @@ def launch_plan(n_out: int, n_ch: int, dec: int, ntaps: int,
     return LaunchPlan(t, threads, smem, -(-n_out // t))
 
 
+def _complex(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """The complex64 samples of two float32 or int16 planes (int16 ones
+    stacked, then cast: exact)."""
+    if re.dtype == RDTYPE:
+        return torch.complex(re, im)
+    return torch.view_as_complex(torch.stack([re, im], -1).to(RDTYPE))
+
+
 def _new_carry(params: MixDecParams, carry: MixDecCarry, re: torch.Tensor,
                im: torch.Tensor) -> MixDecCarry:
     n, t = re.shape[-1], carry.raw_tail.shape[-1]
     rows = carry.raw_tail.shape[:-1]
     if n >= t:
-        tail = torch.complex(re[..., n - t:], im[..., n - t:])
+        tail = _complex(re[..., n - t:], im[..., n - t:])
         tail = tail.expand(rows + (t,)).contiguous()
     else:
-        x = torch.complex(re, im).expand(rows + (n,))
+        x = _complex(re, im).expand(rows + (n,))
         tail = torch.cat([carry.raw_tail, x], -1)[..., n:]
     return MixDecCarry(raw_tail=tail,
                        phase=nco.advance(carry.phase, params.phase_inc, n))
@@ -190,7 +204,7 @@ def process_planes_plain(plan: DecimationPlan, params: MixDecParams,
     with the tail's phases back-dated, then the composed decimator."""
     tail = read_tail(plan, params, carry)
     t = tail.shape[-1]
-    x = torch.complex(re, im).expand(tail.shape[:-1] + re.shape[-1:])
+    x = _complex(re, im).expand(tail.shape[:-1] + re.shape[-1:])
     z = torch.cat([tail, x], -1) - _column(dc.to(CDTYPE))
     k = torch.arange(-t, re.shape[-1], dtype=torch.int64, device=re.device)
     mixed = z * nco.oscillator(nco.accumulator(
@@ -204,11 +218,11 @@ def process_planes_plain(plan: DecimationPlan, params: MixDecParams,
 def process_planes(plan: DecimationPlan, params: MixDecParams,
                    carry: MixDecCarry, re: torch.Tensor, im: torch.Tensor,
                    dc: torch.Tensor) -> tuple[MixDecCarry, torch.Tensor]:
-    """One block given as f32 re/im planes (strided views of a complex
-    tensor are fine) plus the complex NCO-spur DC offset.  Returns the
-    new carry and the len(re)/D decimated complex samples.  For a bank
-    (a [C, t] carry) the planes are [n] (shared) or [C, n] and the result
-    is [C, n/D]."""
+    """One block given as float32 re/im planes (strided views of a
+    complex tensor are fine) or int16 planes, plus the complex NCO-spur DC
+    offset.  Returns the new carry and the len(re)/D decimated complex
+    samples.  For a bank (a [C, t] carry) the planes are [n] (shared) or
+    [C, n] and the result is [C, n/D]."""
     if _build.on_cpu(re, im, carry.raw_tail):
         return process_planes_plain(plan, params, carry, re, im, dc)
     n = re.shape[-1]
@@ -221,9 +235,10 @@ def process_planes(plan: DecimationPlan, params: MixDecParams,
     bank = carry.raw_tail.dim() == 2
     C = carry.raw_tail.shape[0] if bank else 1
     rows = C if bank else None
+    wire = re.dtype == torch.int16
     for name, a in (("re", re), ("im", im)):
-        _build.require(a, name, RDTYPE, n, contiguous=False,
-                       rows=rows if a.dim() == 2 else None)
+        _build.require(a, name, torch.int16 if wire else RDTYPE, n,
+                       contiguous=False, rows=rows if a.dim() == 2 else None)
     _build.require(carry.raw_tail, "raw_tail", CDTYPE, rows=rows)
     _build.require(params.h_eq, "h_eq", RDTYPE, L)
     _build.require(carry.phase.reshape(-1), "phase", torch.int64, C)
@@ -241,11 +256,13 @@ def process_planes(plan: DecimationPlan, params: MixDecParams,
     plan_ = launch_plan(n // D, C, D, L, _build.sm_count(re.device))
     cstride = lambda a: a.stride(0) if a.dim() == 2 else 0
     lib = _build.library()
-    _build.check(lib.cutesdr_mixdec(
+    name = "mixdec_int16" if wire else "mixdec"
+    call = lib.cutesdr_mixdec_i16 if wire else lib.cutesdr_mixdec
+    _build.check(call(
         re.data_ptr(), im.data_ptr(), cstride(re), cstride(im),
         re.stride(-1), im.stride(-1), tail.data_ptr(), t, cstride(tail),
         params.taps.data_ptr(), L, dc.data_ptr(), carry.phase.data_ptr(), incs_ptr,
         inc0, nco.PHASE_SCALE, D, n // D, C, plan_.tile_out, plan_.threads,
-        y.data_ptr(), _build.stream(re)), "mixdec")
-    LAUNCHES["mixdec"] += 1
+        y.data_ptr(), _build.stream(re)), name)
+    LAUNCHES[name] += 1
     return _new_carry(params, carry, re, im), y

@@ -591,8 +591,8 @@ class ReceiverSession(_LiveSession):
 
     def pump_planes(self, re, im) -> int:
         """High-rate ingest: separate re/im planes, int16 straight off the
-        radio's 16-bit wire format (half the upload bytes; cast to float32
-        on the card) or float32.  Uploads run on the ingest thread, double
+        radio's 16-bit wire format (half the upload bytes; K1 reads them
+        on the card as they are) or float32.  Uploads run on the ingest thread, double
         buffered against dispatch; the display FFT is fed at the
         throttle's sample granularity without copying skipped samples."""
         if not self.running:

@@ -169,7 +169,7 @@ class _Bank(rx.GraphedStepper):
 
     def process_planes(self, re, im) -> rx.StepOutput:
         """The block as float32 or int16 planes (the radio's 16-bit wire
-        format, cast on the device)."""
+        format, which K1 reads as it is)."""
         if self.parts is not None:
             return self._split("process_planes", re, im)
         return super().process_planes(re, im)

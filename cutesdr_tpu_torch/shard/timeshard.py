@@ -106,11 +106,11 @@ def _halos(ex, tails: list, carry_tail: torch.Tensor) -> list:
 def front_end_sharded(cfg: rx.ReceiverConfig, ex, params: list,
                       carry: TimeShardCarry, shards: list, probes=None):
     """The front end of this process's shards.  ``shards``: one (re, im)
-    pair of float32 planes per device of ``ex.devices``; ``params``: the
-    receiver's params on each of them.  Returns the whole filtered
-    stream on ``ex.home`` and the carry of the next superblock (its
-    ``nco_base`` not yet advanced).  With a probes dict the p7 (blanker),
-    p1 (decimated) and p2 (filtered) taps are gathered whole."""
+    pair of float32 or int16 planes per device of ``ex.devices``;
+    ``params``: the receiver's params on each of them.  Returns the whole
+    filtered stream on ``ex.home`` and the carry of the next superblock
+    (its ``nco_base`` not yet advanced).  With a probes dict the p7
+    (blanker), p1 (decimated) and p2 (filtered) taps are gathered whole."""
     S = shards[0][0].shape[-1]
     need = max(carry.in_tail.shape[-1],
                0 if carry.nb_tail is None else carry.nb_tail.shape[-1])
@@ -121,7 +121,8 @@ def front_end_sharded(cfg: rx.ReceiverConfig, ex, params: list,
     if cfg.nb_on:
         nb = rx._nb_cfg(cfg)
         h = nb_tail.shape[-1]
-        xs = [torch.complex(re, im) for re, im in shards]
+        xs = [torch.complex(re.to(RDTYPE), im.to(RDTYPE))
+              for re, im in shards]
         tails = [x[S - h:] for x in xs]
         blanked = [noiseblanker.process_with_history(
             nb, torch.cat([halo, x], -1), S)
@@ -132,7 +133,8 @@ def front_end_sharded(cfg: rx.ReceiverConfig, ex, params: list,
             probes["p7_blanker"] = ex.gather(blanked)
 
     h = carry.in_tail.shape[-1]
-    tails = [torch.complex(re[S - h:], im[S - h:]) for re, im in shards]
+    tails = [torch.complex(re[S - h:].to(RDTYPE), im[S - h:].to(RDTYPE))
+             for re, im in shards]
     ys = []
     for i, ((re, im), halo, p) in enumerate(zip(
             shards, _halos(ex, tails, carry.in_tail), params)):
@@ -314,17 +316,17 @@ class ShardedReceiver(rx.GraphedStepper):
         return self._eager_shards([(x.real, x.imag) for x in xs])
 
     def process_planes(self, re, im) -> rx.StepOutput:
-        """One superblock as float32 or int16 planes (int16 is cast on the
-        device, exactly)."""
+        """One superblock as float32 or int16 planes (each shard's K1 reads
+        int16 planes as they are)."""
         re, im = torch.as_tensor(re), torch.as_tensor(im)
         slices = self._local_slices(re.shape[-1])
         if self.graphed:
-            return self._graph_step().run_planes(self._to_device(re),
-                                                 self._to_device(im))
-        planes = []
-        for s, d in zip(slices, self.exchange.devices):
-            planes.append((re[s].to(d).to(RDTYPE), im[s].to(d).to(RDTYPE)))
-        return self._eager_shards(planes)
+            return self._run_planes(self._to_device(re), self._to_device(im))
+        if not self._wire(re, im):
+            re, im = re.to(RDTYPE), im.to(RDTYPE)
+        return self._eager_shards([(re[s].to(d), im[s].to(d))
+                                   for s, d in zip(slices,
+                                                   self.exchange.devices)])
 
     def _eager_shards(self, planes: list) -> rx.StepOutput:
         self._state, out = sharded_step(self.cfg, self.exchange,

@@ -294,8 +294,9 @@ class _EagerGraph:
 
     made = []
 
-    def __init__(self, step, params, state, block, device, planes=True):
-        self.step, self.params = step, params
+    def __init__(self, step, params, state, block, device, planes=True,
+                 wire=False):
+        self.step, self.params, self.wire = step, params, wire
         self.state = stepgraph.clone(state)
         _EagerGraph.made.append(self)
 
@@ -303,7 +304,12 @@ class _EagerGraph:
         return self.run_planes(iq.real, iq.imag)
 
     def run_planes(self, re, im):
-        new, out = self.step(self.params, self.state, re.float(), im.float())
+        # a wire graph's static block holds the int16 planes as they are,
+        # a complex one their float32 cast
+        assert self.wire == (re.dtype == torch.int16)
+        if not self.wire:
+            re, im = re.float(), im.float()
+        new, out = self.step(self.params, self.state, re, im)
         stepgraph._copy_into(self.state, new)
         return stepgraph.clone(out)
 
@@ -319,22 +325,47 @@ def graphed_cpu(monkeypatch):
     return _EagerGraph.made
 
 
-@pytest.mark.parametrize("mode,kw", [
-    ("usb", {}), ("fm", {}), ("sam", dict(stereo=True, nb_on=True)),
-    ("am", dict(audio_rate=None))])
-def test_receiver_graph_path_matches_eager(graphed_cpu, mode, kw):
-    """Six blocks through ``Receiver``'s graph path against an eager
-    receiver, bit for bit: a retune, a volume change, a new filter, a new
-    DC cal and a ratio change on block 3 reach the captured params in
-    place (one capture); an AGC change on block 5 captures a second one;
-    outputs stay valid after the next block; ``state`` reads the static
-    buffers' values, and assigning it restarts the stream."""
+def _wire_block(rng, n, scale):
+    """A complex64 block of whole int16 values (no -0.0, which no int16
+    casts to)."""
+    return (np.round(_cplx(rng, n, scale)) + 0.0).astype(np.complex64)
+
+
+def _feed(r, x, fmt):
+    """``x`` into a receiver as ``fmt``: the complex block, its float32
+    planes or its int16 planes."""
+    if fmt == "complex64":
+        return r.process(x)
+    dtype = np.float32 if fmt == "float32" else np.int16
+    return r.process_planes(x.real.astype(dtype), x.imag.astype(dtype))
+
+
+_GRAPH_MODES = [("usb", {}), ("fm", {}),
+                ("sam", dict(stereo=True, nb_on=True)),
+                ("am", dict(audio_rate=None))]
+
+
+@pytest.mark.parametrize("mode,kw,fmt", [
+    pytest.param(mode, kw, fmt, id=f"{mode}-kw{i}" + (
+        "" if fmt == "complex64" else f"-{fmt}"))
+    for i, (mode, kw) in enumerate(_GRAPH_MODES)
+    for fmt in ("complex64", "float32", "int16")])
+def test_receiver_graph_path_matches_eager(graphed_cpu, mode, kw, fmt):
+    """Six blocks through ``Receiver``'s graph path, fed as a complex
+    block, float32 planes or int16 planes (the blanker on in SAM), against
+    an eager receiver on the same values as a complex64 block, bit for
+    bit: a retune, a volume change, a new filter, a new DC cal and a ratio
+    change on block 3 reach the captured params in place (one capture);
+    an AGC change on block 5 captures a second one; outputs stay valid
+    after the next block; ``state`` reads the static buffers' values, and
+    assigning it restarts the stream."""
     cfg = rx.ReceiverConfig(mode=mode, frames_per_block=2, **kw)
     g, e = rx.Receiver(cfg, "cpu"), rx.Receiver(cfg, "cpu")
     monkey_rule = rx.graph_rule
     assert g.graphed and monkey_rule(cfg, "cpu")
     rng = np.random.default_rng(12)
-    blocks = [_cplx(rng, cfg.block_size, 500.0) for _ in range(6)]
+    block = _wire_block if fmt == "int16" else _cplx
+    blocks = [block(rng, cfg.block_size, 500.0) for _ in range(6)]
     fresh = g.state
     outs, kept = [], []
     for i, x in enumerate(blocks):
@@ -347,7 +378,7 @@ def test_receiver_graph_path_matches_eager(graphed_cpu, mode, kw):
                 r.set_resample_ratio(cfg.output_rate / 48000.0 * 1.0001)
             if i == 5:
                 r.set_agc(thresh_db=-90.0)
-        og = g.process(x)
+        og = _feed(g, x, fmt)
         oe = rx.receiver_step(cfg, e.params, e.state, _t(x))
         e.state = oe[0]
         oe = oe[1]
@@ -357,14 +388,40 @@ def test_receiver_graph_path_matches_eager(graphed_cpu, mode, kw):
             assert _bits_equal(getattr(og, f), getattr(oe, f)), (i, f)
     assert all(torch.equal(o.audio, k) for o, k in zip(outs, kept))
     assert len(graphed_cpu) == 2          # the AGC change: a second graph
+    assert all(m.wire == (fmt == "int16") for m in graphed_cpu)
     for (p, a), (_, b) in zip(stepgraph.walk(g.state),
                               stepgraph.walk(e.state)):
         if isinstance(a, torch.Tensor):
             assert _bits_equal(a, b), p
     g.state = fresh
-    again = g.process(blocks[0])
+    again = _feed(g, blocks[0], fmt)
     first = rx.receiver_step(cfg, g.params, fresh, _t(blocks[0]))[1]
     assert _bits_equal(again.audio, first.audio)
+
+
+@pytest.mark.parametrize("mode,kw", [("usb", {}),
+                                     ("am", dict(nb_on=True))])
+def test_graph_input_kind_switch_captures_anew(graphed_cpu, mode, kw):
+    """A receiver fed int16 planes, then float32 planes, then int16
+    again captures a graph at each switch (an int16 static block, then a
+    complex one), carries the state over each time, and stays bit for
+    bit the eager receiver; float32 planes and a complex block share one
+    graph."""
+    cfg = rx.ReceiverConfig(mode=mode, frames_per_block=2, **kw)
+    g, e = rx.Receiver(cfg, "cpu"), rx.Receiver(cfg, "cpu")
+    rng = np.random.default_rng(23)
+    fmts = ["int16", "int16", "float32", "complex64", "int16", "int16"]
+    for fmt in fmts:
+        x = _wire_block(rng, cfg.block_size, 500.0)
+        og = _feed(g, x, fmt)
+        e.state, oe = rx.receiver_step(cfg, e.params, e.state, _t(x))
+        for f in ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db"):
+            assert _bits_equal(getattr(og, f), getattr(oe, f)), (fmt, f)
+    assert [m.wire for m in graphed_cpu] == [True, False, True]
+    for (p, a), (_, b) in zip(stepgraph.walk(g.state),
+                              stepgraph.walk(e.state)):
+        if isinstance(a, torch.Tensor):
+            assert _bits_equal(a, b), p
 
 
 def test_graph_params_follow_a_key_round_trip(graphed_cpu):
@@ -500,6 +557,75 @@ def test_output_clones_and_state_copies():
     stepgraph._copy_into(dst, src)
     assert dst[0].tolist() == [10, 11, 12, 13] and dst[1].tolist() == [
         0, 1, 2, 3]
+
+
+def _out_tree(kind: str):
+    out = rx.StepOutput(audio=torch.arange(6, dtype=torch.float32),
+                        n_audio=torch.tensor(3, dtype=torch.int32),
+                        smeter_ave_db=torch.tensor(-1.5),
+                        smeter_peak_db=torch.tensor(2.0), probes=None)
+    if kind == "probes":
+        return out._replace(probes={"p6": torch.ones(2, 3).t(),
+                                    "taps": {"tier": torch.tensor(1),
+                                             "on": torch.tensor(True),
+                                             "rate": 48000.0}})
+    if kind == "tuple":
+        stereo = torch.arange(10, dtype=torch.float32).view(torch.complex64)
+        return (stereo[::2], stereo.real, None, (torch.ones(0),))
+    if kind == "tensor":
+        return torch.arange(4.0)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["step_output", "probes", "tuple",
+                                  "tensor"])
+def test_packed_outputs_rebuild_the_tree(kind):
+    """A replay's outputs come back as the captured tree built anew over
+    one clone of the packed buffer (``Packed``, ``unflatten`` walked once
+    at the capture): the same types, keys, dtypes, shapes and bits, dense,
+    in memory of their own, the non-tensor leaves kept; the static tree
+    lies in the buffer, each tensor at an ``ALIGN``-byte offset."""
+    out = _out_tree(kind)
+    packed = stepgraph.Packed(out, torch.device("cpu"))
+    base = packed.buf.data_ptr()
+    first, second = packed.fresh(), packed.fresh()
+    walked = list(stepgraph.walk(out))
+    for tree in (packed.static, first, second):
+        again = list(stepgraph.walk(tree))
+        assert type(tree) is type(out)
+        assert [p for p, _ in walked] == [p for p, _ in again]
+        for (_, a), (_, b) in zip(walked, again):
+            if isinstance(a, torch.Tensor):
+                assert _bits_equal(a.contiguous(), b) and b.is_contiguous()
+            else:
+                assert a is b
+    static = stepgraph.tensors(packed.static)
+    assert all(t.untyped_storage().data_ptr() == base
+               and (t.data_ptr() - base) % stepgraph.ALIGN == 0
+               for t in static)
+    ptrs = [{t.untyped_storage().data_ptr() for t in stepgraph.tensors(x)}
+            for x in (first, second)]
+    assert all(len(p) == 1 and base not in p for p in ptrs)
+    assert ptrs[0] != ptrs[1]
+
+
+@pytest.mark.parametrize("mine,theirs,here", [
+    ("cpu", "cpu", True), ("cuda", "cpu", False), ("cuda:1", "cuda:1", True),
+    ("cuda:0", "cuda:1", False), ("cpu", "cuda:0", False)])
+def test_input_already_on_the_device_passes_as_is(mine, theirs, here):
+    """An entry's input already where ``.to(device)`` would put it is
+    taken as it is (the same tensor, as ``.to`` returns it), anything else
+    goes through ``.to``; the device test needs no card where the
+    entry's device has an index or the types differ."""
+    g = object.__new__(rx.GraphedStepper)
+    g.device = torch.device(mine)
+    assert g._here(torch.device(theirs)) == here
+    if mine == "cpu":
+        x = torch.arange(4, dtype=torch.int16)
+        assert g._to_device(x) is x and g._to_device(x, torch.int16) is x
+        cast = g._to_device(x, torch.float32)
+        assert cast.dtype == torch.float32 and torch.equal(cast, x.float())
+        assert g._to_device(np.arange(3)).device == torch.device("cpu")
 
 
 def test_device_counts_and_lookback():

@@ -42,17 +42,23 @@ class _StaticGraph:
 
     made = []
     _fits = stepgraph.StepGraph._fits
+    _planes = stepgraph.StepGraph._planes
+    _copy_planes = stepgraph.StepGraph._copy_planes
+    wire = stepgraph.StepGraph.wire
 
     def __init__(self, step, params, state, block, device, planes=True,
-                 share=None):
+                 share=None, wire=False):
         self.step, self.params, self.planes = step, params, planes
         if isinstance(block, torch.Tensor):
             self.iq = block
         elif share is not None:
             self.iq = share.iq
+        elif wire:
+            self.iq = torch.zeros((2, *block), dtype=torch.int16)
         else:
             self.iq = torch.zeros(block, dtype=CDTYPE)
         self.state = stepgraph.clone(state) if share is None else share.state
+        self._dst = self._planes() if planes else None
         # the capture's outputs: allocated once (here by a run on a copy of
         # the state), rewritten by every replay
         self.out = stepgraph.clone(step(params, stepgraph.clone(self.state),
@@ -60,7 +66,7 @@ class _StaticGraph:
         _StaticGraph.made.append(self)
 
     def _input(self):
-        return (self.iq.real, self.iq.imag) if self.planes else (self.iq,)
+        return self._planes() if self.planes else (self.iq,)
 
     def run(self, iq):
         self._fits(iq)
@@ -69,8 +75,7 @@ class _StaticGraph:
 
     def run_planes(self, re, im):
         self._fits(re, im)
-        self.iq.real.copy_(re)
-        self.iq.imag.copy_(im)
+        self._copy_planes(re, im)
         return stepgraph.clone(self.replay())
 
     def replay(self):
@@ -316,6 +321,29 @@ def test_timeshard_graph_path_matches_eager(static_graphs):
     g.process(np.zeros(g.superblock_size, np.complex64))
     assert int(g.ts_carry.nco_base) == (moved + g.superblock_size * inc
                                         ) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("nb_on", [False, True])
+@pytest.mark.parametrize("graphed", [False, True])
+def test_timeshard_int16_planes_match_cast(static_graphs, graphed, nb_on):
+    """A superblock's int16 planes through ``ShardedReceiver.
+    process_planes``, graphed (an int16 static superblock) or eager, each
+    shard's K1 fed its int16 slice (the blanker, where on, their float32
+    cast), against ``process`` of the same values as a complex64
+    superblock: three superblocks bitwise, carries included."""
+    cfg = rx.ReceiverConfig(mode="usb", nb_on=nb_on, **SMALL)
+    mesh = make_mesh(time=4, devices=["cpu"] * 4)
+    g, e = ShardedReceiver(cfg, mesh), ShardedReceiver(cfg, mesh)
+    g._one_card = graphed
+    rng = np.random.default_rng(29)
+    for i in range(3):
+        x = (np.round(_cplx(rng, g.superblock_size)) + 0.0).astype(
+            np.complex64)
+        re, im = (p.astype(np.int16) for p in (x.real, x.imag))
+        _same_outputs(g.process_planes(re, im), e.process(x), i)
+    assert [m.wire for m in static_graphs] == ([True] if graphed else [])
+    _same_trees(g.ts_carry, e.ts_carry, "ts_carry")
+    _same_trees(g.state, e.state, "state")
 
 
 # ----------------------------------------------------------- pipeline ---

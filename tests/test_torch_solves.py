@@ -542,10 +542,13 @@ class _EagerGraph:
 
     made = []
     _fits = stepgraph.StepGraph._fits
+    wire = stepgraph.StepGraph.wire
 
-    def __init__(self, step, params, state, block, device, planes=True):
+    def __init__(self, step, params, state, block, device, planes=True,
+                 wire=False):
         self.step, self.params, self.block = step, params, block
-        self.iq = torch.zeros(block, dtype=torch.complex64)
+        self.iq = (torch.zeros((2, *block), dtype=torch.int16) if wire
+                   else torch.zeros(block, dtype=torch.complex64))
         self.state = stepgraph.clone(state)
         _EagerGraph.made.append(self)
 
@@ -553,8 +556,12 @@ class _EagerGraph:
         return self.run_planes(iq.real, iq.imag)
 
     def run_planes(self, re, im):
+        # a wire graph's static block holds the int16 planes as they are,
+        # a complex one their float32 cast
         self._fits(re, im)
-        new, out = self.step(self.params, self.state, re.float(), im.float())
+        if not self.wire:
+            re, im = re.float(), im.float()
+        new, out = self.step(self.params, self.state, re, im)
         stepgraph._copy_into(self.state, new)
         return stepgraph.clone(out)
 
@@ -577,13 +584,20 @@ def test_set_tune_freqs_writes_in_place():
                             for f in new]
 
 
-@pytest.mark.parametrize("kind", ["bank", "stacked"])
-def test_bank_graph_path_matches_eager(monkeypatch, kind):
+@pytest.mark.parametrize("kind,wire", [
+    pytest.param("bank", False, id="bank"),
+    pytest.param("stacked", False, id="stacked"),
+    pytest.param("bank", True, id="bank-int16"),
+    pytest.param("stacked", True, id="stacked-int16")])
+def test_bank_graph_path_matches_eager(monkeypatch, kind, wire):
     """A bank's graph bookkeeping with the capture stood in for: four
     blocks bitwise the eager bank step with a retune (``set_tune_freqs``:
     the graph's copy of the increments written in place too) and a volume
     change on block 2, one capture; ``state`` reads the graph's buffers;
-    the rule holds for the bank; a mis-shaped block is refused."""
+    the rule holds for the bank; a mis-shaped block is refused.  With
+    ``wire`` the blocks go in as int16 planes (a shared [n] or [C, n]
+    rows: an int16 static block) against the eager step on their
+    complex64 values."""
     monkeypatch.setattr(rx, "bank_graph_rule", lambda cfg, device: True)
     monkeypatch.setattr(stepgraph, "StepGraph", _EagerGraph)
     _EagerGraph.made = []
@@ -596,8 +610,11 @@ def test_bank_graph_path_matches_eager(monkeypatch, kind):
     rng = np.random.default_rng(4)
     params, state = stepgraph.clone(e.params), e.state
     for i in range(4):
-        x = _t(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
-                * 300.0).astype(np.complex64))
+        x = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+             * 300.0).astype(np.complex64)
+        if wire:
+            x = (np.round(x) + 0.0).astype(np.complex64)
+        x = _t(x)
         if i == 2:
             moved = [f + 25.0 for f in freqs]
             g.set_tune_freqs(moved)
@@ -605,13 +622,15 @@ def test_bank_graph_path_matches_eager(monkeypatch, kind):
             incs = [nco.phase_increment(f, cfg.input_rate) for f in moved]
             params = rx.volume_params(params._replace(
                 dec=params.dec._replace(phase_inc=torch.tensor(incs))), 61)
-        out = g.process(x)
+        out = (g.process_planes(x.real.to(torch.int16),
+                                x.imag.to(torch.int16)) if wire
+               else g.process(x))
         state, want = rx.bank_receiver_step(cfg, params, state, x,
                                             kind == "bank")
         for f in ("audio", "n_audio", "smeter_ave_db", "smeter_peak_db"):
             a, b = getattr(out, f), getattr(want, f)
             assert torch.equal(a, b), (i, f)
-    assert len(_EagerGraph.made) == 1
+    assert [m.wire for m in _EagerGraph.made] == [wire]
     held = _EagerGraph.made[0].params
     assert torch.equal(held.dec.phase_inc, g.params.dec.phase_inc)
     assert float(held.audio_gain) == g.params.audio_gain
