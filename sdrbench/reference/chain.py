@@ -1,25 +1,31 @@
-"""The plain reference of an SSB receiver chain, and its lower-precision
+"""The plain reference of a receiver chain, and its lower-precision
 control.
 
 ``Reference(config, block_samples)`` works out the outputs of one block
 of a stream of blocks (a single receiver, or a bank of channels tuned
-across one stream) from the capture alone, in float64: DC cal, NCO mix
-and decimation, channel filter, S-meter, AGC, SSB demodulation, the
-resampler, at a volume of 1. The filters, increments and constants come from
-``design``; nothing is read from the program under test.
+across one stream) from the capture alone, in float64: the input stage,
+DC cal, NCO mix and decimation, channel filter, S-meter, the levels (the
+AGC), demodulation, the resampler, at a volume of 1.  The filters,
+increments and constants come from ``design``; nothing is read from the
+program under test.
+
+The chain names no mode.  Its input, levels and demod stages are parts
+(``reference/parts/``, one file each) picked by the configuration: for
+each stage the one part that takes it, the input stage the identity
+where none does.  A configuration that a stage has no part for, or two,
+is refused.
 
 A block far into a stream depends on everything before it only through
-the decimator's and the filters' finite histories and the averagers'
-levels, which forget at the AGC's decay rate. So block ``b`` is worked
-out from the stream's state at block ``b - warm`` taken cold: the
-decimator reads the true input before it, every other history starts
-empty and the averagers start at their initial levels, and ``warm``
-blocks span at least twelve of the AGC's decay time constants (e^-12 of
-a gap of its decay averager is left where it only falls) and a second
-(``WARM_MIN_S``); in practice the averagers meet far sooner
-(``control.py --warm-check``). Within ``warm`` blocks of the stream's
+the decimator's and the filters' finite histories and the parts' states,
+which forget.  So block ``b`` is worked out from the stream's state at
+block ``b - warm`` taken cold: the decimator reads the true input before
+it, every other history starts empty and every average at its initial
+level, and ``warm`` blocks span the longest memory of the chosen parts
+(``warm_s``: the two-rate AGC's is twelve of its decay time constants
+and at least a second); in practice they meet far sooner
+(``control.py --warm-check``).  Within ``warm`` blocks of the stream's
 start the reference starts at block 0 with the stream's own initial
-state, and is exact. The NCO phase and the resampler's output times are
+state, and is exact.  The NCO phase and the resampler's output times are
 exact functions of the absolute sample index: the 32-bit DDS
 accumulator, and output m at input time m * dt
 (``design.resample_step``).
@@ -27,7 +33,7 @@ accumulator, and output m at input time m * dt
 ``precision="tf32"`` is the control: the same chain in float32 whose every
 intermediate value is rounded to TF32's 10-bit mantissa, and whose
 products run with TF32 allowed.  Heavy stages run on ``device`` (the card
-in a benchmark run); the averagers' recurrences run on the host.
+in a benchmark run); the sequential recurrences run on the host.
 """
 
 from __future__ import annotations
@@ -38,27 +44,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sdrbench.reference import design
+from sdrbench.reference import design, parts
+from sdrbench.reference.stage import PRECISIONS, Rates, round_tf32
 
-PRECISIONS = ("float64", "tf32")
 GROUP_SAMPLES = 1 << 28      # input samples x channels mixed at once
-# the least warm-up: two of the S-meter's 500 ms decay constants, and
-# several syllables of the captures' 2-3 Hz envelopes, whose rises bring
-# the S-meter's decay average onto its attack average
-WARM_MIN_S = 1.0
-
-
-def round_tf32(x):
-    """``x`` (float32, numpy or torch) rounded to TF32: 10 mantissa bits,
-    to nearest, ties to even."""
-    if isinstance(x, torch.Tensor):
-        b = x.contiguous().view(torch.int32)
-        b = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
-        return b.view(torch.float32)
-    a = np.ascontiguousarray(x, np.float32)
-    b = a.view(np.int32)
-    b = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
-    return b.view(np.float32)
 
 
 @dataclass
@@ -82,19 +71,13 @@ class Reference:
         if precision not in PRECISIONS:
             raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
         rx = config["receiver"]
-        mode = rx.get("mode", "usb")
-        if mode not in ("usb", "lsb", "cwu", "cwl"):
-            raise ValueError(f"the reference demodulates SSB/CW, not {mode}")
-        if rx.get("agc_hang", False) or rx.get("nb_on", False) \
-                or rx.get("stereo", False):
-            raise ValueError("the reference has no hang AGC, blanker or "
-                             "stereo")
+        chosen = parts.choose(rx)
         self.device = torch.device(device)
         self.tf32 = precision == "tf32"
         self.dtype = torch.float32 if self.tf32 else torch.float64
         self.fs = float(rx["input_rate"])
-        self.h_dec, self.D, self.d, self.fs_out = design.decimator(self.fs,
-                                                                   mode)
+        self.h_dec, self.D, self.d, self.fs_out = design.decimator(
+            self.fs, rx["mode"])
         nfft, ntaps = int(rx["fastfir_nfft"]), int(rx["fastfir_ntaps"])
         self.n_frame = nfft - (ntaps - 1)
         cw = float(rx.get("cw_offset", 0.0))
@@ -110,16 +93,16 @@ class Reference:
         self.incs = [design.dds_increment(f - cw, self.fs) for f in tunes]
         dc = config.get("dc_cal", [0.0, 0.0])
         self.dc = complex(float(dc[0]), float(dc[1]))
-        self.agc_on = bool(rx.get("agc_on", True))
-        self.agc = design.AgcConstants(
-            self.fs_out, float(rx["agc_thresh_db"]), float(rx["agc_slope"]),
-            float(rx["agc_decay_ms"]), float(rx["agc_manual_gain_db"]))
         self.smeter = design.SMeterConstants(self.fs_out)
         self.audio_rate = rx.get("audio_rate")
         self.periods = int(rx["resampler_periods"])
         if self.audio_rate is not None:
             self.dt = design.resample_step(self.fs_out, float(self.audio_rate))
-        warm_s = max(12.0 * float(rx["agc_decay_ms"]) * 1e-3, WARM_MIN_S)
+        rates = Rates(self.fs, self.fs_out, B, self.n)
+        self.parts = {stage: None if mod is None
+                      else mod.Part(rx, rates, precision, device)
+                      for stage, mod in chosen.items()}
+        warm_s = max(p.warm_s for p in self.parts.values() if p is not None)
         self.warm = max(1, math.ceil(warm_s * self.fs / B))
 
     # ------------------------------------------------------------ helpers
@@ -136,8 +119,9 @@ class Reference:
 
     def _inputs(self, capture, b0: int, b: int):
         """The DC-calibrated input of blocks b0 .. b with the decimator's
-        history before them (zero before the stream's start), and the
-        absolute index of each sample, on ``device``."""
+        history before them (the raw planes zero before the stream's
+        start, through the input stage), and the absolute index of each
+        sample, on ``device``."""
         re, im = capture
         N = re.shape[-1]
         hist = len(self.h_dec) - 1 - self.d
@@ -146,9 +130,11 @@ class Reference:
                          dtype=torch.int64, device=self.device)
         idx = torch.remainder(k, N)
         live = k >= 0
-        xr = torch.where(live, re[idx].to(self.dtype), 0.0) - self.dc.real
-        xi = torch.where(live, im[idx].to(self.dtype), 0.0) - self.dc.imag
-        return k, self._r(xr), self._r(xi)
+        xr = torch.where(live, re[idx].to(self.dtype), 0.0)
+        xi = torch.where(live, im[idx].to(self.dtype), 0.0)
+        if self.parts["input"] is not None:
+            xr, xi = self.parts["input"](xr, xi)
+        return k, self._r(xr - self.dc.real), self._r(xi - self.dc.imag)
 
     def _front(self, k, xr, xi, n_out: int, incs: list) -> torch.Tensor:
         """Mix + decimate + channel filter of a group of channels: the
@@ -197,7 +183,7 @@ class Reference:
         return y[:, 0, :n_out].reshape(C, 2, n_out)
 
     def _levels(self, filt: torch.Tensor):
-        """S-meter and AGC over [C, 2, n] filtered rows: (leveled [C, 2,
+        """S-meter and levels over [C, 2, n] filtered rows: (leveled [C, 2,
         n], the S-meter's decay average at the end [C], the per-sample
         S-meter dB [C, n])."""
         fr, fi = filt[:, 0], filt[:, 1]
@@ -205,48 +191,7 @@ class Reference:
         pwr = r(r(r(fr * fr) + r(fi * fi)) / design.FULL_SCALE ** 2)
         sm_db = r(10.0 * torch.log10(torch.clamp(pwr, min=1e-16)))
         d_end = self._smeter(sm_db)
-        ac = self.agc
-        if not self.agc_on:
-            return r(filt * ac.manual_gain), d_end, sm_db
-        inst = torch.maximum(fr.abs(), fi.abs())
-        mag = r(torch.log10(inst + 3.2767e-4) - math.log10(design.FULL_SCALE))
-        hist = torch.full(mag.shape[:-1] + (ac.window - 1,), -16.0,
-                          dtype=mag.dtype, device=mag.device)
-        peak = torch.nn.functional.max_pool1d(
-            torch.cat([hist, mag], -1)[:, None], ac.window, 1)[:, 0]
-        magsel = torch.tensor(self._averagers(peak.cpu().numpy()),
-                              device=mag.device)
-        gain = r(torch.where(magsel <= ac.knee, ac.fixed_gain,
-                             0.7 * 10.0 ** (magsel * (ac.slope - 1.0))))
-        delayed = torch.nn.functional.pad(filt, (ac.delay, 0))[..., :-ac.delay]
-        return r(delayed * gain[:, None]), d_end, sm_db
-
-    def _averagers(self, peak: np.ndarray) -> np.ndarray:
-        """max(attack, decay) of the AGC's two-rate averagers, row by
-        row, sample by sample, from -5 decades (on the host)."""
-        ac = self.agc
-        if not self.tf32 and peak.shape[0] == 1:
-            return _averagers_scalar(peak[0].tolist(), ac)[None]
-        rows, n = peak.shape
-        dt = peak.dtype
-        r = self._r
-        # the attack averager's rows, then the decay averager's
-        x = np.full(2 * rows, -5.0, dt)
-        rise = np.repeat(np.array([ac.a_rise, ac.d_rise], dt), rows)
-        fall = np.repeat(np.array([ac.a_fall, ac.d_fall], dt), rows)
-        pt = np.ascontiguousarray(np.concatenate([peak, peak]).T)
-        out = np.empty((n, 2 * rows), dt)
-        g = np.empty_like(x)
-        for i in range(n):
-            np.subtract(pt[i], x, out=g)
-            a = np.where(g > 0, rise, fall)
-            if self.tf32:
-                x = r(x + r(a * r(g)))
-            else:
-                np.multiply(a, g, out=g)
-                np.add(x, g, out=x)
-            out[i] = x
-        return np.maximum(out[:, :rows], out[:, rows:]).T
+        return self.parts["levels"](filt), d_end, sm_db
 
     def _smeter(self, m: torch.Tensor) -> torch.Tensor:
         """The S-meter's decay average at the end of [C, n] rows of dB
@@ -314,7 +259,7 @@ class Reference:
         sm_ave = d_end.double().cpu().numpy() + cal
         last = sm_db[:, (b - b0) * self.n:].amax(-1)
         sm_peak = torch.clamp(last, min=0.0).double().cpu().numpy() + cal
-        audio = leveled[:, 0]                 # SSB: the real part
+        audio = self.parts["demod"](leveled)
         C = len(self.incs)
         if self.audio_rate is None:
             lo = np.full(C, b * self.n)
@@ -334,17 +279,6 @@ def channel_freqs(config: dict) -> list[float]:
         return [float(ch["start_hz"]) + float(ch["step_hz"]) * i
                 for i in range(int(ch["count"]))]
     return [float(config["receiver"]["tune_freq"])]
-
-
-def _averagers_scalar(peak: list, ac) -> np.ndarray:
-    att = dec = -5.0
-    ar, af, dr, df = ac.a_rise, ac.a_fall, ac.d_rise, ac.d_fall
-    out = [0.0] * len(peak)
-    for i, p in enumerate(peak):
-        att += (ar if p > att else af) * (p - att)
-        dec += (dr if p > dec else df) * (p - dec)
-        out[i] = att if att > dec else dec
-    return np.array(out)
 
 
 def _smeter_closed(m: torch.Tensor, sa: float, sd: float, a0: torch.Tensor,

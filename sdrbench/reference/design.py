@@ -15,7 +15,10 @@ A frozen copy of CuteSDR 1.02's design rules, in numpy and float64:
 * the resampler's P-period Blackman-Harris windowed sinc
   (dsp/fractresampler.cpp:101-106), evaluated at exact positions;
 * the AGC's and the S-meter's constants (dsp/agc.cpp:174-296,
-  dsp/smeter.cpp).
+  dsp/smeter.cpp);
+* the Kaiser-window high-pass FIR (dsp/fir.cpp:278-367, with the tap
+  estimate and window shape of :184-198 and the Bessel series of
+  :414-432) and the RBJ biquad low-pass (dsp/iir.cpp:86-165).
 
 Nothing here reads the program under test.
 """
@@ -28,6 +31,7 @@ import numpy as np
 
 FULL_SCALE = 32767.0
 TWO32 = 1 << 32
+FIR_MAX_TAPS = 75         # CFir's coefficient limit (dsp/fir.h:16)
 
 # normalised alias-free bandwidths of the decimate-by-2 stages
 _USABLE = {
@@ -212,3 +216,55 @@ class SMeterConstants:
         self.attack = 1.0 - np.exp(-1.0 / (fs * 0.01))
         self.decay = 1.0 - np.exp(-1.0 / (fs * 0.5))
         self.calibration = 5.0
+
+
+def _bessel_i0(x: float) -> float:
+    """I0(x) by its power series, to a term under 1e-9 of the sum."""
+    total = term = 1.0
+    k = 1
+    while term >= 1e-9 * total:
+        term *= (x / (2.0 * k)) ** 2
+        total += term
+        k += 1
+    return total
+
+
+def kaiser_highpass(astop: float, fpass: float, fstop: float,
+                    sample_rate: float) -> np.ndarray:
+    """Taps of a Kaiser-window high-pass FIR, unit gain, passing above
+    ``fpass`` and ``astop`` dB down below ``fstop``: a unit impulse less
+    the windowed-sinc low-pass cut midway, over an odd count of taps
+    estimated from the transition band, (astop - 8) / (2.285 * 2 pi *
+    df) + 1, at most ``FIR_MAX_TAPS``."""
+    if astop < 20.96:
+        beta = 0.0
+    elif astop >= 50.0:
+        beta = 0.1102 * (astop - 8.71)
+    else:
+        beta = 0.5842 * (astop - 20.96) ** 0.4 + 0.07886 * (astop - 20.96)
+    df = (fpass - fstop) / sample_rate
+    ntaps = int((astop - 8.0) / (2.285 * 2.0 * np.pi * df) + 1.0)
+    ntaps = min(max(ntaps, 3), FIR_MAX_TAPS - 1) | 1
+    fcut = (fpass + fstop) / 2.0 / sample_rate
+    half = (ntaps - 1) / 2.0
+    taps = np.empty(ntaps)
+    for i in range(ntaps):
+        x = i - half
+        lowpass = 2.0 * fcut if x == 0 else (np.sin(2.0 * np.pi * x * fcut)
+                                             / (np.pi * x))
+        c = (1.0 if x == 0 else 0.0) - lowpass
+        w = _bessel_i0(beta * np.sqrt(max(1.0 - (x / half) ** 2, 0.0)))
+        taps[i] = c * w / _bessel_i0(beta)
+    return taps
+
+
+def biquad_lowpass(f0: float, q: float, sample_rate: float) -> tuple:
+    """(b0, b1, b2, a1, a2) of the RBJ low-pass biquad at corner ``f0``
+    and quality ``q``, normalised by a0, for the direct form 2 recurrence
+    w = x - a1 w1 - a2 w2, y = b0 w + b1 w1 + b2 w2."""
+    w0 = 2.0 * np.pi * f0 / sample_rate
+    alpha = np.sin(w0) / (2.0 * q)
+    c = np.cos(w0)
+    a0 = 1.0 + alpha
+    return ((1.0 - c) / 2.0 / a0, (1.0 - c) / a0, (1.0 - c) / 2.0 / a0,
+            -2.0 * c / a0, (1.0 - alpha) / a0)

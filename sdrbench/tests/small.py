@@ -1,6 +1,8 @@
 """Small cells of the benchmark's configurations for the CPU tests: the
 configuration's own file, with a 20 ms AGC decay (so the reference's
-warm-up is 0.4 s of signal), a short capture and one-frame blocks."""
+warm-up is 0.4 s of signal), a short capture and one-frame blocks; and
+an FM listener with the noise blanker on, built inline from the
+flagship's files (no cell of the benchmark has it yet)."""
 
 import copy
 import json
@@ -35,3 +37,32 @@ def listener(**kw) -> spec.Cell:
 def bank(**kw) -> spec.Cell:
     return cell("monitor_bank64_usb_10msps", "band_capture_13ms_blocks",
                 1 << 21, 131072, channels=3, **kw)
+
+
+# an NBFM station at the tune (a voice stand-in of three tones at 2.5 kHz
+# peak deviation) and a train of 10 us impulses at full scale, ringing at
+# the tune, 100 a second, over the flagship's -70 dBFS noise and DC spur
+FM_STATIONS = [
+    {"kind": "nbfm_voice", "carrier_hz": 100000.0, "level_dbfs": -20.0,
+     "tones_hz": [400.0, 1000.0, 1700.0],
+     "deviation_hz": [1000.0, 800.0, 700.0]},
+    {"kind": "impulses", "carrier_hz": 100000.0, "level_dbfs": 0.0,
+     "rate_hz": 100.0, "width_us": 10.0},
+]
+
+
+def fm_nb(**kw) -> spec.Cell:
+    """The FM listener with the blanker: the flagship's configuration in
+    mode ``fm`` with FM's cuts, the blanker on at threshold 50 and 20 us
+    (40 samples, over the 20-sample pulses and the delay of 21), and an
+    inline traffic of ``FM_STATIONS``, at the listener's small size."""
+    c = cell("listener_usb_2msps", "capture_flagship_blocks", 1 << 20, 32768,
+             **kw)
+    c.config["receiver"].update(mode="fm", low_cut=-7500.0, hi_cut=7500.0,
+                                nb_on=True, nb_threshold=50.0,
+                                nb_width_us=20.0)
+    c.config["name"] = "fm_nb_inline"
+    c.traffic.update(name="fm_nb_impulse_inline",
+                     stations=copy.deepcopy(FM_STATIONS))
+    c.name = "small_fm_nb"
+    return c

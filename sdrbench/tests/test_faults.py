@@ -1,7 +1,9 @@
 """A run with the timed path broken underneath reads ``correct`` false,
-once for each fault a cell can have; the same run unbroken reads true
-under the shipped limits.  The harness's look for a card is skipped (the
-port runs its CPU path)."""
+once for each fault a cell can have, and the FM listener's with its
+blanker off; the same run unbroken reads true under the shipped limits.
+The harness's look for a card is skipped (the port runs its CPU path)."""
+
+import copy
 
 import pytest
 import torch
@@ -11,9 +13,12 @@ from sdrbench.tests import small
 
 # the shipped limits of a cell, or a configuration's limits given here
 # where it has no cell yet: the bank's, as read on the card at 4-frame
-# blocks (PERF.md, "Open questions")
+# blocks (PERF.md, "Open questions"); the FM listener's between the CPU
+# path's readings at this size over a dozen seeds and the control's
+# (PERF.md, "Findings")
 CELLS = {"listener": (small.listener, "usb_capture"),
-         "bank": (small.bank, {"audio_err": 0.08, "smeter_err_db": 1.4})}
+         "bank": (small.bank, {"audio_err": 0.08, "smeter_err_db": 1.4}),
+         "fm_nb": (small.fm_nb, {"audio_err": 2e-4, "smeter_err_db": 0.02})}
 
 
 class Broken:
@@ -52,12 +57,27 @@ def _clone(tree):
     return tree
 
 
+def _blanker_off(cell):
+    """A hook that swaps the entry for one of the same configuration with
+    the noise blanker off."""
+    off = copy.deepcopy(cell.config)
+    off["receiver"]["nb_on"] = False
+    return lambda entry: run.make_entry(
+        off, run.receiver_config(off, cell.traffic), "cpu")
+
+
 def _run(which, fault):
     make, limits = CELLS[which]
     if isinstance(limits, str):
         limits = correct.limits_for(limits, small.ROOT)
-    hook = None if fault is None else (lambda e: Broken(e, fault))
-    result, _ = run.run_cell(make(), 777, 0.5, False, device="cpu",
+    cell = make()
+    if fault is None:
+        hook = None
+    elif fault == "blanker_off":
+        hook = _blanker_off(cell)
+    else:
+        hook = lambda e: Broken(e, fault)  # noqa: E731
+    result, _ = run.run_cell(cell, 777, 0.5, False, device="cpu",
                              limits=limits, entry_hook=hook)
     return result
 
@@ -73,4 +93,9 @@ def test_unbroken_is_correct(which):
 @pytest.mark.parametrize("which", sorted(CELLS))
 def test_broken_is_not_correct(which, fault):
     result = _run(which, fault)
+    assert not result["correct"], result["checks"]
+
+
+def test_blanker_off_is_not_correct():
+    result = _run("fm_nb", "blanker_off")
     assert not result["correct"], result["checks"]

@@ -1,10 +1,13 @@
 """Nothing the benchmark runs loads JAX or the JAX package (top-level
 module names compared whole: the port's name begins with the JAX
-package's), and the reference loads nothing of the port either."""
+package's), and the reference (its parts too) and the capture's station
+kinds load nothing of the port either."""
 
 import ast
 import subprocess
 import sys
+
+import pytest
 
 from sdrbench.run import FORBIDDEN
 from sdrbench.tests import small
@@ -26,10 +29,11 @@ torch.set_num_threads(1)
 from sdrbench import capture
 from sdrbench.reference.chain import Reference
 from sdrbench.tests import small
-cell = small.listener()
-cap = capture.make(cell.traffic, 5, "cpu")
-Reference(cell.config, cell.traffic["block_samples"]).block(cap, 2)
-Reference(cell.config, cell.traffic["block_samples"], "tf32").block(cap, 2)
+for cell in (small.listener(), small.fm_nb()):
+    cap = capture.make(cell.traffic, 5, "cpu")
+    for precision in ("float64", "tf32"):
+        Reference(cell.config, cell.traffic["block_samples"],
+                  precision).block(cap, 2)
 print(" ".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
@@ -51,8 +55,11 @@ def test_the_reference_loads_nothing_of_either_package():
     assert not tops & (set(FORBIDDEN) | {"cutesdr_tpu_torch"})
 
 
-def test_the_reference_sources_import_no_package():
-    for path in (small.ROOT / "reference").glob("*.py"):
+@pytest.mark.parametrize("folder", ["reference", "stations"])
+def test_the_reference_sources_import_no_package(folder):
+    paths = sorted((small.ROOT / folder).rglob("*.py"))
+    assert paths
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else

@@ -1,12 +1,16 @@
 """The plain reference against the port's CPU path at a small size, for
-each configuration, and the control against the reference."""
+each configuration (and the FM listener with the blanker, built inline),
+and the control against the reference; a configuration that a stage of
+the reference has no part for, or two, is refused."""
 
 import pytest
 
 from sdrbench import control, run
+from sdrbench.reference import parts
+from sdrbench.reference.chain import Reference
 from sdrbench.tests import small
 
-CASES = {"listener": small.listener, "bank": small.bank}
+CASES = {"listener": small.listener, "bank": small.bank, "fm_nb": small.fm_nb}
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -44,3 +48,22 @@ def test_warm_up_converges(judged):
     warm2 = control.control_readings(cell, keep, "cpu", 2, "float64")
     assert warm2["audio_err"] < 1e-9
     assert warm2["smeter_err_db"] < 1e-6
+
+
+@pytest.mark.parametrize("change, stage", [
+    ({"mode": "sam"}, "demod"), ({"stereo": True}, "demod"),
+    ({"agc_hang": True}, "levels")])
+def test_a_stage_with_no_part_is_refused(change, stage):
+    cell = small.listener()
+    cell.config["receiver"].update(change)
+    with pytest.raises(ValueError, match=f"no {stage} part takes mode"):
+        Reference(cell.config, cell.traffic["block_samples"])
+
+
+def test_two_parts_for_a_stage_are_refused(monkeypatch):
+    found = parts.listing()
+    found["ssb_again"] = found["ssb"]
+    monkeypatch.setattr(parts, "listing", lambda: found)
+    cell = small.listener()
+    with pytest.raises(ValueError, match="demod parts"):
+        Reference(cell.config, cell.traffic["block_samples"])
