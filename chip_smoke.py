@@ -116,6 +116,13 @@ name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, so the script exits non-zero.  It
 needs a CUDA device; it never imports jax.
 
+    python3 chip_smoke.py --blanker
+
+builds the kernels and runs the blanker's checks alone: K10 against its
+plain version at the NBFM cell's block (``check_blanker``) and the graphed
+NBFM listener with the blanker, fed int16 planes, bitwise its eager step
+(``fm_nb_graph_spec``).
+
     python3 chip_smoke.py --profile [--only LABEL,...]
 
 builds the kernels and profiles the same receiver paths, the session,
@@ -164,7 +171,7 @@ from cutesdr_tpu_torch.design.fastfir_design import (  # noqa: E402
 from cutesdr_tpu_torch.design.latency import latency_report  # noqa: E402
 from cutesdr_tpu_torch.io.audio_sink import RateLockedQueue  # noqa: E402
 from cutesdr_tpu_torch.kernels import (  # noqa: E402
-    _build, agcseq, fastfir, mixdec, resamp, scan, seqloop)
+    _build, agcseq, blanker, fastfir, mixdec, resamp, scan, seqloop)
 from cutesdr_tpu_torch.ops import (  # noqa: E402
     agc, decimator, nco, noiseblanker, resampler)
 from cutesdr_tpu_torch.ops import fastfir as ff_ops  # noqa: E402
@@ -212,6 +219,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                    "cutesdr_tpu/ops/agc.py:256"),
     "biquad": ("cutesdr_tpu_torch/csrc/iir.cu",
                "cutesdr_tpu/ops/iir.py:52"),
+    # K10 has none either: the blanker over int16 planes, which JAX runs
+    # as whole-block array operations
+    "blanker_int16": ("cutesdr_tpu_torch/csrc/blanker.cu",
+                      "cutesdr_tpu/ops/noiseblanker.py:113"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -1760,12 +1771,15 @@ def check_refgold_extras():
 
 
 def stimulus(cfg, n_blocks: int, gen, carriers=({},),
-             noise_db: float = -90.0) -> list[torch.Tensor]:
+             noise_db: float = -90.0,
+             impulse_every: int = 0) -> list[torch.Tensor]:
     """Seeded noise (``noise_db`` dBFS) plus one carrier per dict of
     ``carriers``: at ``freq_hz`` (default tune + ``offset_hz``),
     ``signal_db`` dBFS (default -30), frequency-modulated by ``fm_dev_hz``
-    or amplitude-modulated to ``am_depth`` at ``mod_hz``.  Made on the card
-    in float64, phase-continuous across blocks."""
+    or amplitude-modulated to ``am_depth`` at ``mod_hz``; with
+    ``impulse_every``, a 20-sample pulse of 25,000 counts at the tune that
+    often (samples).  Made on the card in float64, phase-continuous across
+    blocks."""
     n = cfg.block_size
     k = torch.arange(n, dtype=torch.float64, device="cuda")
     noise = 32767.0 * 10 ** (noise_db / 20)
@@ -1786,6 +1800,11 @@ def stimulus(cfg, n_blocks: int, gen, carriers=({},),
                 1.0 + c.get("am_depth", 0.0) * torch.cos(2 * np.pi * mod_hz
                                                         * t))
             sig = sig + torch.polar(env, ph)
+        if impulse_every:
+            on = torch.remainder(k + b * n, impulse_every) < 20
+            pulse = torch.polar(torch.full_like(k, 25000.0),
+                                2 * np.pi * cfg.tune_freq * t)
+            sig = sig + torch.where(on, pulse, torch.zeros_like(pulse))
         out.append(sig.to(torch.complex64))
         del t, sig
     return out
@@ -1814,11 +1833,12 @@ def routed_kernels(cfg, bank: bool, params, counted=None,
     averager N3h (``hang_solve``).  Every path runs the S-meter kernel;
     the affine scan runs the AM/SAM DC block and FM's three EMAs; FM's
     audio biquad is N2 (``biquad``).  K1 takes its int16 route where the
-    path is fed int16 planes (``wire``) and no blanker reads them
-    first."""
+    path is fed int16 planes (``wire``), and so does the blanker where it
+    is on (K10, ``blanker_int16``: its int16 planes out go on to K1)."""
     counted = counted or bench_suite.counts()
-    want = {"mixdec_int16" if wire and not cfg.nb_on else "mixdec",
-            "smeter"}
+    want = {"mixdec_int16" if wire else "mixdec", "smeter"}
+    if wire and cfg.nb_on:
+        want.add("blanker_int16")
     if fastfir.kernel_supported(cfg.fastfir_nfft, cfg.fastfir_ntaps):
         want.add("fastfir_batch" if bank else "fastfir")
     if banded_tail(cfg, bank, params):
@@ -2198,7 +2218,7 @@ KERNEL_SYMBOLS = {
     "smeter": "smeter_kernel",
     "seqloop_fm": "fm_chunked_kernel|pll_walk_kernel<true>",
     "seqloop_sam": "pll_walk_kernel<false>", "resamp": "resamp_kernel",
-    "agcseq": "agc_seq_kernel"}
+    "agcseq": "agc_seq_kernel", "blanker_int16": "blanker_kernel"}
 
 
 def device_kernel_counts(events) -> dict:
@@ -2326,7 +2346,10 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
     " int16" feeds the graph the blocks rounded to int16 planes (an int16
     static block, K1's int16 route) and the eager step their float32 cast
     (K1's float route): the same bits, K1's launches counted under the
-    other route.  Returns the graphed run's counts."""
+    other route; with the blanker on, the eager step is fed the int16
+    planes too (the blanker's int16 route, K10, both ways: its float
+    route's float32 sums round differently).  Returns the graphed run's
+    counts."""
     ratio = cfg.output_rate / cfg.audio_rate
     ppm = 50e-6 if label == "usb ratelock" else 0.0
     wire = label.endswith(" int16")
@@ -2336,7 +2359,8 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
     if wire:
         fed = [tuple(torch.round(p).to(torch.int16) for p in b)
                for b in blocks]
-        blocks = [tuple(p.float() for p in b) for b in fed]
+        blocks = fed if cfg.nb_on else [tuple(p.float() for p in b)
+                                        for b in fed]
     r = make_receiver(kind, cfg, freqs)
     if not r.graphed:
         raise AssertionError(f"graph {label}: the rule leaves it eager")
@@ -2391,12 +2415,13 @@ def graph_path(label, kind, cfg, freqs, stim, iters, gen,
             got.append(r.process_planes(re, im))
         got_counts = step_counts()
         if wire:
-            # K1's launches, counted under the float route's name
             k1 = got_counts["launches"]
             if k1["mixdec"] or k1["mixdec_int16"] != GRAPH_BLOCKS:
                 raise AssertionError(f"graph {label}: K1 launches {k1}")
-            got_counts["launches"] = dict(k1, mixdec=k1["mixdec_int16"],
-                                          mixdec_int16=0)
+            if not cfg.nb_on:
+                # K1's launches, counted under the float route's name
+                got_counts["launches"] = dict(
+                    k1, mixdec=k1["mixdec_int16"], mixdec_int16=0)
         bad = output_bits(want, got)
         carries = list(zip(stepgraph.walk(state), stepgraph.walk(r.state)))
         bad += [("carry", p) for (p, w), (_, g) in carries
@@ -2717,6 +2742,142 @@ def graph_pipelined(gen, gpu_label: str) -> dict:
     return out
 
 
+def fm_nb_graph_spec() -> tuple:
+    """``graph_path``'s spec of the benchmark's NBFM listener with the
+    blanker (``sdrbench/configs/listener_nbfm_nb_2msps.json`` at its
+    cell's 16-frame block), fed int16 planes: a -20 dBFS FM carrier at the
+    tune and a 20-sample pulse every 20,000 samples."""
+    cfg = rx.ReceiverConfig(mode="fm", low_cut=-7500.0, hi_cut=7500.0,
+                            nb_on=True, nb_threshold=50.0, nb_width_us=20.0,
+                            input_rate=2e6, tune_freq=100e3,
+                            frames_per_block=16)
+    return ("fm nb int16", "single", cfg, None,
+            dict(carriers=(dict(signal_db=-20.0, fm_dev_hz=1000.0,
+                                mod_hz=1000.0),), noise_db=-70.0,
+                 impulse_every=20_000), None)
+
+
+def blanker_planes(n: int, gen) -> tuple:
+    """int16 planes of ``n`` samples of the NBFM cell's scene: a -20 dBFS
+    FM carrier at 100 kHz, -70 dBFS noise and a 20-sample full-scale pulse
+    ringing at the carrier every 20,000 samples, the first 10 samples
+    before 524,288 (so one straddles the first block edge)."""
+    k = torch.arange(n, dtype=torch.float64, device="cuda")
+    ph = 2 * np.pi * 0.05 * k + 1.5 * torch.sin(2 * np.pi * 5e-4 * k)
+    amp = torch.where(torch.remainder(k - (N_BLANK - 10), 20_000) < 20,
+                      32767.0, 3277.0)
+    sigma = 32767.0 * 10 ** (-70 / 20) / np.sqrt(2)
+    planes = []
+    for part in (torch.cos(ph), torch.sin(ph)):
+        x = amp * part + sigma * torch.randn(n, generator=gen, device="cuda",
+                                             dtype=torch.float64)
+        planes.append(torch.clamp(torch.round(x), -32767, 32767)
+                      .to(torch.int16))
+    return tuple(planes)
+
+
+N_BLANK = 524_288         # the NBFM cell's block
+
+
+def all_device_ms(fn, calls: int = 10) -> float:
+    """Device ms a call of every kernel and copy ``fn`` enqueues (the
+    profiler's device events summed): the float route's many torch items,
+    which ``device_ms`` (the ``cutesdr::`` kernels) does not see."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if "CUDA" in str(e.device_type)
+             and not getattr(e, "is_user_annotation", False))
+    return us * 1e-3 / calls
+
+
+def blanker_case(label: str, cfg, re, im, carries, results=None,
+                 gpu_label: str = "") -> tuple:
+    """K10 against its plain version (``blanker.int16_gate_plain`` on the
+    card) over the blocks of ``re``/``im`` ([..., blocks * N] split in
+    ``carries`` blocks), each from the carry the last left: outputs and
+    new tails bitwise, and the blanked mask equal wherever the output
+    shows it (a blanked sample is zero, so a mask shows where the delayed
+    input is not zero in both planes).  With ``results``, the first block
+    timed against the plain version and the float route.  Returns (blanked
+    samples, samples whose mask shows, float-route mask differences)."""
+    n = re.shape[-1] // carries
+    lead = re.shape[:-1]
+    ic = noiseblanker.BlankerCarry(*(
+        t.expand(lead + t.shape).contiguous()
+        for t in noiseblanker.init_carry(cfg, "cuda")))
+    fc = ic
+    args = (cfg.mag_samples, cfg.width_samples, cfg.ratio)
+    totals = [0, 0, 0]
+    for b in range(carries):
+        r, i = (p[..., b * n:(b + 1) * n].contiguous() for p in (re, im))
+        got = blanker.blank_int16(r, i, *ic, *args)
+        blank, *want = blanker.int16_gate_plain(r, i, *ic, *args)
+        torch.cuda.synchronize()
+        bad = [name for name, g, w in zip(
+            ("re", "im", "mag_tail", "trig_tail", "sig_tail"), got, want)
+            if not same_bits(g, w)]
+        zr = torch.cat([torch.round(ic.sig_tail.real).to(torch.int16), r],
+                       -1)[..., :n]
+        zi = torch.cat([torch.round(ic.sig_tail.imag).to(torch.int16), i],
+                       -1)[..., :n]
+        shows = (zr != 0) | (zi != 0)
+        k_mask = (got[0] == 0) & (got[1] == 0)
+        mask_diff = int(((k_mask != blank) & shows).sum())
+        if bad or mask_diff:
+            raise AssertionError(f"blanker {label} block {b}: kernel and "
+                                 f"plain differ at {bad}, {mask_diff} mask "
+                                 "samples")
+        fc, keep, _, _ = noiseblanker._gate(cfg, fc, r.float(), i.float())
+        totals[0] += int(blank.sum())
+        totals[1] += int(shows.sum())
+        totals[2] += int((keep == blank).sum())
+        if results is not None and b == 0:
+            c0 = ic
+            run_k = lambda: blanker.blank_int16(r, i, *c0, *args)
+            run_p = lambda: blanker.int16_gate_plain(r, i, *c0, *args)
+            rf, imf = r.float(), i.float()
+            run_f = lambda: noiseblanker.process_planes(cfg, c0, rf, imf)
+            # bytes: the planes read and written, the tails read and
+            # written; a max, a sum step, a compare and a select a sample
+            tails = 8 * (cfg.mag_samples + cfg.width_samples - 1) \
+                + 16 * (cfg.delay_samples + 1)
+            compare("blanker_int16", got[:2], want[:2], 0.0, results, run_k,
+                    run_p, work=(8 * r.numel() + tails, 8 * r.numel()))
+            phase(f"  float route (the torch blanker and its casts): "
+                  f"{time_ms(run_f):.4f} ms a call back to back, device "
+                  f"{all_device_ms(run_f):.4f} ms ({gpu_label})")
+        ic = noiseblanker.BlankerCarry(*got[2:])
+    phase(f"blanker {label}: {carries} carried blocks of {n} (rows "
+          f"{tuple(lead) or 1}), width {cfg.width_samples}: outputs and "
+          f"tails bitwise the plain int16 route, mask differences 0 over "
+          f"{totals[1]} samples that show it ({totals[0]} blanked); the "
+          f"float route's float32 sums blank {totals[2]} samples otherwise")
+    return tuple(totals)
+
+
+def check_blanker(gen, results, gpu_label: str) -> None:
+    """K10 (``kernels/blanker``) at the NBFM cell's block (524,288 samples,
+    width 40) over four carried blocks of its scene, timed beside the
+    plain version and the float route it replaces; then widths 1 and
+    4,096 over two blocks and three rows of 131,072 (a StackedReceiver's
+    streams, one launch)."""
+    re, im = blanker_planes(4 * N_BLANK, gen)
+    nb = lambda w: noiseblanker.BlankerConfig(True, 50.0, w, 2e6)
+    blanker_case("nbfm cell", nb(20.0), re, im, 4, results, gpu_label)
+    for w in (0.5, 2048.0):
+        blanker_case(f"width {nb(w).width_samples}", nb(w), re[:2 * N_BLANK],
+                     im[:2 * N_BLANK], 2)
+    rows = lambda p: p[:3 * 2 * 131_072].reshape(3, 2 * 131_072)
+    blanker_case("3 rows", nb(20.0), rows(re), rows(im), 2)
+
+
 def check_graph(gen, gpu_label: str, gen_entries, gen_wire) -> dict:
     """Every path of ``graph_specs`` (``graph_path``); the card must have
     decided each kind of block: an AGC fallback (N1), K7's chunked and
@@ -2724,7 +2885,8 @@ def check_graph(gen, gpu_label: str, gen_entries, gen_wire) -> dict:
     flagship and full-width FM with probes on (``graph_path``: the taps
     bitwise too), on inputs of ``gen_wire`` the flagship, the 64-channel
     bank and the stacked pair fed int16 planes (``graph_path``'s " int16"
-    paths), then the diversity receivers, the time shard and the
+    paths) and the benchmark's NBFM listener with the blanker
+    (``fm_nb_graph_spec``), then the diversity receivers, the time shard and the
     pipeline (``graph_entry``).  Returns the graphed runs' launches."""
     total = dict.fromkeys(KERNELS, 0)
     seen = {"fallbacks": 0, "fm_chunked": 0, "fm_scan": 0, "sam_scan": 0}
@@ -2739,6 +2901,7 @@ def check_graph(gen, gpu_label: str, gen_entries, gen_wire) -> dict:
     wired = {"flagship usb", "bank usb 64ch", "stacked usb 2ch agc fallback"}
     specs += [((label + " int16",) + spec[1:], gen_wire)
               for spec in graph_specs() if (label := spec[0]) in wired]
+    specs.append((fm_nb_graph_spec(), gen_wire))
     for (label, kind, cfg, freqs, stim, iters), g in specs:
         counts = graph_path(label, kind, cfg, freqs, stim, iters, g,
                             gpu_label)
@@ -4730,6 +4893,21 @@ def main() -> int:
         profile_serving(gen_serve, smi, only)
         profile_shard(gen_shard, smi, only)
         return 0
+    if sys.argv[1:] == ["--blanker"]:
+        # K10 alone, and the graphed NBFM listener bitwise its eager step
+        gen_nb = torch.Generator(device="cuda")
+        gen_nb.manual_seed(SEED + 18)
+        results = {}
+        check_blanker(gen_nb, results, smi)
+        gen_wire = torch.Generator(device="cuda")
+        gen_wire.manual_seed(SEED + 16)
+        counts = graph_path(*fm_nb_graph_spec(), gen_wire, smi)
+        if counts["launches"]["blanker_int16"] != GRAPH_BLOCKS:
+            raise AssertionError(f"fm nb int16: {counts['launches']}")
+        print(json.dumps({"blanker_int16": results["blanker_int16"]}))
+        print(smi)
+        print(json.dumps({"ok": True}))
+        return 0
     if sys.argv[1:] == ["--profile"]:
         profile_paths(gen, smi)
         profile_serving(gen_serve, smi)
@@ -4761,6 +4939,9 @@ def main() -> int:
     check_solve_rows(gen_rows)
     check_hang_solve(gen_rows, results)
     check_biquad(gen_rows, results)
+    gen_nb = torch.Generator(device="cuda")          # K10's
+    gen_nb.manual_seed(SEED + 18)
+    check_blanker(gen_nb, results, smi)
     check_agcseq(gen_new, results)
     gen_skip = torch.Generator(device="cuda")        # the skip flags'
     gen_skip.manual_seed(SEED + 13)

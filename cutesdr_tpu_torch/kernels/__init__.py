@@ -5,7 +5,8 @@ PyTorch version (in the same module) for CPU tensors.  ``LAUNCHES`` counts
 kernel launches per wrapper — incremented only where a kernel is launched
 — so a run can show that the main path went through the kernels (K1's
 launches over int16 planes count under ``mixdec_int16``, the others under
-``mixdec``).  A replayed CUDA graph of the receiver's step adds the
+``mixdec``; the blanker's, over int16 planes alone, under
+``blanker_int16``).  A replayed CUDA graph of the receiver's step adds the
 launches it captured on every replay (``pipeline/stepgraph``).
 
 ``DeviceCounts`` keeps the counts that the step decides on the device
@@ -23,7 +24,7 @@ import torch
 LAUNCHES = {"mixdec": 0, "mixdec_int16": 0, "fastfir": 0, "fastfir_batch": 0,
             "scan_plain": 0, "scan_solve": 0, "smeter": 0, "seqloop_fm": 0,
             "seqloop_sam": 0, "resamp": 0, "agcseq": 0, "hang_solve": 0,
-            "biquad": 0}
+            "biquad": 0, "blanker_int16": 0}
 
 
 def reset_launches() -> None:

@@ -42,6 +42,7 @@ I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 U32 = ctypes.c_uint32
 F32 = ctypes.c_float
+F64 = ctypes.c_double
 
 # C signatures: name -> argument types (every entry returns a cudaError_t)
 SIGNATURES = {
@@ -95,6 +96,10 @@ SIGNATURES = {
     # n_streams, yr, yi, y_cstride, ys, stream
     "cutesdr_resamp": [P, P, I64, I32, I32, P, P, I64, I32, P, I32, I32, I32,
                        I32, I32, I32, I32, I32, P, P, I64, I32, P],
+    # re, im, in_cstride, mag_tail, trig_tail, sig_tail, n, rows, M, W, D1,
+    # ratio, tile, out_re, out_im, new_mag, new_trig, new_sig, stream
+    "cutesdr_blanker": [P, P, I64, P, P, P, I32, I32, I32, I32, I32, F64, I32,
+                        P, P, P, P, P, P],
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,10 @@ self-compare of its change detection (dsp/noiseproc.cpp:82) is not
 replicated.
 
 ``process_planes`` takes the float32 re/im planes the receiver's front end
-works on; ``process`` a complex block; ``process_with_history`` the
+works on; ``process_int16`` the radio's int16 planes, as the graphed
+receiver holds them (one launch of K10, ``kernels/blanker``: the moving sum
+in integers, exact, and int16 planes out; on the CPU its plain version);
+``process`` a complex block; ``process_with_history`` the
 stateless form over [history | block] that the time-sharded receiver
 runs.  The carry is the JAX package's:
 magnitude and trigger histories and the complex delay-line tail.  A
@@ -29,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from cutesdr_tpu_torch.kernels import blanker
 from cutesdr_tpu_torch.ops.util import moving_sum, sliding_window_max
 from cutesdr_tpu_torch.types import CDTYPE, RDTYPE
 
@@ -134,6 +138,22 @@ def process_planes(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,
     carry, keep, zr, zi = _gate(cfg, carry, re, im)
     zero = zr.new_zeros(())
     return carry, torch.where(keep, zr, zero), torch.where(keep, zi, zero)
+
+
+def process_int16(cfg: BlankerConfig, carry: BlankerCarry, re: torch.Tensor,
+                  im: torch.Tensor):
+    """One block as int16 planes: returns (carry', re', im') with re', im'
+    int16, the blanked samples zero and the output delayed by
+    delay_samples+1.  The same blanker as ``process_planes`` with its sums
+    exact: where ``process_planes``' float32 sums are exact too, the same
+    samples are blanked and the outputs are its outputs' values."""
+    if not cfg.on:
+        return carry, re, im
+    out_re, out_im, mag, trig, sig = blanker.blank_int16(
+        re, im, carry.mag_tail, carry.trig_tail, carry.sig_tail,
+        cfg.mag_samples, cfg.width_samples, cfg.ratio)
+    return BlankerCarry(mag_tail=mag, trig_tail=trig, sig_tail=sig), \
+        out_re, out_im
 
 
 def process_joined(cfg: BlankerConfig, carry: BlankerCarry,

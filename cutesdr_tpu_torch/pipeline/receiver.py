@@ -395,10 +395,18 @@ def migrate_state(old_cfg: ReceiverConfig, old: ReceiverState,
 
 def _blank(cfg: ReceiverConfig, carry, re: torch.Tensor, im: torch.Tensor,
            probes):
-    """The noise blanker over one block of planes.  With a probes dict its
-    output is one complex64 block, recorded as ``p7_blanker``, whose
+    """The noise blanker over one block of planes: int16 planes take its
+    int16 route (K10; int16 planes out, which K1 reads as they are), float
+    planes its float route.  With a probes dict its output is also one
+    complex64 block, recorded as ``p7_blanker``; on the float route its
     real and imaginary views go on as the planes."""
     nb = _nb_cfg(cfg)
+    if re.dtype == torch.int16:
+        carry, re, im = noiseblanker.process_int16(nb, carry, re, im)
+        if probes is not None:
+            probes["p7_blanker"] = torch.complex(re.to(RDTYPE),
+                                                 im.to(RDTYPE))
+        return carry, re, im
     if probes is None:
         return noiseblanker.process_planes(nb, carry, re, im)
     carry, y = noiseblanker.process_joined(nb, carry, re, im)
@@ -417,7 +425,8 @@ def _front_prefilter(cfg: ReceiverConfig, params: ReceiverParams,
     channel axis, a view)."""
     nb_c = state.blanker
     if cfg.nb_on:
-        re, im = re.to(RDTYPE), im.to(RDTYPE)   # the blanker's float planes
+        if not (re.dtype == im.dtype == torch.int16):
+            re, im = re.to(RDTYPE), im.to(RDTYPE)   # the blanker's float planes
         shared = re.dim() == 1 and nb_c.mag_tail.dim() == 2
         if shared:
             n_ch = nb_c.mag_tail.shape[0]
@@ -533,8 +542,8 @@ def receiver_step_planes(cfg: ReceiverConfig, params: ReceiverParams,
                          im: torch.Tensor
                          ) -> tuple[ReceiverState, StepOutput]:
     """One block of cfg.block_size samples given as float32 or int16 re/im
-    planes (K1 reads int16 planes as they are; the blanker, where it is
-    on, their float32 cast): ``front`` then ``back_end``.  With
+    planes (K1 reads int16 planes as they are, and so does the blanker
+    where it is on, on its int16 route): ``front`` then ``back_end``.  With
     ``cfg.probes`` the output's ``probes`` holds the testbench's named
     taps (gui/testbench.h:29-38): references to tensors the step computes
     anyway, never copies, never read on the host."""

@@ -205,9 +205,9 @@ def test_kernel_library_is_built_from_the_checkout():
     from cutesdr_tpu_torch.kernels import _build
 
     names = sorted(p.name for p in _build._sources())
-    assert names == ["agcseq.cu", "common.cuh", "fastfir.cu", "iir.cu",
-                     "mixdec.cu", "resamp.cu", "scan.cu", "scan_common.cuh",
-                     "seqloop.cu", "smeter.cu"]
+    assert names == ["agcseq.cu", "blanker.cu", "common.cuh", "fastfir.cu",
+                     "iir.cu", "mixdec.cu", "resamp.cu", "scan.cu",
+                     "scan_common.cuh", "seqloop.cu", "smeter.cu"]
     assert str(_build.BUILD_ROOT.parent) == os.path.join(ROOT, "build")
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "build/" in f.read().split()
